@@ -1,0 +1,67 @@
+"""Public wrappers around the GEMM kernel: matmul, im2col, conv2d.
+
+Each takes ``use_kernel`` (default True), the counterpart of the
+reference's ``use_pallas``: True routes through
+:func:`repro_torch.kernels.gemm.gemm` (the Hopper kernel on CUDA tensors,
+its plain version on CPU tensors); False runs the plain oracle in
+:mod:`repro_torch.kernels.ref`.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.gemm import GemmConfig, gemm, gemm_config_from_knobs
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           config: GemmConfig = GemmConfig(),
+           use_kernel: bool = True) -> torch.Tensor:
+    if not use_kernel:
+        return ref.matmul_ref(a, b)
+    return gemm(a, b, config)
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int, pad: int
+           ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """x: (B, H, W, CI) -> patches (B*OH*OW, KH*KW*CI), plus (OH, OW).
+
+    Feature ordering matches ``w.reshape(KH*KW*CI, CO)`` for HWIO weights.
+    """
+    b, _, _, ci = x.shape
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    # (B, OH, OW, CI, KH, KW): unfold appends the window dims after CI —
+    # reorder features to (KH, KW, CI) to match HWIO weight flattening.
+    patches = xp.unfold(1, kh, stride).unfold(2, kw, stride)
+    oh, ow = patches.shape[1], patches.shape[2]
+    patches = patches.permute(0, 1, 2, 4, 5, 3)
+    return patches.reshape(b * oh * ow, kh * kw * ci), (oh, ow)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
+           config: GemmConfig = GemmConfig(),
+           use_kernel: bool = True) -> torch.Tensor:
+    """Conv as im2col + the tunable GEMM core. x: NHWC, w: HWIO."""
+    if not use_kernel:
+        return ref.conv2d_ref(x, w, stride, pad)
+    b = x.shape[0]
+    kh, kw, ci, co = w.shape
+    patches, (oh, ow) = im2col(x, kh, kw, stride, pad)
+    out = gemm(patches, w.reshape(kh * kw * ci, co), config)
+    return out.reshape(b, oh, ow, co)
+
+
+def conv2d_from_knobs(x, w, stride, pad, *, tile_b, tile_h, tile_w,
+                      tile_ci, tile_co, h_threading, oc_threading,
+                      use_kernel: bool = True):
+    """Execute a conv with an ARCO configuration (knob values)."""
+    kh, kw = w.shape[0], w.shape[1]
+    cfg = gemm_config_from_knobs(
+        tile_m=tile_b * tile_h * tile_w,
+        tile_n=tile_co,
+        tile_k=tile_ci * kh * kw,
+        h_threading=h_threading, oc_threading=oc_threading)
+    return conv2d(x, w, stride, pad, cfg, use_kernel)

@@ -1,0 +1,1 @@
+"""Optimizers (Adam with the reference's global-norm clip)."""

@@ -1,0 +1,98 @@
+"""Port parity: the CNN forward pass with weights carried over from the
+reference, task extraction (Table 3), and weight loading."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from _torch_support import one_torch_thread  # noqa: F401
+from repro.kernels.gemm import gemm_config_from_knobs as j_knobs
+from repro.models import cnn as JC
+from repro_torch.core.task import (conv_tasks, network_flops,
+                                   network_latency, total_conv_layers)
+from repro_torch.kernels import gemm as TG
+from repro_torch.models import cnn as TC
+
+
+def _jax_params(model, seed=0):
+    params = JC.init_params(jax.random.PRNGKey(seed), model)
+    return jax.tree.map(np.asarray, params)
+
+
+@pytest.mark.parametrize("model,hw", [("resnet-18", 32), ("vgg-11", 32),
+                                      ("alexnet", 64)])
+def test_apply_matches_reference(model, hw):
+    tree = _jax_params(model)
+    x = np.random.default_rng(0).standard_normal((2, hw, hw, 3)).astype(
+        np.float32)
+    want = np.asarray(JC.apply(tree, jnp.asarray(x), model, use_pallas=False))
+    net = TC.params_from_jax(tree, model, device="cpu")
+    launches = TG.gemm.launches
+    got = TC.apply(net, torch.from_numpy(x)).detach().numpy()
+    assert TG.gemm.launches == launches  # CPU tensors: plain version
+    assert got.shape == want.shape == (2, 1000)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * scale)
+    plain = net(torch.from_numpy(x), use_kernel=False).detach().numpy()
+    np.testing.assert_allclose(plain, want, rtol=0, atol=1e-4 * scale)
+
+
+def test_apply_with_knob_configs_matches_reference():
+    """Per-layer tuned geometries (as ARCO emits them) change no result."""
+    model = "resnet-18"
+    tree = _jax_params(model, seed=1)
+    specs = TC.conv_specs(model)
+    rng = np.random.default_rng(2)
+    knobs = [(int(2 ** rng.integers(0, 6)), int(2 ** rng.integers(0, 9)),
+              int(2 ** rng.integers(0, 6)) * s.kh * s.kw,
+              int(rng.choice([1, 2, 4])), int(rng.choice([1, 2, 4])))
+             for s in specs]
+    j_cfgs = [j_knobs(*k) for k in knobs]
+    t_cfgs = [TG.gemm_config_from_knobs(*k) for k in knobs]
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(JC.apply(tree, jnp.asarray(x), model, configs=j_cfgs,
+                               use_pallas=False))
+    net = TC.params_from_jax(tree, model, device="cpu")
+    got = net(torch.from_numpy(x), t_cfgs).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
+
+
+def test_params_from_jax_and_init_params():
+    tree = _jax_params("resnet-18")
+    net = TC.params_from_jax(tree, "resnet-18", device="cpu")
+    for i, c in enumerate(tree["convs"]):
+        np.testing.assert_array_equal(net.conv_w[i].detach().numpy(), c["w"])
+    np.testing.assert_array_equal(net.fc_w.detach().numpy(), tree["fc"]["w"])
+    a = TC.init_params(3, "resnet-18", device="cpu")
+    b = TC.init_params(3, "resnet-18", device="cpu")
+    for pa, pb, c in zip(a.conv_w, b.conv_w, tree["convs"]):
+        assert pa.shape == c["w"].shape
+        assert torch.equal(pa, pb)
+    # He-normal scale, as the reference draws it
+    w = a.conv_w[5].detach().numpy()
+    assert abs(w.std() / np.sqrt(2.0 / (9 * 64)) - 1) < 0.05
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        assert TC.init_params(0, "resnet-18").fc_w.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TC.init_params(0, "resnet-18")
+
+
+def test_task_extraction_matches_table3():
+    for model in TC.MODELS:
+        assert total_conv_layers(model) == TC.expected_task_count(model)
+        tasks = conv_tasks(model)
+        assert sum(t.multiplicity for t in tasks) == \
+            TC.expected_task_count(model)
+        assert TC.conv_specs(model) == [TC.ConvSpec(**vars(s))
+                                        for s in JC.conv_specs(model)]
+    assert network_flops("resnet-18", 8) == sum(
+        s.flops(8) for s in JC.conv_specs("resnet-18"))
+    tasks = conv_tasks("resnet-18")
+    assert abs(network_latency(tasks, {t.name: 1e-3 for t in tasks})
+               - 17e-3) < 1e-9
