@@ -3,22 +3,40 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path on ``cuda:0``, the paper's own loop at full
-ResNet-18 width:
+Drives the port's two paths on ``cuda:0``: the paper's own loop at full
+ResNet-18 width, and the LM server at qwen2-1.5b's full width and depth.
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the Hopper GEMM kernel from ``src/repro_torch/kernels/csrc``;
-3. holds the kernel against its plain PyTorch version on the card: the
-   reference test shapes and configs (fp32 and bf16), and the 8 ResNet-18
-   im2col shapes at batch 8 under the default and knob-derived configs;
+2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, all at once;
+3. holds each kernel against its plain PyTorch version on the card, fp32
+   and bf16: the reference test shapes and configs, the 8 ResNet-18 im2col
+   shapes at batch 8 under the default and knob-derived configs, and the
+   LM's shapes (RMSNorm over (1024, 1536) and (8, 1536); causal flash over
+   B=1, S in {256, 1000, 2048}, 12 query and 2 KV heads, head_dim 128);
 4. tunes the 8 ResNet-18 conv tasks (batch 8) with the port's ``Session``;
 5. deploys: runs ResNet-18 at 224x224, batch 8, fp32, seeded weights, each
-   conv layer through the kernel with its tuned geometry, and compares the
+   conv layer through the GEMM with its tuned geometry, and compares the
    logits with the plain path (cuDNN fp32 convolutions, TF32 off); the
-   kernel's launch counter must rise by exactly 17 in that forward;
-6. times each main-path GEMM shape (kernel, plain version, one
+   GEMM's launch counter must rise by exactly 17 in that forward;
+6. times each ResNet-18 GEMM shape (kernel, plain version, one
    ``torch.matmul`` call as a yardstick, and the card's bound) and the
-   forward, and prints one JSON line with the kernel table.
+   forward;
+7. qwen2-1.5b with seeded random weights: the kernel path against the
+   plain path (prefill + teacher-forced decode, 2 prompts) in fp32, gated
+   at 1e-4 of max |logit|, then with the weights cast to bf16, gated at
+   5e-2;
+8. serves 16 requests (prompts of 128-1024 tokens, 32 new tokens each)
+   through ``Server(n_slots=8, max_len=2048)`` in bf16, with the RMSNorm
+   and flash launch counts set to 0 just before and checked at every
+   step (a prefill: flash 28, RMSNorm 57; a decode step: RMSNorm 57,
+   flash 0), and reports tokens/s, prefill ms by prompt length and the
+   decode step with 8 active slots;
+9. profiles one prefill and a few decode steps (``torch.profiler``):
+   host wall vs device busy time, kernels launched, the top kernels;
+10. times the two LM kernels at the serving run's shapes (kernel and one
+   PyTorch call as device time in a CUDA graph, plain version, bound) and
+   prints one JSON line with the three kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, so the script exits non-zero and prints no result; without a GPU,
@@ -43,10 +61,38 @@ FP32_FLOPS = 67e12        # fp32 outside the tensor cores: the kernel has no TF3
 FP32_TOL = 5e-5           # max |kernel - plain| / max |plain|: two fp32 sums
 BF16_TOL = 1e-2           # ... both rounded once to bf16 (2^-8 relative step)
 FORWARD_TOL = 1e-4        # max |logit diff| / max |logit|, as the CPU tests
+BF16_FLOPS = 989e12       # dense bf16 tensor-core peak (the flash bound)
+KERNELS = ("gemm", "rmsnorm", "flash_attention")
 REFERENCE_SHAPES = [(8, 8, 8), (100, 70, 90), (128, 128, 128), (1, 256, 33),
                     (257, 129, 65)]
 REFERENCE_CONFIGS = [(32, 32, 32, True, True), (128, 128, 128, True, True),
                      (16, 64, 128, False, True), (8, 128, 256, True, False)]
+# LM serving path: qwen2-1.5b at its published width and depth, bf16
+LM_ARCH = "qwen2-1.5b"
+LM_SLOTS, LM_MAX_LEN = 8, 2048
+LM_REQUESTS, LM_NEW = 16, 32
+LM_PROMPT = (128, 1024)   # prompt lengths drawn uniformly in this range
+PREFILL_BINS = (128, 256, 512)
+LM_GATE_REQUESTS, LM_GATE_STEPS = 2, 4
+LM_TOL_FP32 = 1e-4        # max |logit diff| / max |logit|, kernel vs plain
+LM_TOL_BF16 = 5e-2        # the same in bf16: both paths round every layer's
+                          # output to bf16 (2^-8), 28 layers compound it
+FLASH_TIMED_S = (256, 1024, 2048)
+NORM_TIMED_ROWS = 1024
+# (shape, on the serving path): the reference's test shapes, then the path's
+RMSNORM_CHECKS = [((4, 64), False), ((2, 100, 96), False),
+                  ((1, 7, 33), False), ((129, 256), False),
+                  ((1024, 1536), True), ((8, 1536), True)]
+# ((B, S, HQ, HKV, D, causal, window, block_q, block_k), on the path)
+FLASH_CHECKS = (
+    [((2, 100, hq, hkv, 16, causal, window, 32, 32), False)
+     for hq, hkv in ((4, 4), (4, 2), (6, 1))
+     for causal, window in ((True, None), (False, None), (True, 32))]
+    + [((1, s, 2, 2, 8, causal, None, bq, bk), False)
+       for s, bq, bk, causal in ((3, 16, 16, True), (37, 16, 64, False),
+                                 (70, 32, 16, True))]
+    + [((1, s, 12, 2, 128, True, None, 128, 128), True)
+       for s in (256, 1000, 2048)])
 
 
 class SmokeFailure(RuntimeError):
@@ -120,11 +166,15 @@ def phase_card() -> str:
 
 
 def phase_build() -> float:
-    from repro_torch.kernels import gemm as G
+    """Builds the three kernels, one nvcc each, all started together."""
+    from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    path = G.build()
+    per_kernel = _build.build_all(KERNELS)
     dt = time.perf_counter() - t0
-    log(f"[build] {os.path.relpath(path, ROOT)} in {dt:.1f} s")
+    for name, secs in per_kernel.items():
+        log(f"[build] {os.path.relpath(_build.build(name), ROOT)} "
+            f"in {secs:.1f} s")
+    log(f"[build] {len(per_kernel)} kernels in {dt:.1f} s (in parallel)")
     return dt
 
 
@@ -304,6 +354,413 @@ def phase_time_shapes(dev, per_shape):
     return rows
 
 
+# -------------------------------------------------------- LM serving path
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of one call of ``fn`` without the host's launch
+    overhead: ``reps`` calls captured in one CUDA graph, replayed, timed
+    by CUDA events.  For kernels shorter than their Python launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def lm_config(dtype):
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH).with_(dtype=dtype, param_dtype=dtype)
+
+
+def phase_check_lm_kernels(dev) -> dict:
+    """RMSNorm and flash kernels vs their plain versions on the card: the
+    reference's test cases and the serving path's shapes, fp32 and bf16.
+    Returns each kernel's largest absolute error at the path's shapes in
+    bf16, the dtype the path serves in."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    n_checks = 0
+    for shape, on_path in RMSNORM_CHECKS:
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            w = torch.randn(shape[-1], generator=gen, device=dev).to(dtype)
+            got = RN.rmsnorm(x, w)
+            want = RN.rmsnorm(x, w, use_kernel=False)
+            torch.cuda.synchronize()
+            diff, rel = rel_err(got, want)
+            check(got.dtype == dtype and rel <= tol,
+                  f"rmsnorm {shape} {dtype}: rel err {rel:.3g}")
+            if on_path:
+                log(f"[check] rmsnorm {shape} {dtype} run="
+                    f"{RN.rmsnorm.last_geometry['run']} max_abs_err="
+                    f"{diff:.3g} rel={rel:.3g}")
+                if dtype == torch.bfloat16:
+                    worst["rmsnorm"] = max(worst["rmsnorm"], diff)
+            n_checks += 1
+    for (b, s, hq, hkv, d, causal, window, bq, bk), on_path in FLASH_CHECKS:
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            q, k, v = (torch.randn(b, s, h, d, generator=gen,
+                                   device=dev).to(dtype)
+                       for h in (hq, hkv, hkv))
+            got = FA.flash_attention(q, k, v, causal, window, None, bq, bk)
+            run = FA.flash_attention.last_geometry["run"]
+            want = FA.flash_attention(q, k, v, causal, window, None, bq, bk,
+                                      use_kernel=False)
+            torch.cuda.synchronize()
+            diff, rel = rel_err(got, want)
+            case = (b, s, hq, hkv, d, causal, window)
+            check(got.dtype == dtype and rel <= tol,
+                  f"flash {case} {dtype}: rel err {rel:.3g}")
+            if on_path:
+                log(f"[check] flash B={b} S={s} HQ={hq} HKV={hkv} D={d} "
+                    f"{dtype} run={run} max_abs_err={diff:.3g} "
+                    f"rel={rel:.3g}")
+                if dtype == torch.bfloat16:
+                    worst["flash_attention"] = max(
+                        worst["flash_attention"], diff)
+            n_checks += 1
+    log(f"[check] {n_checks} RMSNorm/flash kernel-vs-plain checks passed "
+        f"(fp32 tol {FP32_TOL} x max|plain|, bf16 {BF16_TOL})")
+    return worst
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def _path_vs_plain(params, cfg, prompts, dev) -> float:
+    """Largest logit difference / max |logit| between the kernel path and
+    the plain path: prefill, then LM_GATE_STEPS teacher-forced decode
+    steps, for each prompt (each continued by its own drawn tokens)."""
+    import torch
+    from repro_torch.models import transformer as T
+    worst = 0.0
+    for toks in prompts:
+        t = torch.as_tensor(toks[None], device=dev)
+        n = t.shape[1] - LM_GATE_STEPS
+        caches, logits = [], []
+        for use_kernel in (True, False):
+            lg, cache = T.prefill(params, {"tokens": t[:, :n]}, cfg,
+                                  n + LM_GATE_STEPS + 1,
+                                  use_kernel=use_kernel)
+            caches.append(cache)
+            logits.append(lg)
+        for i in range(n, n + LM_GATE_STEPS + 1):
+            check(bool(torch.isfinite(logits[0]).all()), "non-finite logits")
+            worst = max(worst, rel_err(logits[0], logits[1])[1])
+            if i == n + LM_GATE_STEPS:
+                break
+            for j, use_kernel in enumerate((True, False)):
+                logits[j], caches[j] = T.decode_step(
+                    params, caches[j], t[:, i:i + 1], cfg,
+                    use_kernel=use_kernel)
+    return worst
+
+
+def phase_lm_gate(dev):
+    """qwen2-1.5b at full width with seeded random weights: the kernel
+    path against the plain path on the card, in fp32 (gated at
+    LM_TOL_FP32) and then, with the same weights cast, in bf16 (gated at
+    LM_TOL_BF16).  Returns the bf16 weights for the serving phase."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    cfg32 = lm_config(torch.float32)
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg32.vocab,
+                            size=int(n) + LM_GATE_STEPS).astype(np.int64)
+               for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1,
+                                     size=LM_GATE_REQUESTS)]
+    t0 = time.perf_counter()
+    params = T.init_params(SEED, cfg32, device=dev)
+    torch.cuda.synchronize()
+    log(f"[lm] {LM_ARCH} full width: {cfg32.n_layers} layers, d_model "
+        f"{cfg32.d_model}, {cfg32.n_heads}/{cfg32.n_kv_heads} heads, d_ff "
+        f"{cfg32.d_ff}, vocab {cfg32.vocab}, {T.param_count(params)/1e9:.3f}"
+        f" B params, seeded fp32 init {time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        rel32 = _path_vs_plain(params, cfg32, prompts, dev)
+    check(rel32 <= LM_TOL_FP32, f"fp32 kernel path vs plain path: logits "
+                                f"rel err {rel32:.3g} > {LM_TOL_FP32}")
+    log(f"[lm] fp32 kernel path vs plain path, prompts "
+        f"{[len(p) - LM_GATE_STEPS for p in prompts]}, prefill + "
+        f"{LM_GATE_STEPS} decode steps: max |logit diff| / max |logit| = "
+        f"{rel32:.3g} (gate {LM_TOL_FP32})")
+    params = _cast(params, torch.bfloat16)
+    torch.cuda.empty_cache()
+    cfg16 = lm_config(torch.bfloat16)
+    with torch.no_grad():
+        rel16 = _path_vs_plain(params, cfg16, prompts, dev)
+    check(rel16 <= LM_TOL_BF16, f"bf16 kernel path vs plain path: logits "
+                                f"rel err {rel16:.3g} > {LM_TOL_BF16}")
+    log(f"[lm] bf16 kernel path vs plain path: {rel16:.3g} (gate "
+        f"{LM_TOL_BF16})")
+    return params, cfg16, rel32, rel16
+
+
+def phase_serve(dev, params, cfg):
+    """The serving path: ``Server(n_slots=8, max_len=2048)`` in bf16 serves
+    16 requests (prompts drawn in LM_PROMPT, LM_NEW new tokens each).  The
+    RMSNorm and flash launch counts are set to 0 just before and read just
+    after, and checked step by step: each prefill launches flash once a
+    layer and RMSNorm 2 n_layers + 1 times, each decode step RMSNorm
+    2 n_layers + 1 times and flash never."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.train.server import DONE, Request, Server
+    srv = Server(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    srv.submit(Request(uid=-1, prompt=np.arange(16, dtype=np.int32),
+                       max_new_tokens=2))
+    srv.run_until_drained()                     # warm-up, not counted
+    rng = np.random.default_rng(SEED + 5)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=int(n))
+                    .astype(np.int32), max_new_tokens=LM_NEW)
+            for i, n in enumerate(lens)]
+    norms = 2 * cfg.n_layers + 1
+    FA.flash_attention.launches = 0   # the serving path starts here
+    RN.rmsnorm.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        srv.submit(r)
+    prefills = decodes = 0
+    full_step_ms = []
+    while srv.active or srv.queue:
+        f0, r0 = FA.flash_attention.launches, RN.rmsnorm.launches
+        queued, was_active = len(srv.queue), len(srv.active)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        finished = srv.step()
+        end.record()
+        admitted = queued - len(srv.queue)
+        decoded = int(len(srv.active) + len(finished) > 0)
+        check(FA.flash_attention.launches - f0 == cfg.n_layers * admitted,
+              f"flash launched {FA.flash_attention.launches - f0} times for "
+              f"{admitted} prefills")
+        check(RN.rmsnorm.launches - r0 == norms * (admitted + decoded),
+              f"rmsnorm launched {RN.rmsnorm.launches - r0} times for "
+              f"{admitted} prefills and {decoded} decode steps")
+        prefills += admitted
+        decodes += decoded
+        if admitted == 0 and was_active == LM_SLOTS:
+            end.synchronize()
+            full_step_ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": FA.flash_attention.launches,
+                "rmsnorm": RN.rmsnorm.launches}   # the serving path ends here
+    check(all(r.status == DONE and len(r.output) == LM_NEW for r in reqs)
+          and not srv.rejected and not srv.abandoned,
+          f"served {sum(r.status == DONE for r in reqs)}/{LM_REQUESTS}, "
+          f"rejected {len(srv.rejected)}, abandoned {len(srv.abandoned)}")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.output),
+          "generated token out of the vocabulary")
+    check(launches["flash_attention"] == cfg.n_layers * prefills
+          and launches["rmsnorm"] == norms * (prefills + decodes),
+          f"serving launch counts {launches}")
+    tokens = sum(len(r.output) for r in reqs)
+    log(f"[serve] {LM_ARCH} bf16, {LM_SLOTS} slots, max_len {LM_MAX_LEN}: "
+        f"{LM_REQUESTS}/{LM_REQUESTS} done, 0 rejected, 0 abandoned; "
+        f"{prefills} prefills, {decodes} decode steps; launches {launches}: "
+        f"flash {cfg.n_layers} and rmsnorm {norms} a prefill, rmsnorm "
+        f"{norms} and flash 0 a decode step")
+    bins = {}
+    for r in reqs:
+        lo = next(b for b in PREFILL_BINS[::-1] if len(r.prompt) >= b)
+        bins.setdefault(lo, []).append(r.prefill_s * 1e3)
+    prefill_ms = {f">={lo}": (float(np.mean(v)), len(v))
+                  for lo, v in sorted(bins.items())}
+    step_ms = float(np.mean(full_step_ms)) if full_step_ms else None
+    log(f"[serve] {tokens} tokens in {wall:.3f} s: {tokens / wall:.1f} "
+        f"generated tokens/s; mean prefill ms by prompt length "
+        f"{ {k: round(v[0], 3) for k, v in prefill_ms.items()} } (requests "
+        f"{ {k: v[1] for k, v in prefill_ms.items()} }); decode step with "
+        f"{LM_SLOTS} active slots {step_ms:.3f} ms (mean of "
+        f"{len(full_step_ms)}, CUDA events)")
+    return {"launches": launches, "prefills": prefills, "decodes": decodes,
+            "prompt_lens": [int(n) for n in lens], "wall_s": wall,
+            "tokens": tokens, "tokens_per_s": tokens / wall,
+            "prefill_ms_by_len": prefill_ms, "decode_step_ms": step_ms,
+            "decode_steps_timed": len(full_step_ms)}
+
+
+def phase_profile_serve(dev, params, cfg) -> dict:
+    """Where a serving step's time goes: ``torch.profiler`` over one
+    prefill of the longest prompt and over 4 decode steps of 8 slots at
+    position 512, each ending in a synchronize.  Reports host wall ms,
+    device busy ms (the CUDA kernels' summed durations), the device's idle
+    share and kernels launched, per prefill and per decode step.  The
+    profiler is untried on that machine: if it records no device time the
+    phase says "not measured" and the run goes on."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    toks = torch.as_tensor(np.arange(LM_PROMPT[1]) % cfg.vocab,
+                           device=dev)[None]
+    cache = T.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    cache["pos"][:] = 512
+    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    runs = {"prefill": (1, lambda: T.prefill(params, {"tokens": toks}, cfg,
+                                             LM_MAX_LEN)),
+            "decode_step": (4, lambda: T.decode_step(params, cache, last,
+                                                     cfg))}
+    out = {}
+    for name, (reps, fn) in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+        if not kernels or busy_ms <= 0:
+            log(f"[profile] {name}: device time not measured (the profiler "
+                f"recorded no CUDA kernel); host wall {wall_ms:.3f} ms")
+            continue
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.elapsed_us() / 1e3 / reps)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                     "device_idle_share": 1.0 - busy_ms / wall_ms,
+                     "kernels": len(kernels) / reps,
+                     "top": [(k[:60], v) for k, v in top]}
+        log(f"[profile] {name}: host wall {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / wall_ms):.1f}%), "
+            f"{len(kernels) / reps:.0f} kernels; top by device time: "
+            + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+    return out
+
+
+def phase_time_lm_kernels(dev, cfg, serve) -> list:
+    """Each LM kernel at the serving path's shapes, bf16: kernel and one
+    PyTorch call by device_ms, the plain version by CUDA events, and the
+    bound.  A kernel's totals are over the serving run's launches: each
+    shape's times multiplied by its launches there (every prompt length
+    for prefill, (8, d_model) rows for the decode steps' norms).  The
+    canonical shapes (flash at S 256, 1024, 2048; RMSNorm at 1024 rows)
+    are logged too."""
+    import collections
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    dt, d = torch.bfloat16, cfg.d_model
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    randn = lambda *shape: torch.randn(shape, generator=gen,
+                                       device=dev).to(dt)
+
+    def bound(t_ops, t_bytes) -> dict:
+        return {"bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def rmsnorm_row(rows) -> dict:
+        x, w = randn(rows, d), randn(d)
+        return {"shape": [rows, d],
+                "ms": device_ms(lambda: RN.rmsnorm(x, w)),
+                "plain_ms": cuda_ms(lambda: RN.rmsnorm_plain(x, w), reps=3),
+                "library_ms": device_ms(lambda: F.rms_norm(x, (d,), w,
+                                                           1e-6)),
+                **bound(4.0 * rows * d / FP32_FLOPS * 1e3,
+                        2.0 * (2 * rows * d + d) / HBM_BYTES_PER_S * 1e3)}
+
+    def flash_row(s) -> dict:
+        q, k, v = randn(1, s, hq, hd), randn(1, s, hkv, hd), randn(1, s, hkv,
+                                                                   hd)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        geom = FA.legalize(128, 128, s, hd)
+        flops = 2.0 * hq * hd * s * (s + 1)  # 2 GEMMs over S(S+1)/2 pairs
+        row = {"shape": [1, s, hq, hkv, hd],
+               "run": [geom.bq, geom.bk, geom.dp],
+               "ms": device_ms(lambda: FA.flash_attention(q, k, v)),
+               "plain_ms": cuda_ms(lambda: FA.flash_attention_plain(
+                   q, k, v, True, None, hd ** -0.5, geom), reps=1),
+               "library_ms": device_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True)),
+               **bound(flops / BF16_FLOPS * 1e3,
+                       2.0 * s * hd * (2 * hq + 2 * hkv)
+                       / HBM_BYTES_PER_S * 1e3)}
+        row["tflops"] = flops / row["ms"] / 1e9
+        return row
+
+    def log_row(name, r, launches=None):
+        extra = (f" run={r['run']} {r['tflops']:.2f} TFLOP/s,"
+                 if "run" in r else "")
+        times = "" if launches is None else f" x{launches} launches"
+        log(f"[time] {name} {r['shape']} bf16{times}:{extra} kernel "
+            f"{r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+
+    norms = 2 * cfg.n_layers + 1
+    counts = {"rmsnorm": collections.Counter(), "flash_attention":
+              collections.Counter()}
+    for n in serve["prompt_lens"]:
+        counts["rmsnorm"][n] += norms
+        counts["flash_attention"][n] += cfg.n_layers
+    counts["rmsnorm"][LM_SLOTS] += norms * serve["decodes"]
+    kernels = []
+    for name, row_fn in (("rmsnorm", rmsnorm_row),
+                         ("flash_attention", flash_row)):
+        cnt = counts[name]
+        check(sum(cnt.values()) == serve["launches"][name],
+              f"{name}: timed shapes cover {sum(cnt.values())} launches, "
+              f"the run made {serve['launches'][name]}")
+        rows = {n: row_fn(n) for n in sorted(cnt)}
+        for n, r in rows.items():
+            log_row(name, r, cnt[n])
+        tot = {key: sum(rows[n][key] * cnt[n] for n in rows)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_ops = sum(rows[n]["bound_ms"] * cnt[n] for n in rows
+                     if rows[n]["bound_by"] == "operations")
+        tot["bound_by"] = ("operations" if 2 * by_ops >= tot["bound_ms"]
+                           else "bytes")
+        tot["launches"] = serve["launches"][name]
+        tot["shapes"] = [dict(r, launches=cnt[n]) for n, r in rows.items()]
+        log(f"[time] {name} over the serving run's {tot['launches']} "
+            f"launches: kernel {tot['ms']:.3f} ms, library "
+            f"{tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.1f} ms, "
+            f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+        kernels.append((name, tot))
+    for s in FLASH_TIMED_S:
+        log_row("flash_attention", flash_row(s))
+    log_row("rmsnorm", rmsnorm_row(NORM_TIMED_ROWS))
+    return kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -330,12 +787,17 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     build_s = phase_build()
     check_err = phase_check_kernel(dev)
+    lm_check_err = phase_check_lm_kernels(dev)
     from repro_torch.kernels import gemm as G
     G.gemm.launches = 0  # the main path (tune -> deploy) starts here
     rep, tune_s = phase_tune(dev)
     launches, fwd_err, fwd_ms, plain_fwd_ms, per_shape = phase_deploy(dev, rep)
     episode_ms = phase_episode_time(dev)
     rows = phase_time_shapes(dev, per_shape)
+    lm_params, lm_cfg, lm_rel32, lm_rel16 = phase_lm_gate(dev)
+    serve = phase_serve(dev, lm_params, lm_cfg)   # resets the LM counts
+    profile = phase_profile_serve(dev, lm_params, lm_cfg)
+    lm_kernels = phase_time_lm_kernels(dev, lm_cfg, serve)
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -347,7 +809,16 @@ def main() -> int:
                     "mappo_episode_ms": episode_ms, "forward_ms": fwd_ms,
                     "forward_plain_ms": plain_fwd_ms,
                     "forward_logits_max_abs_err": fwd_err,
-                    "gemm_shapes": rows}))
+                    "gemm_shapes": rows,
+                    "lm": {"arch": LM_ARCH, "dtype": "bfloat16",
+                           "logits_rel_err_fp32": lm_rel32,
+                           "logits_rel_err_bf16": lm_rel16,
+                           **{k: v for k, v in serve.items()
+                              if k != "launches"},
+                           "profile": profile,
+                           "kernels": dict(lm_kernels)}}))
+    sources = {"rmsnorm": "src/repro/kernels/rmsnorm.py:21",
+               "flash_attention": "src/repro/kernels/flash_attention.py:29"}
     log(json.dumps({"kernels": [{
         "name": "gemm",
         "route": "cuda",
@@ -360,7 +831,19 @@ def main() -> int:
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": total("library_ms"),
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": sources[name],
+        "launches": tot["launches"],
+        "max_abs_err": lm_check_err[name],
+        "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": tot["bound_by"],
+        "library_ms": tot["library_ms"],
+    } for name, tot in lm_kernels]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.core.design_space import AGENT_KNOBS, AGENTS, N_KNOBS
 
 N_WFEAT = 11  # workload feature length (design_space.workload_features)
@@ -84,8 +85,10 @@ class MarlNets(nn.Module):
 
 
 def init_marl_params(seed: int, device=None) -> MarlNets:
-    """Seeded networks (drawn on the CPU, then moved to ``device``)."""
-    return MarlNets(torch.Generator().manual_seed(seed)).to(device)
+    """Seeded networks (drawn on the CPU, then moved to ``device``,
+    default ``cuda``)."""
+    return MarlNets(torch.Generator().manual_seed(seed)).to(
+        resolve_device(device))
 
 
 def params_from_jax(tree: Dict, device=None) -> MarlNets:
@@ -103,7 +106,7 @@ def params_from_jax(tree: Dict, device=None) -> MarlNets:
             load(nets.policies[a].out, tree[a]["out"])
         for name in ("h1", "h2", "h3", "out"):
             load(getattr(nets.critic, name), tree["critic"][name])
-    return nets.to(device)
+    return nets.to(resolve_device(device))
 
 
 # ---------------------------------------------------------------- encodings

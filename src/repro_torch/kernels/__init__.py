@@ -1,1 +1,1 @@
-"""The hand-written Hopper GEMM (``gemm``), its wrappers (``ops``) and plain oracles (``ref``)."""
+"""The hand-written Hopper kernels (``gemm``, ``rmsnorm``, ``flash_attention``, built by ``_build``), their wrappers (``ops``) and plain oracles (``ref``)."""

@@ -15,28 +15,19 @@ parallel, so they change nothing.
 on ``gemm.launches``.  For CPU tensors, or with ``use_kernel=False``, it
 runs :func:`gemm_plain`, which walks the same run geometry in PyTorch.
 
-The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
-``_build/`` next to this file (listed in ``.gitignore``) and bound with
-``ctypes``; a source change rebuilds it under a new name.
+The kernel is built at first use by :mod:`repro_torch.kernels._build`
+(``nvcc`` for ``sm_90a``, bound with ``ctypes``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import ref  # noqa: F401  (sets IEEE fp32 matmuls)
-
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "gemm.cu")
-BUILD_DIR = os.path.join(_HERE, "_build")
 
 # Tile templates compiled into csrc/gemm.cu (256 threads a block each).
 BM_TEMPLATES = (16, 32, 64, 128)
@@ -171,50 +162,20 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
 gemm.launches = 0
 gemm.last_geometry = None
 
-_LIB = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
 
 def build() -> str:
-    """Compile csrc/gemm.cu for sm_90a into a shared library (once per
-    source content) and return its path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libgemm_{digest}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, path)  # atomic: a half-written library never loads
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+    """Compile csrc/gemm.cu for sm_90a (once per source content) and
+    return the library's path."""
+    return _build.build("gemm")
+
+
+def _bind(lib) -> None:
+    lib.repro_gemm.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.repro_gemm.restype = ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        lib.repro_gemm.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.repro_gemm.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    return _build.load("gemm", _bind)

@@ -1,19 +1,21 @@
-"""Public wrappers around the GEMM kernel: matmul, im2col, conv2d.
+"""Public wrappers around the kernels: matmul, im2col, conv2d, attention.
 
 Each takes ``use_kernel`` (default True), the counterpart of the
-reference's ``use_pallas``: True routes through
-:func:`repro_torch.kernels.gemm.gemm` (the Hopper kernel on CUDA tensors,
-its plain version on CPU tensors); False runs the plain oracle in
-:mod:`repro_torch.kernels.ref`.
+reference's ``use_pallas``: True routes through the kernel's wrapper
+(:func:`repro_torch.kernels.gemm.gemm`,
+:func:`repro_torch.kernels.flash_attention.flash_attention`: the Hopper
+kernel on CUDA tensors, its plain version on CPU tensors); False runs the
+plain oracle in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import GemmConfig, gemm, gemm_config_from_knobs
 
 
@@ -65,3 +67,14 @@ def conv2d_from_knobs(x, w, stride, pad, *, tile_b, tile_h, tile_w,
         tile_k=tile_ci * kh * kw,
         h_threading=h_threading, oc_threading=oc_threading)
     return conv2d(x, w, stride, pad, cfg, use_kernel)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              block_q: int = 128, block_k: int = 128,
+              use_kernel: bool = True) -> torch.Tensor:
+    """GQA attention. q: (B, S, HQ, D); k, v: (B, S, HKV, D)."""
+    if not use_kernel:
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           block_q=block_q, block_k=block_k)

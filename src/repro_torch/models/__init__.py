@@ -1,1 +1,1 @@
-"""The paper's CNNs: conv spec tables (``specs``) and the forward pass (``cnn``)."""
+"""The paper's CNNs (``specs``, ``cnn``) and the LM serving stack (``layers``, ``transformer``)."""

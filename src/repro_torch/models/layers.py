@@ -1,0 +1,265 @@
+"""Transformer building blocks of the LM serving path (PyTorch).
+
+The serving subset of the reference's ``repro.models.layers``: norms,
+projections, rotary embedding, init helpers, the MLPs, forward-only
+KV-chunked attention, the prefill attention block, and decode attention
+against a KV cache (full and ring-buffer).  Parameters are plain dicts of
+tensors, as in the reference; layouts are the reference's ((B, S, H, D)
+attention, (in, out) projection weights).
+
+Two functions route through the hand-written kernels and take
+``use_kernel`` (default True): :func:`rmsnorm` (``kernels.rmsnorm``) and
+:func:`attention_block` (prefill attention through ``kernels.ops.attention``,
+the flash kernel).  With ``use_kernel=False`` they run the plain path:
+``rmsnorm_plain`` and the reference model's own :func:`chunked_attention`.
+Projections and decode attention are einsums, as they are outside any
+Pallas kernel in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as _rmsnorm
+
+Params = Dict[str, Any]
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------- basic ops
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            use_kernel: bool = True) -> torch.Tensor:
+    """The RMSNorm kernel's function (fp32 math, one cast to x's dtype)."""
+    return _rmsnorm.rmsnorm(x.contiguous(), w, eps, use_kernel=use_kernel)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    out = torch.matmul(x, w.to(x.dtype))
+    if b is not None:
+        out = out + b.to(x.dtype)
+    return out
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, D), positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs           # (..., S, half)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ------------------------------------------------------------- init helpers
+
+def _winit(gen: torch.Generator, shape, fan_in: int, dtype,
+           device) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+
+
+def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, qkv_bias: bool, dtype,
+                   device) -> Params:
+    hq, hkv = n_heads * head_dim, n_kv_heads * head_dim
+    p = {
+        "ln": torch.ones((d_model,), dtype=dtype, device=device),
+        "wq": _winit(gen, (d_model, hq), d_model, dtype, device),
+        "wk": _winit(gen, (d_model, hkv), d_model, dtype, device),
+        "wv": _winit(gen, (d_model, hkv), d_model, dtype, device),
+        "wo": _winit(gen, (hq, d_model), hq, dtype, device),
+    }
+    if qkv_bias:
+        p["bq"] = torch.zeros((hq,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hkv,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hkv,), dtype=dtype, device=device)
+    return p
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, variant: str,
+             dtype, device) -> Params:
+    ones = torch.ones((d_model,), dtype=dtype, device=device)
+    if variant == "swiglu":
+        return {"ln": ones,
+                "w_gate": _winit(gen, (d_model, d_ff), d_model, dtype, device),
+                "w_up": _winit(gen, (d_model, d_ff), d_model, dtype, device),
+                "w_down": _winit(gen, (d_ff, d_model), d_ff, dtype, device)}
+    return {"ln": ones,  # gelu (whisper-style)
+            "w_in": _winit(gen, (d_model, d_ff), d_model, dtype, device),
+            "b_in": torch.zeros((d_ff,), dtype=dtype, device=device),
+            "w_out": _winit(gen, (d_ff, d_model), d_ff, dtype, device),
+            "b_out": torch.zeros((d_model,), dtype=dtype, device=device)}
+
+
+def mlp(x: torch.Tensor, p: Params, variant: str = "swiglu",
+        use_kernel: bool = True) -> torch.Tensor:
+    h = rmsnorm(x, p["ln"], use_kernel=use_kernel)
+    if variant == "swiglu":
+        g = F.silu(dense(h, p["w_gate"]))
+        u = dense(h, p["w_up"])
+        return x + dense(g * u, p["w_down"])
+    # jax.nn.gelu's default is the tanh approximation
+    h = F.gelu(dense(h, p["w_in"], p["b_in"]), approximate="tanh")
+    return x + dense(h, p["w_out"], p["b_out"])
+
+
+# -------------------------------------------------------- chunked attention
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention, KV-chunked, forward only (the reference's
+    training-path attention; its custom backward waits for the training
+    slice).  q: (B, Sq, HQ, D), k, v: (B, Sk, HKV, D); q is scaled before
+    Q K^T."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    chunk = min(chunk, sk)
+    n_chunks = -(-sk // chunk)
+    scale = 1.0 / math.sqrt(d)
+    qg = (q.float() * scale).reshape(b, sq, hkv, group, d)
+    rows = torch.arange(sq, device=q.device)
+    m = torch.full((b, hkv, group, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, group, sq), device=q.device)
+    acc = torch.zeros((b, hkv, group, sq, d), device=q.device)
+    for ci in range(n_chunks):
+        kc = k[:, ci * chunk:(ci + 1) * chunk].float()
+        vc = v[:, ci * chunk:(ci + 1) * chunk].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc)
+        cols = ci * chunk + torch.arange(kc.shape[1], device=q.device)
+        mask = torch.ones((sq, kc.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= cols[None, :] <= rows[:, None]
+        if window is not None:
+            mask &= cols[None, :] > rows[:, None] - window
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                    vc)
+        m = m_new
+    lsafe = torch.where(l == 0, torch.ones_like(l), l)
+    out = acc / lsafe[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
+              causal: bool = True, window: Optional[int] = None,
+              use_kernel: bool = True) -> torch.Tensor:
+    """Prefill attention: the flash kernel (``use_kernel``) or the
+    reference model's chunked attention (the plain path)."""
+    if use_kernel:
+        return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal, window=window)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             chunk=cfg.attn_chunk)
+
+
+def qkv(h: torch.Tensor, p: Params, cfg) -> Tuple[torch.Tensor, ...]:
+    """The three projections of a normed (B, S, D_model) input, as
+    (B, S, heads, head_dim)."""
+    b, s, _ = h.shape
+    q = dense(h, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads,
+                                              cfg.head_dim)
+    k = dense(h, p["wk"], p.get("bk")).reshape(b, s, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    v = dense(h, p["wv"], p.get("bv")).reshape(b, s, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    return q, k, v
+
+
+def attention_block(x: torch.Tensor, p: Params, cfg,
+                    positions: torch.Tensor, causal: bool = True,
+                    window: Optional[int] = None,
+                    use_kernel: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full attention block (prefill path). x: (B, S, D_model).  Returns
+    (x + attention output, k, v): the roped keys and the values are what
+    the decode cache keeps."""
+    b, s, _ = x.shape
+    h = rmsnorm(x, p["ln"], use_kernel=use_kernel)
+    q, k, v = qkv(h, p, cfg)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    out = attention(q, k, v, cfg, causal=causal, window=window,
+                    use_kernel=use_kernel)
+    return x + dense(out.reshape(b, s, -1), p["wo"]), k, v
+
+
+# ------------------------------------------------------------ decode (KV$)
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: (B, 1, HQ, D); caches: (B, S_max, HKV, D); cache_len: () or (B,).
+    Scores and the weighted sum accumulate in fp32, as the reference's
+    ``preferred_element_type``.
+    """
+    b, _, hq, d = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg = (q * scale).reshape(b, hkv, group, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float())
+    idx = torch.arange(smax, device=q.device)
+    length = torch.as_tensor(cache_len, device=q.device).expand(b)
+    mask = idx[None, :] < length[:, None]
+    if window is not None:
+        mask &= idx[None, :] >= torch.clamp(length[:, None] - window, min=0)
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgk,bkhd->bhgd", (p / l).to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor, position,
+                    ring: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one token at ``position`` (scalar or per-sequence (B,)), in
+    place, and return the caches.
+
+    ``ring``: modulo wraparound (sliding-window caches store only the last
+    ``S_max`` tokens).  Otherwise the position is clamped into the cache,
+    as the reference's ``dynamic_update_slice`` clamps its start index (a
+    free batch slot keeps counting past the end).
+    """
+    b, smax = k_cache.shape[0], k_cache.shape[1]
+    pos = torch.as_tensor(position, device=k_cache.device).expand(b).long()
+    pos = pos % smax if ring else pos.clamp(0, smax - 1)
+    rows = torch.arange(b, device=k_cache.device)
+    k_cache[rows, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, pos] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def decode_attention_ring(q, k_cache, v_cache, position,
+                          window: int) -> torch.Tensor:
+    """Decode against a ring-buffer window cache (mixtral SWA long-decode).
+
+    The cache holds the last ``S_max`` = window tokens; all valid once full.
+    """
+    smax = k_cache.shape[1]
+    filled = torch.clamp(torch.as_tensor(position, device=q.device) + 1,
+                         max=smax)
+    return decode_attention(q, k_cache, v_cache, filled, window=None)

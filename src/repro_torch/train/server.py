@@ -1,0 +1,202 @@
+"""Batched serving with continuous-batching slots (PyTorch).
+
+The port of the reference's ``repro.train.server``, same semantics.  A
+fixed decode batch of ``n_slots``; requests are prefilled individually
+(disaggregated prefill), inserted into free slots of the live batched
+cache (per-sequence positions — slots run at different depths), and
+decoded together.  Finished slots free immediately and new requests join
+without draining the batch.
+
+Latency accounting is end-to-end: ``Request.latency_s`` runs from
+``submit()`` to finish, with a ``queue_s`` / ``prefill_s`` / ``decode_s``
+breakdown per request.  Idle capacity is a first-class resource: a
+``best_effort`` hook runs one small chunk of background work per call,
+only when the queue is empty and at least one decode slot is free.
+
+The cache lives on the device of the weights and is updated in place: a
+prefill's cache is copied into its slot, and each decode step writes one
+token per slot (the reference donates the cache to its jitted step).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import transformer as T
+
+# Request.status values, in lifecycle order.
+QUEUED, ACTIVE, DONE, REJECTED, ABANDONED = (
+    "queued", "active", "done", "rejected", "abandoned")
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (L,) int32
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    # filled by the server
+    output: Optional[List[int]] = None
+    status: str = QUEUED
+    error: Optional[str] = None
+    # end-to-end latency (submit -> finish) + its breakdown; all None until
+    # the request finishes (or forever, for rejected/abandoned requests)
+    latency_s: Optional[float] = None
+    queue_s: Optional[float] = None
+    prefill_s: Optional[float] = None
+    decode_s: Optional[float] = None
+    # internal timeline stamps (perf_counter): set by submit()/_admit()
+    submit_s: Optional[float] = None
+    admit_s: Optional[float] = None
+    finish_s: Optional[float] = None
+
+    @property
+    def ok(self) -> bool:
+        return self.status == DONE
+
+
+def _insert_slot(cache, req_cache, slot: int) -> None:
+    """Copy a single-request cache into batch slot ``slot``, in place."""
+    cache["pos"][slot] = req_cache["pos"][0]
+    for entry, single in zip(cache["layers"], req_cache["layers"]):
+        for key, t in single.items():
+            entry[key][slot].copy_(t[0])
+
+
+class Server:
+    """Continuous-batching server; see the module docstring.
+
+    ``best_effort`` is an optional callable ``(server) -> bool`` invoked
+    from :meth:`step` whenever there is idle capacity (queue empty AND at
+    least one free slot).  It must do at most one *small* chunk of work
+    per call and return True if it did any.
+    """
+
+    def __init__(self, params, cfg: T.ArchConfig, n_slots: int = 4,
+                 max_len: int = 512,
+                 best_effort: Optional[Callable[["Server"], bool]] = None):
+        self.params, self.cfg = params, cfg
+        self.n_slots, self.max_len = n_slots, max_len
+        self.device = params["embed"].device
+        self.cache = T.init_cache(cfg, n_slots, max_len, device=self.device)
+        self.free = list(range(n_slots))
+        self.active: Dict[int, Request] = {}
+        self.last_tok = np.zeros((n_slots, 1), np.int32)
+        self.new_counts: Dict[int, int] = {}
+        self.queue: Deque[Request] = deque()
+        self.rejected: List[Request] = []
+        self.abandoned: List[Request] = []
+        self.best_effort = best_effort
+
+    # ------------------------------------------------------------- intake
+    def submit(self, req: Request) -> Request:
+        """Queue ``req`` (stamping its end-to-end latency clock), or fail
+        it gracefully: an oversized or empty prompt is rejected here with
+        ``status="rejected"`` + an ``error`` instead of corrupting the
+        batched cache at admission."""
+        req.submit_s = time.perf_counter()
+        if len(req.prompt) == 0:
+            req.status, req.error = REJECTED, "empty prompt"
+        elif len(req.prompt) >= self.max_len:
+            req.status, req.error = REJECTED, (
+                f"prompt length {len(req.prompt)} >= max_len "
+                f"{self.max_len}: no room in the slot cache")
+        if req.status == REJECTED:
+            req.output = []
+            self.rejected.append(req)
+            return req
+        req.status = QUEUED
+        self.queue.append(req)
+        return req
+
+    def _admit(self):
+        while self.free and self.queue:
+            req = self.queue.popleft()
+            slot = self.free.pop()
+            req.admit_s = time.perf_counter()
+            req.queue_s = req.admit_s - req.submit_s
+            tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None],
+                                     device=self.device)
+            logits, rc = T.prefill(self.params, {"tokens": tokens}, self.cfg,
+                                   self.max_len)
+            _insert_slot(self.cache, rc, slot)
+            first = int(torch.argmax(logits[0]))   # also syncs the prefill
+            req.prefill_s = time.perf_counter() - req.admit_s
+            req.output = [first]
+            req.status = ACTIVE
+            self.last_tok[slot, 0] = first
+            self.active[slot] = req
+            self.new_counts[slot] = 1
+
+    # ---------------------------------------------------------- idle work
+    def idle_capacity(self) -> int:
+        """Free decode slots available for best-effort work right now —
+        zero whenever any request is waiting for admission."""
+        return 0 if self.queue else len(self.free)
+
+    def _tick_best_effort(self) -> bool:
+        if self.best_effort is None or not self.idle_capacity():
+            return False
+        return bool(self.best_effort(self))
+
+    # ------------------------------------------------------------- decode
+    def _finish(self, slot: int, status: str = DONE) -> Request:
+        req = self.active.pop(slot)
+        req.finish_s = time.perf_counter()
+        req.status = status
+        req.latency_s = req.finish_s - req.submit_s
+        req.decode_s = req.finish_s - req.admit_s - req.prefill_s
+        self.new_counts.pop(slot)
+        self.free.append(slot)
+        return req
+
+    def step(self) -> List[Request]:
+        """One decode step for all active slots; returns finished requests.
+        With idle capacity (free slots + empty queue) one chunk of
+        best-effort work runs first."""
+        self._admit()
+        self._tick_best_effort()
+        if not self.active:
+            return []
+        tokens = torch.as_tensor(self.last_tok, device=self.device)
+        logits, self.cache = T.decode_step(self.params, self.cache, tokens,
+                                           self.cfg)
+        toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        done: List[Request] = []
+        for slot, req in list(self.active.items()):
+            t = int(toks[slot])
+            req.output.append(t)
+            self.last_tok[slot, 0] = t
+            self.new_counts[slot] += 1
+            ended = (req.eos_id is not None and t == req.eos_id)
+            full = (self.new_counts[slot] >= req.max_new_tokens)
+            too_long = (len(req.prompt) + self.new_counts[slot]
+                        >= self.max_len - 1)
+            if ended or full or too_long:
+                done.append(self._finish(slot))
+        return done
+
+    def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
+        """Serve until queue + slots are empty.  Hitting ``max_steps``
+        with requests still in flight marks every live request
+        ``status="abandoned"`` (latency fields stay None), reclaims the
+        slots, and records them on ``abandoned``."""
+        out: List[Request] = []
+        for _ in range(max_steps):
+            out.extend(self.step())
+            if not self.active and not self.queue:
+                return out
+        for slot in sorted(self.active):
+            req = self._finish(slot, status=ABANDONED)
+            req.latency_s = req.decode_s = None   # never finished
+            self.abandoned.append(req)
+        while self.queue:
+            req = self.queue.popleft()
+            req.status = ABANDONED
+            self.abandoned.append(req)
+        return out

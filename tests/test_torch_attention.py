@@ -1,0 +1,183 @@
+"""Port parity for attention: the plain version of the Hopper flash kernel
+against the reference Pallas kernel (``repro.kernels.ops.attention``,
+interpret mode), the oracle, forward chunked attention, and decode
+attention with its cache updates (full, per-slot, ring) against
+``repro.models.layers``.  The kernel itself is tested on the card by
+tests/test_torch_gpu.py."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from _torch_support import one_torch_thread  # noqa: F401
+from repro.kernels import ops as JO
+from repro.kernels import ref as JREF
+from repro.models import layers as JL
+from repro_torch.kernels import flash_attention as TF
+from repro_torch.kernels import ops as TO
+from repro_torch.models import layers as TL
+
+
+def _qkv(b, s, hq, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, hq, d)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, d)).astype(np.float32))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 32)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (6, 1)])
+def test_plain_flash_matches_pallas(causal, window, hq, hkv):
+    q, k, v = _qkv(2, 100, hq, hkv, 16, seed=hq * 10 + hkv)
+    want = np.asarray(JO.attention(*_j(q, k, v), causal=causal,
+                                   window=window, block_q=32, block_k=32))
+    launches = TF.flash_attention.launches
+    got = TO.attention(*_t(q, k, v), causal=causal, window=window,
+                       block_q=32, block_k=32)
+    assert TF.flash_attention.launches == launches  # the CPU never launches
+    assert TF.flash_attention.last_geometry["run"] == {"bq": 32, "bk": 32,
+                                                       "dp": 16}
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,bq,bk,causal", [
+    (3, 16, 16, True), (17, 32, 16, False), (33, 16, 64, True),
+    (45, 32, 64, False), (64, 16, 16, True), (70, 32, 16, True)])
+def test_plain_flash_matches_pallas_mixed_blocks(s, bq, bk, causal):
+    """Block sizes never change the result (online-softmax correctness),
+    at the reference's property-test sizes."""
+    q, k, v = _qkv(1, s, 2, 2, 8, seed=s)
+    want = np.asarray(JO.attention(*_j(q, k, v), causal=causal,
+                                   block_q=bq, block_k=bk))
+    got = TF.flash_attention(*_t(q, k, v), causal=causal, block_q=bq,
+                             block_k=bk)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_oracle_matches_reference_oracle():
+    q, k, v = _qkv(2, 40, 6, 2, 16, seed=1)
+    for causal, window in ((True, None), (False, 8), (True, 8)):
+        want = np.asarray(JREF.attention_ref(*_j(q, k, v), causal=causal,
+                                             window=window))
+        got = TO.attention(*_t(q, k, v), causal=causal, window=window,
+                           use_kernel=False)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [7, 16, 50, 128])
+def test_chunked_attention_matches_reference(chunk):
+    q, k, v = _qkv(2, 50, 4, 2, 16, seed=chunk)
+    for causal, window in ((True, None), (True, 9)):
+        want = np.asarray(JL.chunked_attention(*_j(q, k, v), causal, window,
+                                               chunk))
+        got = TL.chunked_attention(*_t(q, k, v), causal=causal,
+                                   window=window, chunk=chunk)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_kv_tile_range_is_the_reference_block_skip():
+    """The kernel's KV loop bounds visit exactly the blocks the reference's
+    ``pl.when(relevant)`` computes."""
+    for s in (1, 5, 64, 100):
+        for bq, bk in ((16, 16), (16, 64), (64, 16), (32, 32)):
+            for causal in (True, False):
+                for window in (None, 1, 7, 32, 200):
+                    n_k = -(-s // bk)
+                    for q0 in range(0, s, bq):
+                        want = [j for j in range(n_k)
+                                if (not causal or j * bk <= q0 + bq - 1)
+                                and (window is None
+                                     or j * bk + bk - 1 >= q0 - window + 1)]
+                        lo, hi = TF.kv_tile_range(q0, bq, bk, s, causal,
+                                                  window)
+                        assert list(range(lo, hi + 1)) == want
+
+
+def test_legalize_rule():
+    g = TF.legalize(128, 128, 1024, 128)
+    assert (g.bq, g.bk, g.dp) == (64, 32, 128)   # bk halved: 115 KB > budget
+    assert g.smem_bytes <= TF.SMEM_BUDGET
+    assert TF.legalize(128, 128, 1024, 64) == TF.RunGeometry(64, 64, 64)
+    assert TF.legalize(32, 16, 100, 16) == TF.RunGeometry(32, 16, 16)
+    assert TF.legalize(128, 128, 12, 20) == TF.RunGeometry(16, 16, 32)
+    assert TF.legalize(128, 128, 40, 8) == TF.RunGeometry(32, 32, 16)
+    for d in (8, 16, 64, 128):
+        for s in (3, 100, 4096):
+            assert TF.legalize(128, 128, s, d).smem_bytes <= TF.SMEM_BUDGET
+    with pytest.raises(ValueError):
+        TF.legalize(128, 128, 64, 256)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = _t(*_qkv(1, 8, 4, 2, 8, seed=0))
+    with pytest.raises(ValueError):
+        TF.flash_attention(q, k[:, :4], v[:, :4])         # sequence differs
+    with pytest.raises(ValueError):
+        TF.flash_attention(q[:, :, :3], k, v)             # 3 % 2 heads
+    with pytest.raises(TypeError):
+        TF.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        TF.flash_attention(q, k, v, window=0)
+
+
+# ------------------------------------------------------------------ decode
+
+def _cache(b, smax, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, smax, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, smax, hkv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("cache_len,window", [
+    (np.int32(9), None), (np.array([3, 12, 16], np.int32), None),
+    (np.array([3, 12, 16], np.int32), 5)])
+def test_decode_attention_matches_reference(cache_len, window):
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((3, 1, 4, 8)).astype(np.float32)
+    kc, vc = _cache(3, 16, 2, 8, seed=8)
+    want = np.asarray(JL.decode_attention(*_j(q, kc, vc),
+                                          jnp.asarray(cache_len), window))
+    got = TL.decode_attention(*_t(q, kc, vc), torch.from_numpy(
+        np.asarray(cache_len)), window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("position,ring", [
+    (np.int32(5), False), (np.array([0, 7, 15], np.int32), False),
+    (np.array([2, 16, 40], np.int32), False),   # past the end: clamped
+    (np.array([2, 16, 40], np.int32), True)])   # ring: modulo
+def test_update_kv_cache_matches_reference(position, ring):
+    kc, vc = _cache(3, 16, 2, 8, seed=9)
+    rng = np.random.default_rng(10)
+    kn = rng.standard_normal((3, 1, 2, 8)).astype(np.float32)
+    vn = rng.standard_normal((3, 1, 2, 8)).astype(np.float32)
+    wk, wv = JL.update_kv_cache(*_j(kc, vc, kn, vn), jnp.asarray(position),
+                                ring=ring)
+    tk, tv = _t(kc.copy(), vc.copy())
+    gk, gv = TL.update_kv_cache(tk, tv, *_t(kn, vn),
+                                torch.from_numpy(np.asarray(position)),
+                                ring=ring)
+    assert gk is tk and gv is tv                 # written in place
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+def test_decode_attention_ring_matches_reference():
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, 1, 4, 8)).astype(np.float32)
+    kc, vc = _cache(2, 16, 2, 8, seed=12)
+    for position in (np.array([3, 30], np.int32), np.int32(15)):
+        want = np.asarray(JL.decode_attention_ring(
+            *_j(q, kc, vc), jnp.asarray(position), 16))
+        got = TL.decode_attention_ring(*_t(q, kc, vc), torch.from_numpy(
+            np.asarray(position)), 16)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

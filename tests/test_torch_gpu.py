@@ -1,6 +1,8 @@
-"""The port on the card: the Hopper GEMM kernel against its plain version,
-and the tune -> deploy path on CUDA tensors.  Every test here carries the
-``gpu`` marker and skips where torch sees no CUDA device.  This file
+"""The port on the card: the Hopper GEMM, RMSNorm and flash-attention
+kernels against their plain versions with their launch counters, the
+tune -> deploy path, and the LM's prefill and decode launch counts on CUDA
+tensors.  Every test here carries the ``gpu`` marker and skips where torch
+sees no CUDA device.  This file
 imports neither jax nor the reference package, so it also runs on a GPU
 machine that has only the port's dependencies:
 
@@ -10,8 +12,10 @@ import pytest
 import torch
 
 from _torch_support import require_cuda
+from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import gemm as TG
 from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as TR
 
 SHAPES = [(8, 8, 8), (100, 70, 90), (128, 128, 128), (1, 256, 33),
           (257, 129, 65), (392, 4608, 512), (6272, 576, 128)]
@@ -81,3 +85,107 @@ def test_tune_then_deploy_on_card():
         torch.cuda.synchronize()
         err = (out - want).abs().max()
         assert float(err) <= 1e-4 * float(want.abs().max())
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+def test_rmsnorm_kernel_matches_plain_on_card(dtype, tol):
+    """The reference's test shapes, the LM's (prompt, 1536) and (8, 1536),
+    and the widest row; fp32 and bf16 weights."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape in [(4, 64), (2, 100, 96), (1, 7, 33), (129, 256),
+                  (1000, 1536), (8, 1536), (3, TR.MAX_D)]:
+        for w_dtype in (torch.float32, dtype):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(shape[-1], generator=gen,
+                            device="cuda").to(w_dtype)
+            launches = TR.rmsnorm.launches
+            got = TR.rmsnorm(x, w)
+            assert TR.rmsnorm.launches == launches + 1
+            want = TR.rmsnorm(x, w, use_kernel=False)
+            assert TR.rmsnorm.launches == launches + 1
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == x.shape
+            assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+def test_flash_kernel_matches_plain_on_card(dtype, tol):
+    """The reference's test cases (GQA, causal / full / window 32, mixed
+    blocks and tails) and the LM's prefill shape."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [(2, 100, hq, hkv, 16, causal, window, 32, 32)
+             for hq, hkv in ((4, 4), (4, 2), (6, 1))
+             for causal, window in ((True, None), (False, None), (True, 32))]
+    cases += [(1, s, 2, 2, 8, True, None, bq, bk)
+              for s, bq, bk in ((3, 16, 16), (37, 16, 64), (70, 32, 16))]
+    cases += [(1, 1000, 12, 2, 128, True, None, 128, 128)]
+    for b, s, hq, hkv, d, causal, window, bq, bk in cases:
+        q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
+        launches = TF.flash_attention.launches
+        got = TF.flash_attention(q, k, v, causal, window, None, bq, bk)
+        assert TF.flash_attention.launches == launches + 1
+        want = TF.flash_attention(q, k, v, causal, window, None, bq, bk,
+                                  use_kernel=False)
+        assert TF.flash_attention.launches == launches + 1
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert _rel_err(got, want) <= tol, (b, s, hq, hkv, d, causal, window)
+
+
+@pytest.mark.gpu
+def test_lm_kernels_reject_what_they_do_not_take():
+    require_cuda()
+    x = torch.ones(8, 64, device="cuda")
+    with pytest.raises(ValueError):
+        TR.rmsnorm(x.t(), torch.ones(8, device="cuda"))   # non-contiguous
+    q = torch.ones(1, 8, 2, 16, device="cuda")
+    with pytest.raises(ValueError):
+        TF.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                           q.transpose(1, 2))
+    with pytest.raises(ValueError):
+        TF.flash_attention(q, q.cpu(), q)                  # two devices
+
+
+@pytest.mark.gpu
+def test_lm_prefill_and_decode_launch_counts_on_card():
+    """Reduced qwen2-1.5b in fp32 on the card: a prefill launches the flash
+    kernel once an attention layer and RMSNorm 2 n_layers + 1 times, a
+    decode step RMSNorm 2 n_layers + 1 times and flash never; the kernel
+    path is within 1e-4 of max |logit| of the plain path."""
+    require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    cfg = get_config("qwen2-1.5b", reduced=True).with_(
+        dtype=torch.float32, param_dtype=torch.float32)
+    params = TT.init_params(0, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (2, 20), generator=gen, device="cuda")
+    norms = 2 * cfg.n_layers + 1
+    f0, r0 = TF.flash_attention.launches, TR.rmsnorm.launches
+    logits, cache = TT.prefill(params, {"tokens": toks[:, :12]}, cfg, 32)
+    assert TF.flash_attention.launches - f0 == cfg.n_layers
+    assert TR.rmsnorm.launches - r0 == norms
+    plain, pcache = TT.prefill(params, {"tokens": toks[:, :12]}, cfg, 32,
+                               use_kernel=False)
+    assert _rel_err(logits, plain) <= 1e-4
+    for i in range(12, 20):
+        f0, r0 = TF.flash_attention.launches, TR.rmsnorm.launches
+        logits, cache = TT.decode_step(params, cache, toks[:, i:i + 1], cfg)
+        assert TF.flash_attention.launches == f0
+        assert TR.rmsnorm.launches - r0 == norms
+        plain, pcache = TT.decode_step(params, pcache, toks[:, i:i + 1], cfg,
+                                       use_kernel=False)
+        assert _rel_err(logits, plain) <= 1e-4

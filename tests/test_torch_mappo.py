@@ -243,7 +243,7 @@ def test_mappo_episode_improves_surrogate():
     gbt.update(space.feature_vector(cfgs).numpy(),
                -np.log(space.measure(cfgs).numpy()))
     forest = gbt.to_forest("cpu")
-    nets = TA.init_marl_params(1)
+    nets = TA.init_marl_params(1, device="cpu")
     opt = TM.make_optimizer(nets, hp)
     rewards = []
     for _ in range(12):
@@ -257,7 +257,7 @@ def test_rollout_respects_pins_and_bounds():
     space = TDS.for_conv2d(WL).pin((0, 3), (1, 2))
     hp = TM.MappoConfig(n_steps=10, n_envs=6)
     env = TM.env_params_from_space(space)
-    nets = TA.init_marl_params(0)
+    nets = TA.init_marl_params(0, device="cpu")
     forest = TCM.GBTModel(n_rounds=2).to_forest("cpu")
     gen = torch.Generator().manual_seed(5)
     config0 = space.random_configs(gen, hp.n_envs)

@@ -1,0 +1,195 @@
+"""Port parity for serving: the reference serving-stack behaviours
+(``tests/test_server.py``) on the port's continuous-batching ``Server``
+over the reduced qwen2-1.5b in fp32 on the CPU; the reference ``Server``
+and the port's, started from the same weights, generate the same tokens;
+and the ``repro_torch.launch.serve`` CLI (``--device cpu`` prints its
+report, no device and no GPU raises)."""
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_support import one_torch_thread  # noqa: F401
+from repro.configs import get_config as jax_get_config
+from repro.models import transformer as JT
+from repro.train import server as JS
+from repro_torch.configs import get_config
+from repro_torch.models import transformer as TT
+from repro_torch.train.server import (ABANDONED, DONE, QUEUED, REJECTED,
+                                      Request, Server)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = get_config("qwen2-1.5b", reduced=True).with_(
+        dtype=torch.float32, param_dtype=torch.float32)
+    return cfg, TT.init_params(0, cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def srv(setup):
+    """One shared server — every test drains it before returning."""
+    cfg, params = setup
+    return Server(params, cfg, n_slots=2, max_len=64)
+
+
+def _prompt(cfg, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+
+
+def test_latency_breakdown_and_slot_reuse(setup, srv):
+    cfg, _ = setup
+    reqs = [Request(uid=i, prompt=_prompt(cfg, 5 + 2 * i, seed=i),
+                    max_new_tokens=4) for i in range(5)]
+    for r in reqs:
+        srv.submit(r)
+        assert r.status == QUEUED and r.submit_s is not None
+    done = srv.run_until_drained()
+    assert len(done) == 5 and not srv.abandoned
+    assert sorted(srv.free) == [0, 1] and not srv.active
+    for r in done:
+        assert r.status == DONE and r.ok
+        assert len(r.output) == r.max_new_tokens
+        assert r.queue_s >= 0 and r.prefill_s > 0 and r.decode_s > 0
+        assert r.latency_s == pytest.approx(
+            r.queue_s + r.prefill_s + r.decode_s, rel=1e-6)
+        assert r.latency_s > r.decode_s
+    assert done[-1].finish_s > done[0].finish_s
+
+
+def test_oversized_and_empty_prompts_rejected(setup, srv):
+    cfg, _ = setup
+    base_rejected = len(srv.rejected)
+    too_long = srv.submit(Request(uid=100, prompt=_prompt(cfg, 64),
+                                  max_new_tokens=4))
+    empty = srv.submit(Request(
+        uid=101, prompt=np.zeros(0, np.int32), max_new_tokens=4))
+    for r, frag in ((too_long, "max_len"), (empty, "empty")):
+        assert r.status == REJECTED and not r.ok
+        assert frag in r.error
+        assert r.output == [] and r.latency_s is None
+    assert len(srv.rejected) == base_rejected + 2
+    assert not srv.queue
+    ok = srv.submit(Request(uid=102, prompt=_prompt(cfg, 6),
+                            max_new_tokens=3))
+    assert srv.run_until_drained() == [ok] and ok.status == DONE
+
+
+def test_eos_and_too_long_termination(setup, srv):
+    cfg, _ = setup
+    prompt = _prompt(cfg, 8, seed=7)
+    ref = srv.submit(Request(uid=110, prompt=prompt, max_new_tokens=6))
+    srv.run_until_drained()
+    eos = ref.output[2]
+    if eos not in ref.output[:2]:
+        again = srv.submit(Request(uid=111, prompt=prompt,
+                                   max_new_tokens=6, eos_id=int(eos)))
+        srv.run_until_drained()
+        assert again.output == ref.output[:3]
+        assert again.status == DONE
+    long = srv.submit(Request(uid=112, prompt=_prompt(cfg, 55),
+                              max_new_tokens=100))
+    srv.run_until_drained()
+    assert long.status == DONE
+    assert len(long.output) < 100
+    assert 55 + len(long.output) >= srv.max_len - 2
+
+
+def test_interleaved_vs_sequential_parity(setup, srv):
+    cfg, _ = setup
+    pa, pb = _prompt(cfg, 9, seed=11), _prompt(cfg, 7, seed=12)
+    ra = srv.submit(Request(uid=120, prompt=pa, max_new_tokens=10))
+    srv.run_until_drained()
+    rb = srv.submit(Request(uid=121, prompt=pb, max_new_tokens=6))
+    srv.run_until_drained()
+    ia = srv.submit(Request(uid=122, prompt=pa, max_new_tokens=10))
+    for _ in range(3):
+        srv.step()
+    ib = srv.submit(Request(uid=123, prompt=pb, max_new_tokens=6))
+    srv.run_until_drained()
+    assert ia.output == ra.output
+    assert ib.output == rb.output
+
+
+def test_abandoned_requests_marked_loudly(setup, srv):
+    cfg, _ = setup
+    base_abandoned = len(srv.abandoned)
+    active = [srv.submit(Request(uid=130 + i, prompt=_prompt(cfg, 5, seed=i),
+                                 max_new_tokens=500))
+              for i in range(2)]
+    queued = srv.submit(Request(uid=140, prompt=_prompt(cfg, 5),
+                                max_new_tokens=4))
+    done = srv.run_until_drained(max_steps=3)
+    assert done == []
+    assert len(srv.abandoned) == base_abandoned + 3
+    for r in active:
+        assert r.status == ABANDONED and not r.ok
+        assert r.latency_s is None and r.decode_s is None
+        assert r.output
+    assert queued.status == ABANDONED and queued.output is None
+    assert sorted(srv.free) == [0, 1] and not srv.active and not srv.queue
+    ok = srv.submit(Request(uid=141, prompt=_prompt(cfg, 5),
+                            max_new_tokens=3))
+    assert srv.run_until_drained() == [ok] and ok.status == DONE
+
+
+def test_same_tokens_as_reference_server():
+    """Same weights, same requests (more than slots, so slots are reused
+    and requests join mid-decode): the reference ``Server`` and the port's
+    generate the same greedy tokens."""
+    jc = jax_get_config("qwen2-1.5b", reduced=True).with_(
+        dtype=jnp.float32, param_dtype=jnp.float32, remat=False)
+    tc = get_config("qwen2-1.5b", reduced=True).with_(
+        dtype=torch.float32, param_dtype=torch.float32)
+    jp = JT.init_params(jax.random.PRNGKey(1), jc)
+    tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
+    jsrv = JS.Server(jp, jc, n_slots=2, max_len=48)
+    tsrv = Server(tp, tc, n_slots=2, max_len=48)
+    outs = []
+    for mod, srv_ in ((JS, jsrv), (None, tsrv)):
+        make = JS.Request if mod is JS else Request
+        reqs = [srv_.submit(make(uid=i, prompt=_prompt(tc, 4 + 3 * i, seed=i),
+                                 max_new_tokens=5 + i)) for i in range(4)]
+        srv_.run_until_drained()
+        assert all(r.status == "done" for r in reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def _cli(*args, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", **(env_extra or {}))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2-1.5b", "--reduced", "--requests", "4", "--slots", "2",
+         "--max-new", "4", *args],
+        env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_serve_cli_on_cpu_prints_report(tmp_path):
+    out = tmp_path / "serve.json"
+    res = _cli("--device", "cpu", "--json-out", str(out))
+    assert res.returncode == 0, res.stderr
+    doc = json.loads(res.stdout)
+    assert doc == json.loads(out.read_text())
+    assert doc["device"] == "cpu" and doc["requests"] == 4
+    assert doc["generated_tokens"] == 16
+    assert doc["rejected"] == 0 and doc["abandoned"] == 0
+    assert doc["tokens_per_sec"] > 0
+
+
+def test_serve_cli_without_a_gpu_raises():
+    """No ``--device``: the launcher asks for CUDA and, on a machine without
+    one, raises instead of falling back to the CPU."""
+    res = _cli(env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr

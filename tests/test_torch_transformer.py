@@ -1,0 +1,202 @@
+"""Port parity for the LM serving path: the port's transformer, given the
+reference's weights (``params_from_jax``), against
+``repro.models.transformer`` on the reduced qwen2-1.5b — prefill logits
+and cache, then teacher-forced decode steps — through both the kernel path
+(on the CPU: the kernels' plain versions) and the plain path; a sliding-
+window variant decoding past its window (ring cache); bf16; decode against
+the port's own prefill; config data; unsupported families."""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from _torch_support import one_torch_thread  # noqa: F401
+from repro.configs import ARCH_NAMES
+from repro.configs import get_config as jax_get_config
+from repro.models import transformer as JT
+from repro_torch.configs import get_config
+from repro_torch.models import transformer as TT
+
+SUPPORTED = ("qwen2-1.5b", "qwen1.5-4b", "minitron-4b", "smollm-360m")
+UNSUPPORTED = tuple(a for a in ARCH_NAMES if a not in SUPPORTED)
+LOGIT_TOL = 1e-4          # x max |logit|, fp32
+BF16_LOGIT_TOL = 5e-2     # x max |logit|: see test_bf16_prefill_and_decode
+
+
+def _configs(dtype="fp32", **kw):
+    jd, td = ((jnp.float32, torch.float32) if dtype == "fp32"
+              else (jnp.bfloat16, torch.bfloat16))
+    jc = jax_get_config("qwen2-1.5b", reduced=True).with_(
+        dtype=jd, param_dtype=jd, remat=False, **kw)
+    tc = get_config("qwen2-1.5b", reduced=True).with_(
+        dtype=td, param_dtype=td, **kw)
+    return jc, tc
+
+
+def _models(dtype="fp32", **kw):
+    jc, tc = _configs(dtype, **kw)
+    jp = JT.init_params(jax.random.PRNGKey(0), jc)
+    tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
+    decode = jax.jit(lambda p, c, t: JT.decode_step(p, c, t, jc))
+    prefill = jax.jit(lambda p, b, n: JT.prefill(p, b, jc, n),
+                      static_argnums=(2,))
+    return jc, tc, jp, tp, decode, prefill
+
+
+@pytest.fixture(scope="module")
+def fp32_models():
+    return _models()
+
+
+@pytest.fixture(scope="module")
+def swa_models():
+    return _models(pattern=(("swa", "mlp"),), swa_window=16)
+
+
+def _tokens(vocab, b, s, seed):
+    return np.random.default_rng(seed).integers(
+        0, vocab, size=(b, s)).astype(np.int32)
+
+
+def _rel(got: torch.Tensor, want) -> float:
+    want = np.asarray(want, np.float32)
+    return float(np.abs(got.float().numpy() - want).max()
+                 / np.abs(want).max())
+
+
+def _check_cache(tc, tcache, jcache):
+    np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                  np.asarray(jcache["pos"]))
+    for i, entry in enumerate(tcache["layers"]):
+        ref = jcache["layers"][i % tc.period]
+        for key in ("k", "v"):
+            np.testing.assert_allclose(
+                entry[key].float().numpy(),
+                np.asarray(ref[key][i // tc.period], np.float32),
+                rtol=1e-5, atol=1e-5)
+
+
+def _prefill_then_decode(models, s0, max_len, steps, use_kernel, tol,
+                         seed=0, check_cache=True):
+    jc, tc, jp, tp, jdecode, jprefill = models
+    toks = _tokens(jc.vocab, 2, s0 + steps, seed)
+    jl, jcache = jprefill(jp, {"tokens": jnp.asarray(toks[:, :s0])}, max_len)
+    tl, tcache = TT.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s0])},
+                            tc, max_len, use_kernel=use_kernel)
+    assert tl.shape == (2, tc.vocab) and tl.dtype == torch.float32
+    assert _rel(tl, jl) <= tol
+    if check_cache:
+        _check_cache(tc, tcache, jcache)
+    for i in range(s0, s0 + steps):
+        jl, jcache = jdecode(jp, jcache, jnp.asarray(toks[:, i:i + 1]))
+        tl, tcache = TT.decode_step(tp, tcache,
+                                    torch.from_numpy(toks[:, i:i + 1]), tc,
+                                    use_kernel=use_kernel)
+        assert _rel(tl, jl) <= tol, i
+    if check_cache:
+        _check_cache(tc, tcache, jcache)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False],
+                         ids=["kernel_path", "plain_path"])
+def test_prefill_and_decode_match_reference(fp32_models, use_kernel):
+    _prefill_then_decode(fp32_models, s0=13, max_len=32, steps=8,
+                         use_kernel=use_kernel, tol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False],
+                         ids=["kernel_path", "plain_path"])
+def test_swa_ring_cache_decodes_past_window(swa_models, use_kernel):
+    """Window 16, cache of 16 (a ring): the 20-token prefill already wraps
+    the ring and decode runs 8 steps further."""
+    jc, tc = swa_models[:2]
+    assert TT._cache_seq_len(tc, "swa", 32) == 16
+    _prefill_then_decode(swa_models, s0=20, max_len=32, steps=8,
+                         use_kernel=use_kernel, tol=LOGIT_TOL, seed=1)
+
+
+def test_bf16_prefill_and_decode():
+    """bf16 weights and activations.  The port's norms compute in fp32 and
+    round once (the RMSNorm kernel); the reference's jnp norm multiplies in
+    bf16, and every projection rounds its output to bf16 at places XLA and
+    PyTorch choose differently.  Over 2 layers that is a few bf16 steps
+    (2^-8 relative) of a logit: 1.0e-2 to 1.6e-2 of max |logit| measured
+    on the CPU, held to 5e-2."""
+    models = _models("bf16")
+    _prefill_then_decode(models, s0=11, max_len=24, steps=4, use_kernel=True,
+                         tol=BF16_LOGIT_TOL, check_cache=False)
+
+
+def test_decode_reproduces_own_prefill(fp32_models):
+    """Teacher-forced decode must reproduce the port's own prefill logits
+    (the reference's test_decode_matches_prefill_fp32)."""
+    tc, tp = fp32_models[1], fp32_models[3]
+    toks = torch.from_numpy(_tokens(tc.vocab, 1, 13, seed=2))
+    _, cache = TT.prefill(tp, {"tokens": toks[:, :-1]}, tc, max_len=32)
+    ld, cache = TT.decode_step(tp, cache, toks[:, -1:], tc)
+    lfull, _ = TT.prefill(tp, {"tokens": toks}, tc, max_len=32)
+    np.testing.assert_allclose(ld.numpy(), lfull.numpy(), rtol=1e-3,
+                               atol=1e-4)
+    assert int(cache["pos"][0]) == 13
+
+
+def test_params_from_jax_layout(fp32_models):
+    """Unstacked reference weights have the shapes of the port's own
+    seeded init, layer by layer."""
+    jc, tc, jp, tp = fp32_models[:4]
+    own = TT.init_params(0, tc, device="cpu")
+    assert len(tp["layers"]) == len(own["layers"]) == tc.n_layers
+    assert TT.param_count(tp) == TT.param_count(own) == sum(
+        int(np.size(x)) for x in jax.tree.leaves(jp))
+    for mine, theirs in zip(own["layers"], tp["layers"]):
+        for part in ("mix", "ffn"):
+            assert {k: tuple(v.shape) for k, v in mine[part].items()} == {
+                k: tuple(v.shape) for k, v in theirs[part].items()}
+    np.testing.assert_array_equal(
+        tp["layers"][1]["mix"]["wq"].numpy(),
+        np.asarray(jp["layers"][0]["mix"]["wq"][1]))
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_configs_hold_the_reference_data(arch):
+    for reduced in (False, True):
+        mine = dataclasses.asdict(get_config(arch, reduced))
+        theirs = dataclasses.asdict(jax_get_config(arch, reduced))
+        for key in ("dtype", "param_dtype"):
+            assert str(mine.pop(key)).split(".")[-1] == str(
+                np.dtype(theirs.pop(key)))
+        assert mine == theirs
+
+
+@pytest.mark.parametrize("arch", SUPPORTED)
+def test_supported_archs_serve_reduced(arch):
+    cfg = get_config(arch, reduced=True).with_(dtype=torch.float32,
+                                               param_dtype=torch.float32)
+    params = TT.init_params(0, cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg.vocab, 2, 9, seed=3))
+    logits, cache = TT.prefill(params, {"tokens": toks}, cfg, max_len=16)
+    logits2, cache2 = TT.decode_step(params, cache, logits.argmax(-1)[:, None],
+                                     cfg)
+    assert logits2.shape == (2, cfg.vocab)
+    assert bool(torch.isfinite(logits2).all())
+    assert bool((cache2["pos"] == 10).all())
+
+
+@pytest.mark.parametrize("arch", UNSUPPORTED)
+def test_unsupported_families_raise(arch):
+    cfg = get_config(arch, reduced=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.init_params(0, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.init_params(0, cfg)
