@@ -8,20 +8,27 @@ ResNet-18 width, and the LM server at qwen2-1.5b's full width and depth.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, all at once;
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, all at once, and
+   prints what ``ptxas -v`` says of the fp32 GEMM's and the bf16 flash
+   kernel's templates (registers, spills, static shared memory);
 3. holds each kernel against its plain PyTorch version on the card, fp32
-   and bf16: the reference test shapes and configs, the 8 ResNet-18 im2col
-   shapes at batch 8 under the default and knob-derived configs, and the
-   LM's shapes (RMSNorm over (1024, 1536) and (8, 1536); causal flash over
-   B=1, S in {256, 1000, 2048}, 12 query and 2 KV heads, head_dim 128);
+   and bf16: the reference test shapes and configs, the GEMM's split-K
+   shapes and misaligned row strides, the 8 ResNet-18 im2col shapes at
+   batch 8 under the default and knob-derived configs, flash at every
+   head_dim template with GQA, window 32 and ragged S, and the LM's shapes
+   (RMSNorm over (1024, 1536) and (8, 1536); causal flash over B=1, S in
+   {256, 1000, 2048}, 12 query and 2 KV heads, head_dim 128); there the
+   bf16 flash kernel is also held against the plain version with P kept
+   in fp32 (the reference kernel's arithmetic), within 2^-7 x max |v|;
 4. tunes the 8 ResNet-18 conv tasks (batch 8) with the port's ``Session``;
 5. deploys: runs ResNet-18 at 224x224, batch 8, fp32, seeded weights, each
    conv layer through the GEMM with its tuned geometry, and compares the
    logits with the plain path (cuDNN fp32 convolutions, TF32 off); the
-   GEMM's launch counter must rise by exactly 17 in that forward;
-6. times each ResNet-18 GEMM shape (kernel, plain version, one
-   ``torch.matmul`` call as a yardstick, and the card's bound) and the
-   forward;
+   GEMM's launch counter must rise by exactly 17 in that forward; then
+   times the forward and profiles it (host wall vs device busy time);
+6. times each ResNet-18 GEMM shape (kernel and one ``torch.matmul`` call
+   as a yardstick, each through Python calls and as device time in a CUDA
+   graph; the plain version; the card's bound) and the forward;
 7. qwen2-1.5b with seeded random weights: the kernel path against the
    plain path (prefill + teacher-forced decode, 2 prompts) in fp32, gated
    at 1e-4 of max |logit|, then with the weights cast to bf16, gated at
@@ -60,6 +67,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12        # fp32 outside the tensor cores: the kernel has no TF32
 FP32_TOL = 5e-5           # max |kernel - plain| / max |plain|: two fp32 sums
 BF16_TOL = 1e-2           # ... both rounded once to bf16 (2^-8 relative step)
+# bf16 flash vs the plain version with P in fp32: P rounded to bf16 (2^-8
+# of each weight, so at most 2^-8 max|v| in a row) and the output rounded
+# to bf16 (2^-8 |o| <= 2^-8 max|v|); fp32 reassociation is far below it
+FLASH_FP32_P_BOUND = 2 ** -7  # x max |v|
 FORWARD_TOL = 1e-4        # max |logit diff| / max |logit|, as the CPU tests
 BF16_FLOPS = 989e12       # dense bf16 tensor-core peak (the flash bound)
 KERNELS = ("gemm", "rmsnorm", "flash_attention")
@@ -67,6 +78,14 @@ REFERENCE_SHAPES = [(8, 8, 8), (100, 70, 90), (128, 128, 128), (1, 256, 33),
                     (257, 129, 65)]
 REFERENCE_CONFIGS = [(32, 32, 32, True, True), (128, 128, 128, True, True),
                      (16, 64, 128, False, True), (8, 128, 256, True, False)]
+# ((M, K, N), config): split-K (conv8b, conv6b at their tuned tiles) and
+# misaligned row strides (conv1's K 147; K 129 with N 33; K 1029, split)
+GEMM_EXTRA_CHECKS = [((392, 4608, 512), (32, 256, 2304, True, True)),
+                     ((1568, 2304, 256), (128, 128, 2304, True, True)),
+                     ((392, 4608, 512), (128, 128, 128, True, True)),
+                     ((1568, 147, 64), (128, 64, 128, True, True)),
+                     ((257, 129, 33), (64, 32, 32, True, True)),
+                     ((257, 1029, 33), (64, 32, 32, True, True))]
 # LM serving path: qwen2-1.5b at its published width and depth, bf16
 LM_ARCH = "qwen2-1.5b"
 LM_SLOTS, LM_MAX_LEN = 8, 2048
@@ -91,8 +110,18 @@ FLASH_CHECKS = (
     + [((1, s, 2, 2, 8, causal, None, bq, bk), False)
        for s, bq, bk, causal in ((3, 16, 16, True), (37, 16, 64, False),
                                  (70, 32, 16, True))]
+    + [((2, 77, 6, 2, d, True, 32, 64, 64), False) for d in (8, 16, 64, 128)]
+    + [((1, 150, 12, 2, 128, False, None, 128, 128), False),
+       ((2, 130, 4, 1, 64, True, None, 32, 64), False),
+       ((1, 50, 2, 1, 20, True, None, 64, 64), False)]
     + [((1, s, 12, 2, 128, True, None, 128, 128), True)
        for s in (256, 1000, 2048)])
+# the port's kernels as the profiler names them
+PORT_KERNEL_NAMES = ("gemm_f32_kernel", "splitk_sum_kernel",
+                     "gemm_loop_kernel", "flash_mma_kernel",
+                     "flash_ffma_kernel", "rmsnorm_kernel")
+# the templates redesigned for the card, whose ptxas lines are printed
+NEW_TEMPLATES = ("gemm_f32_kernel", "splitk_sum_kernel", "flash_mma_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -166,7 +195,10 @@ def phase_card() -> str:
 
 
 def phase_build() -> float:
-    """Builds the three kernels, one nvcc each, all started together."""
+    """Builds the three kernels, one nvcc each, all started together, and
+    prints ptxas's registers, spills and static shared memory of each new
+    template (the dynamic shared memory a launch asks for is printed with
+    its run geometry by the checks)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     per_kernel = _build.build_all(KERNELS)
@@ -175,6 +207,20 @@ def phase_build() -> float:
         log(f"[build] {os.path.relpath(_build.build(name), ROOT)} "
             f"in {secs:.1f} s")
     log(f"[build] {len(per_kernel)} kernels in {dt:.1f} s (in parallel)")
+    spills, seen = 0, set()
+    for name in ("gemm", "flash_attention"):
+        for r in _build.ptxas_report(name):
+            base = r["kernel"].partition("<")[0]
+            if base not in NEW_TEMPLATES:
+                continue
+            seen.add(base)
+            spills += r["spill_stores"] + r["spill_loads"]
+            log(f"[build] ptxas {r['kernel']}: {r['registers']} registers, "
+                f"spill stores {r['spill_stores']} B, loads "
+                f"{r['spill_loads']} B, static smem {r['static_smem']} B")
+    check(seen == set(NEW_TEMPLATES),
+          f"ptxas reported {sorted(seen)}, not every one of {NEW_TEMPLATES}")
+    log(f"[build] new templates spill {spills} bytes in all")
     return dt
 
 
@@ -201,6 +247,20 @@ def phase_check_kernel(dev) -> float:
                 check(got.dtype == dtype and rel <= tol,
                       f"gemm {(m, k, n)} {cfg} {dtype}: rel err {rel:.3g}")
                 n_checks += 1
+    for (m, k, n), cfg in GEMM_EXTRA_CHECKS:
+        a = torch.randn(m, k, generator=gen, device=dev)
+        b = torch.randn(k, n, generator=gen, device=dev)
+        c = G.GemmConfig(*cfg)
+        got = G.gemm(a, b, c)
+        run = G.gemm.last_geometry["run"]
+        want = G.gemm(a, b, c, use_kernel=False)
+        torch.cuda.synchronize()
+        diff, rel = rel_err(got, want)
+        check(rel <= FP32_TOL, f"gemm {(m, k, n)} {run}: rel err {rel:.3g}")
+        log(f"[check] gemm M={m} K={k} N={n} run={run} dynamic smem "
+            f"{G.RunGeometry(**run).smem_bytes} B max_abs_err={diff:.3g} "
+            f"rel={rel:.3g}")
+        n_checks += 1
     worst = 0.0
     tasks = conv_tasks("resnet-18", batch=BATCH)
     for (name, m, n, k, _), task in zip(gemm_shapes(), tasks):
@@ -224,7 +284,8 @@ def phase_check_kernel(dev) -> float:
                   f"gemm {name} {(m, n, k)} {run}: rel err {rel:.3g}")
             worst = max(worst, diff)
             n_checks += 1
-            log(f"[check] {name} M={m} N={n} K={k} run={run} "
+            log(f"[check] {name} M={m} N={n} K={k} run={run} dynamic "
+                f"smem {G.RunGeometry(**run).smem_bytes} B "
                 f"max_abs_err={diff:.3g} rel={rel:.3g}")
     log(f"[check] {n_checks} kernel-vs-plain checks passed "
         f"(fp32 tol {FP32_TOL} x max|plain|, bf16 {BF16_TOL})")
@@ -316,6 +377,8 @@ def phase_deploy(dev, rep):
         plain_fwd_ms = cuda_ms(lambda: net(x, use_kernel=False), reps=5)
     log(f"[deploy] forward {fwd_ms:.3f} ms through the kernel, "
         f"{plain_fwd_ms:.3f} ms through cuDNN fp32 convolutions")
+    with torch.no_grad():   # where the forward's time goes
+        profile_runs({"forward": (3, lambda: net(x, configs))})
     per_shape = {}
     for s, cfg in zip(specs, configs):
         per_shape.setdefault(layer_task[s.name], cfg)
@@ -323,7 +386,11 @@ def phase_deploy(dev, rep):
 
 
 def phase_time_shapes(dev, per_shape):
-    """Per-shape kernel / plain / library times and bounds at batch 8."""
+    """Per-shape kernel / plain / library times and bounds at batch 8.
+    ``ms`` and ``library_ms`` are CUDA-event times over Python calls
+    (``cuda_ms``), the method of the first port's numbers; ``device_ms``
+    and ``library_device_ms`` are the same calls captured in a CUDA graph
+    (``device_ms``), without the host's launch overhead."""
     import torch
     from repro_torch.kernels import gemm as G
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -334,22 +401,32 @@ def phase_time_shapes(dev, per_shape):
         a = torch.randn(m, k, generator=gen, device=dev)
         b = torch.randn(k, n, generator=gen, device=dev)
         ms = cuda_ms(lambda: G.gemm(a, b, cfg), reps=20)
+        dev_ms = device_ms(lambda: G.gemm(a, b, cfg))
         lib_ms = cuda_ms(lambda: torch.matmul(a, b), reps=20)
+        lib_dev_ms = device_ms(lambda: torch.matmul(a, b))
         plain_ms = cuda_ms(lambda: G.gemm_plain(a, b, geom), reps=1)
         flops = 2.0 * m * n * k
         nbytes = 4.0 * (m * k + k * n + m * n)
         t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         row = {"task": name, "M": m, "N": n, "K": k, "layers": layers,
-               "run": [geom.bm, geom.bn, geom.bk],
+               "run": [geom.bm, geom.bn, geom.bk], "split_k": geom.split_k,
+               "vec": geom.vec,
                "requested": [cfg.block_m, cfg.block_n, cfg.block_k],
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "tflops": flops / ms / 1e9}
+               "tflops": flops / ms / 1e9,
+               "device_tflops": flops / dev_ms / 1e9}
         rows.append(row)
         log(f"[time] {name} M={m} N={n} K={k} x{layers} run={row['run']} "
-            f"kernel {ms:.4f} ms ({row['tflops']:.2f} TFLOP/s), "
-            f"torch.matmul {lib_ms:.4f} ms, plain {plain_ms:.1f} ms, "
+            f"split_k={geom.split_k} vec={geom.vec} "
+            f"kernel {ms:.4f} ms ({row['tflops']:.2f} TFLOP/s, "
+            f"{100 * row['bound_ms'] / ms:.1f}% of bound), "
+            f"device time {dev_ms:.4f} ms "
+            f"({100 * row['bound_ms'] / dev_ms:.1f}% of bound), "
+            f"torch.matmul {lib_ms:.4f} ms (device time {lib_dev_ms:.4f}), "
+            f"plain {plain_ms:.1f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
 
@@ -387,7 +464,8 @@ def phase_check_lm_kernels(dev) -> dict:
     """RMSNorm and flash kernels vs their plain versions on the card: the
     reference's test cases and the serving path's shapes, fp32 and bf16.
     Returns each kernel's largest absolute error at the path's shapes in
-    bf16, the dtype the path serves in."""
+    bf16, the dtype the path serves in, and under ``flash_vs_fp32_p`` the
+    bf16 flash kernel's largest distance there from fp32-P attention."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
@@ -429,11 +507,23 @@ def phase_check_lm_kernels(dev) -> dict:
                   f"flash {case} {dtype}: rel err {rel:.3g}")
             if on_path:
                 log(f"[check] flash B={b} S={s} HQ={hq} HKV={hkv} D={d} "
-                    f"{dtype} run={run} max_abs_err={diff:.3g} "
-                    f"rel={rel:.3g}")
-                if dtype == torch.bfloat16:
-                    worst["flash_attention"] = max(
-                        worst["flash_attention"], diff)
+                    f"{dtype} run={run} dynamic smem "
+                    f"{FA.RunGeometry(**run).smem_bytes} B "
+                    f"max_abs_err={diff:.3g} rel={rel:.3g}")
+            if on_path and dtype == torch.bfloat16:
+                worst["flash_attention"] = max(worst["flash_attention"], diff)
+                exact = FA.flash_attention_plain(
+                    q.float(), k.float(), v.float(), causal, window,
+                    d ** -0.5, FA.RunGeometry(**run))
+                diff32, rel32 = rel_err(got, exact)
+                bound = FLASH_FP32_P_BOUND * float(v.float().abs().max())
+                check(diff32 <= bound, f"flash {case} bf16 vs fp32 P: "
+                      f"{diff32:.3g} > {bound:.3g}")
+                worst["flash_vs_fp32_p"] = max(
+                    worst.get("flash_vs_fp32_p", 0.0), diff32)
+                log(f"[check] flash B={b} S={s} bf16 vs plain with fp32 P: "
+                    f"max_abs_err={diff32:.3g} rel={rel32:.3g} (bound "
+                    f"{bound:.3g} = 2^-7 x max|v|)")
             n_checks += 1
     log(f"[check] {n_checks} RMSNorm/flash kernel-vs-plain checks passed "
         f"(fp32 tol {FP32_TOL} x max|plain|, bf16 {BF16_TOL})")
@@ -608,27 +698,15 @@ def phase_serve(dev, params, cfg):
             "decode_steps_timed": len(full_step_ms)}
 
 
-def phase_profile_serve(dev, params, cfg) -> dict:
-    """Where a serving step's time goes: ``torch.profiler`` over one
-    prefill of the longest prompt and over 4 decode steps of 8 slots at
-    position 512, each ending in a synchronize.  Reports host wall ms,
-    device busy ms (the CUDA kernels' summed durations), the device's idle
-    share and kernels launched, per prefill and per decode step.  The
-    profiler is untried on that machine: if it records no device time the
-    phase says "not measured" and the run goes on."""
-    import numpy as np
+def profile_runs(runs: dict) -> dict:
+    """``torch.profiler`` over each named (reps, fn) after one warm-up
+    call, the reps ending in a synchronize: host wall ms, device busy ms
+    (the CUDA kernels' summed durations), the device's idle share, kernels
+    launched, the port's own kernels' device ms, and the top kernels, per
+    rep.  If the profiler records no device time the run says "not
+    measured" and the smoke run goes on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import transformer as T
-    toks = torch.as_tensor(np.arange(LM_PROMPT[1]) % cfg.vocab,
-                           device=dev)[None]
-    cache = T.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
-    cache["pos"][:] = 512
-    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
-    runs = {"prefill": (1, lambda: T.prefill(params, {"tokens": toks}, cfg,
-                                             LM_MAX_LEN)),
-            "decode_step": (4, lambda: T.decode_step(params, cache, last,
-                                                     cfg))}
     out = {}
     for name, (reps, fn) in runs.items():
         fn()
@@ -652,15 +730,37 @@ def phase_profile_serve(dev, params, cfg) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + (
                 e.time_range.elapsed_us() / 1e3 / reps)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        port_ms = sum(v for k, v in by_name.items()
+                      if any(p in k for p in PORT_KERNEL_NAMES))
         out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                      "device_idle_share": 1.0 - busy_ms / wall_ms,
-                     "kernels": len(kernels) / reps,
+                     "kernels": len(kernels) / reps, "port_kernels_ms": port_ms,
                      "top": [(k[:60], v) for k, v in top]}
         log(f"[profile] {name}: host wall {wall_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / wall_ms):.1f}%), "
-            f"{len(kernels) / reps:.0f} kernels; top by device time: "
+            f"{len(kernels) / reps:.0f} kernels, the port's kernels "
+            f"{port_ms:.3f} ms; top by device time: "
             + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
     return out
+
+
+def phase_profile_serve(dev, params, cfg) -> dict:
+    """Where a serving step's time goes (:func:`profile_runs`): one
+    prefill of the longest prompt, and 4 decode steps of 8 slots at
+    position 512."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    toks = torch.as_tensor(np.arange(LM_PROMPT[1]) % cfg.vocab,
+                           device=dev)[None]
+    cache = T.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    cache["pos"][:] = 512
+    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    runs = {"prefill": (1, lambda: T.prefill(params, {"tokens": toks}, cfg,
+                                             LM_MAX_LEN)),
+            "decode_step": (4, lambda: T.decode_step(params, cache, last,
+                                                     cfg))}
+    return profile_runs(runs)
 
 
 def phase_time_lm_kernels(dev, cfg, serve) -> list:
@@ -700,7 +800,7 @@ def phase_time_lm_kernels(dev, cfg, serve) -> list:
         q, k, v = randn(1, s, hq, hd), randn(1, s, hkv, hd), randn(1, s, hkv,
                                                                    hd)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        geom = FA.legalize(128, 128, s, hd)
+        geom = FA.legalize(128, 128, s, hd, dt)
         flops = 2.0 * hq * hd * s * (s + 1)  # 2 GEMMs over S(S+1)/2 pairs
         row = {"shape": [1, s, hq, hkv, hd],
                "run": [geom.bq, geom.bk, geom.dp],
@@ -813,6 +913,8 @@ def main() -> int:
                     "lm": {"arch": LM_ARCH, "dtype": "bfloat16",
                            "logits_rel_err_fp32": lm_rel32,
                            "logits_rel_err_bf16": lm_rel16,
+                           "flash_vs_fp32_p_max_abs_err":
+                               lm_check_err["flash_vs_fp32_p"],
                            **{k: v for k, v in serve.items()
                               if k != "launches"},
                            "profile": profile,
@@ -831,6 +933,8 @@ def main() -> int:
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": total("library_ms"),
+        "device_ms": total("device_ms"),
+        "library_device_ms": total("library_device_ms"),
     }] + [{
         "name": name,
         "route": "cuda",

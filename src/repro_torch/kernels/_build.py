@@ -4,10 +4,12 @@ Each ``csrc/<name>.cu`` exposes a plain C interface.  :func:`build`
 compiles it with ``nvcc`` for ``sm_90a`` into a shared library in
 ``_build/`` next to this file (listed in ``.gitignore``), named by a hash
 of the source content, so a source change rebuilds under a new name and an
-unchanged source is compiled once.  :func:`load` opens the library with
-``ctypes`` once per process and lets the kernel's module declare its
-functions' argument types.  :func:`build_all` starts one ``nvcc`` per
-source at the same time.
+unchanged source is compiled once.  ``nvcc -Xptxas -v`` reports each
+kernel's registers, spills and static shared memory; the report is kept
+beside the library and :func:`ptxas_report` reads it.  :func:`load` opens
+the library with ``ctypes`` once per process and lets the kernel's module
+declare its functions' argument types.  :func:`build_all` starts one
+``nvcc`` per source at the same time.
 
 Nothing here runs at import: the kernels are built at first use, on a
 machine with the CUDA toolkit.  A failed build raises.
@@ -17,12 +19,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -44,25 +47,31 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def _library(name: str) -> str:
+    with open(source(name), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` for sm_90a into a shared library (once
     per source content) and return its path."""
-    src = source(name)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    path = _library(name)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src]
+           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+           "-o", tmp, source(name)]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu ({res.returncode}):"
                                f"\n{res.stdout}{res.stderr}")
+        with open(path[:-3] + ".ptxas", "w") as f:
+            f.write(res.stderr)
         os.replace(tmp, path)  # atomic: a half-written library never loads
     finally:
         if os.path.exists(tmp):
@@ -82,6 +91,58 @@ def build_all(names: Iterable[str]) -> Dict[str, float]:
     names = list(names)
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         return dict(zip(names, pool.map(timed, names)))
+
+
+def _demangle(names: List[str]) -> List[str]:
+    """``cu++filt -p`` (beside ``nvcc``) on mangled kernel names: each
+    function with its template arguments, without the parameter types, the
+    anonymous namespace or the literals' casts, e.g.
+    ``flash_mma_kernel<64, 64, 128>``."""
+    if not names:
+        return []
+    filt = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
+    res = subprocess.run([filt, "-p", *names], capture_output=True,
+                         text=True, check=True)
+    out = [re.sub(r"^void |<unnamed>::|\((?:int|bool)\)", "", line.strip())
+           for line in res.stdout.splitlines() if line.strip()]
+    if len(out) != len(names):
+        raise RuntimeError(f"cu++filt gave {len(out)} names for "
+                           f"{len(names)}:\n{res.stdout}")
+    return out
+
+
+def ptxas_report(name: str) -> List[dict]:
+    """What ``ptxas -v`` said of each kernel of the built ``csrc/<name>.cu``:
+    ``kernel`` (the function's name and its template arguments, e.g.
+    ``flash_mma_kernel<64, 64, 128>``), ``registers``, ``spill_stores``
+    and ``spill_loads`` (bytes) and ``static_smem`` (bytes; dynamic shared
+    memory is set at launch and not in the report)."""
+    with open(build(name)[:-3] + ".ptxas") as f:
+        text = f.read()
+    out = []
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            out.append({"kernel": entry.group(1),
+                        "registers": 0, "spill_stores": 0, "spill_loads": 0,
+                        "static_smem": 0})
+            continue
+        if not out:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills:
+            out[-1]["spill_stores"] = int(spills.group(1))
+            out[-1]["spill_loads"] = int(spills.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[-1]["registers"] = int(regs.group(1))
+        smem = re.search(r"(\d+) bytes smem", line)
+        if smem:
+            out[-1]["static_smem"] = int(smem.group(1))
+    for r, name in zip(out, _demangle([r["kernel"] for r in out])):
+        r["kernel"] = name
+    return out
 
 
 def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:

@@ -8,10 +8,12 @@ max, sum and accumulator; scores scaled after Q K^T; masked scores -1e30;
 a fully masked row divides by 1).
 
 For CUDA tensors it launches ``csrc/flash_attention.cu`` and counts the
-launch on ``flash_attention.launches``.  For CPU tensors, or with
-``use_kernel=False``, it runs :func:`flash_attention_plain`, which walks
-the same run tiles in PyTorch: the same KV-tile bounds, the same online
-softmax, tile by tile.  The requested ``block_q``/``block_k`` (the
+launch on ``flash_attention.launches``: bf16 runs on the tensor cores
+(``mma.sync``, P rounded to bf16 for P V), fp32 on the FFMA kernel, which
+keeps IEEE fp32.  For CPU tensors, or with ``use_kernel=False``, it runs
+:func:`flash_attention_plain`, which walks the same run tiles in PyTorch:
+the same KV-tile bounds, the same online softmax, tile by tile, and for
+bf16 the same rounding of P.  The requested ``block_q``/``block_k`` (the
 reference's knobs) map onto the compiled templates by :func:`legalize`;
 ``flash_attention.last_geometry`` records both.
 """
@@ -26,7 +28,6 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-THREADS = 256
 BQ_TEMPLATES = (16, 32, 64)
 BK_TEMPLATES = (16, 32, 64)
 DP_TEMPLATES = (16, 32, 64, 128)     # head_dim, padded up
@@ -40,11 +41,16 @@ class RunGeometry:
     bq: int
     bk: int
     dp: int
+    dtype: str = "float32"
 
     @property
     def smem_bytes(self) -> int:
-        """Dynamic shared memory: Q [bq][dp+1], K [bk][dp+1], V [bk][dp]
-        and P [bq][bk+1], all fp32 (see csrc/flash_attention.cu)."""
+        """Dynamic shared memory (see csrc/flash_attention.cu).  fp32 (the
+        FFMA kernel): Q [bq][dp+1], K [bk][dp+1], V [bk][dp] and
+        P [bq][bk+1], 4 bytes each.  bf16 (the tensor-core kernel): Q
+        [bq][dp+8] and two stages of K and V [bk][dp+8], 2 bytes each."""
+        if self.dtype == "bfloat16":
+            return 2 * (self.bq + 4 * self.bk) * (self.dp + 8)
         return 4 * (self.bq * (self.dp + 1) + self.bk * (self.dp + 1)
                     + self.bk * self.dp + self.bq * (self.bk + 1))
 
@@ -55,18 +61,22 @@ def _pick(templates: Tuple[int, ...], requested: int, dim: int) -> int:
     return max(fits) if fits else templates[0]
 
 
-def legalize(block_q: int, block_k: int, s: int, d: int) -> RunGeometry:
+def legalize(block_q: int, block_k: int, s: int, d: int,
+             dtype: torch.dtype = torch.float32) -> RunGeometry:
     """Requested blocks -> run geometry.  As the reference clamps each
     block to the sequence (``min(block, s)``), each run tile is the largest
     template not above it (else the smallest, with the tail masked); dp is
     the smallest template that holds head_dim; then bk halves until the
-    tiles fit the shared-memory budget."""
+    tiles fit the shared-memory budget (only fp32 tiles ever need it)."""
     if d > DP_TEMPLATES[-1]:
         raise ValueError(f"flash attention kernel takes head_dim <= "
                          f"{DP_TEMPLATES[-1]}, got {d}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"attention takes float32 or bfloat16, got {dtype}")
     dp = next(t for t in DP_TEMPLATES if t >= d)
     geom = RunGeometry(_pick(BQ_TEMPLATES, block_q, s),
-                       _pick(BK_TEMPLATES, block_k, s), dp)
+                       _pick(BK_TEMPLATES, block_k, s), dp,
+                       str(dtype).removeprefix("torch."))
     while geom.smem_bytes > SMEM_BUDGET and geom.bk > BK_TEMPLATES[0]:
         geom = dataclasses.replace(geom, bk=geom.bk // 2)
     return geom
@@ -113,7 +123,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The kernel's arithmetic in PyTorch over the same run geometry: per
     (bq) query tile, the KV tiles of :func:`kv_tile_range` in order, each
     folded into an fp32 running max, sum and accumulator; tails by slicing
-    (the kernel's zero-filled tails give the same result)."""
+    (the kernel's zero-filled tails give the same result).  For bf16
+    inputs P is rounded to bf16 before P V, as the tensor-core kernel
+    feeds it to the MMA, while the sum l takes the fp32 P."""
+    round_p = q.dtype == torch.bfloat16
     b, s, hq, d = q.shape
     group = hq // k.shape[2]
     qf = q.float().transpose(1, 2)                                 # B,HQ,S,D
@@ -143,6 +156,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(sc - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(dim=-1)
+            if round_p:
+                p = p.to(torch.bfloat16).float()
             acc = acc * alpha[..., None] + torch.matmul(p, vt)
             m = m_new
         denom = torch.where(l == 0, torch.ones_like(l), l)
@@ -162,7 +177,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window)
     b, s, hq, d = q.shape
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    geom = legalize(block_q, block_k, s, d)
+    geom = legalize(block_q, block_k, s, d, q.dtype)
     flash_attention.last_geometry = {
         "requested": {"block_q": int(block_q), "block_k": int(block_k)},
         "run": dataclasses.asdict(geom)}
@@ -174,6 +189,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash attention kernel takes contiguous "
                          "(B, S, H, D) operands")
+    # 16-byte copies: whole 8-element chunks, rows on 16-byte boundaries
+    vec = q.dtype == torch.bfloat16 and d % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -181,7 +199,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, hq, k.shape[2], d, float(scale), int(bool(causal)),
             0 if window is None else int(window), _DTYPE_CODE[q.dtype],
-            geom.bq, geom.bk, geom.dp, stream)
+            geom.bq, geom.bk, geom.dp, int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed (code {rc})"
                            f" for q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -199,7 +217,8 @@ def _bind(lib) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.repro_flash_attention.restype = ctypes.c_int
 
 

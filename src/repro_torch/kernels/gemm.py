@@ -7,13 +7,16 @@ Those tiles were sized for a 128 MiB TPU VMEM (block_m up to 4,096,
 block_k up to 4,608), so the wrapper maps each requested ``GemmConfig``
 onto one of the tile templates compiled into ``csrc/gemm.cu`` (the *run
 geometry*, see :func:`legalize`) and records both on
-``gemm.last_geometry``.  ``parallel_m``/``parallel_n`` (the TPU grid
-dimension semantics) are kept and recorded; on a GPU every block runs in
-parallel, so they change nothing.
+``gemm.last_geometry``.  Where the output tiles are fewer than the card's
+SMs, the run geometry also cuts K into ``split_k`` slices (fp32), whose
+partial tiles a second kernel sums in slice order.  ``parallel_m``/
+``parallel_n`` (the TPU grid dimension semantics) are kept and recorded;
+on a GPU every block runs in parallel, so they change nothing.
 
-``gemm`` launches the CUDA kernel for CUDA tensors and counts each launch
-on ``gemm.launches``.  For CPU tensors, or with ``use_kernel=False``, it
-runs :func:`gemm_plain`, which walks the same run geometry in PyTorch.
+``gemm`` launches the CUDA kernel for CUDA tensors and counts each call
+once on ``gemm.launches`` (with the split-K sum, two kernels a call).  For
+CPU tensors, or with ``use_kernel=False``, it runs :func:`gemm_plain`,
+which walks the same run geometry in PyTorch, slices included.
 
 The kernel is built at first use by :mod:`repro_torch.kernels._build`
 (``nvcc`` for ``sm_90a``, bound with ``ctypes``).
@@ -22,18 +25,21 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref  # noqa: F401  (sets IEEE fp32 matmuls)
 
-# Tile templates compiled into csrc/gemm.cu (256 threads a block each).
+# Tile templates compiled into csrc/gemm.cu.
 BM_TEMPLATES = (16, 32, 64, 128)
 BN_TEMPLATES = (32, 64, 128)
 BK_TEMPLATES = (16, 32)
-SMEM_LIMIT = 48 * 1024  # static shared memory a block may use
+SMEM_BUDGET = 100 * 1024  # shared memory of a block: two blocks an SM
+SM_COUNT = 132            # SMs of an H100 SXM, the card the kernel targets
+BLOCKS_PER_SM = 2         # split-K aims at this many blocks an SM
+MIN_SLICE_STEPS = 4       # no split-K slice is cut shorter (bk steps)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -50,16 +56,36 @@ class GemmConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RunGeometry:
-    """The compiled tile template one launch runs."""
+    """What one launch runs: the compiled tile template, the number of K
+    slices (1: not cut), whether the copies move 16 bytes (``vec``) or
+    single elements, and the operands' dtype."""
     bm: int
     bn: int
     bk: int
+    split_k: int = 1
+    vec: bool = False
+    dtype: str = "float32"
 
     @property
     def smem_bytes(self) -> int:
-        """Static shared memory of the template: both tiles in fp32, the
-        A tile padded by one column (see csrc/gemm.cu)."""
-        return ((self.bm + 1) + self.bn) * self.bk * 4
+        """Shared memory of the template (see csrc/gemm.cu).  fp32: two
+        stages of the k-major A tile, rows padded by 4, and the B tile.
+        bf16 (the first port's loop): both tiles once, in fp32, the A tile
+        padded by one column."""
+        if self.dtype == "bfloat16":
+            return ((self.bm + 1) + self.bn) * self.bk * 4
+        return 2 * ((self.bm + 4) + self.bn) * self.bk * 4
+
+    def slice_width(self, k: int) -> int:
+        """K a slice covers: whole bk steps, the steps shared out evenly."""
+        steps = -(-k // self.bk)
+        return -(-steps // self.split_k) * self.bk
+
+    def k_slices(self, k: int) -> List[Tuple[int, int]]:
+        """The K ranges of the slices, in order; the last one is shorter
+        where the steps do not divide evenly."""
+        width = self.slice_width(k)
+        return [(k0, min(k, k0 + width)) for k0 in range(0, k, width)]
 
 
 def gemm_config_from_knobs(tile_m: int, tile_n: int, tile_k: int,
@@ -85,15 +111,41 @@ def _pick(templates: Tuple[int, ...], requested: int, dim: int) -> int:
     return max(fits) if fits else templates[0]
 
 
-def legalize(config: GemmConfig, m: int, n: int, k: int) -> RunGeometry:
+def split_k_for(tiles: int, steps: int) -> int:
+    """K slices for ``tiles`` output tiles of ``steps`` bk steps each: 1
+    when the tiles fill the SMs; else about BLOCKS_PER_SM blocks an SM,
+    with no slice under MIN_SLICE_STEPS steps.  The count is that of the
+    slices :meth:`RunGeometry.k_slices` cuts, none of them empty."""
+    if tiles >= SM_COUNT:
+        return 1
+    want = min(BLOCKS_PER_SM * SM_COUNT // tiles, steps // MIN_SLICE_STEPS)
+    if want <= 1:
+        return 1
+    return -(-steps // -(-steps // want))
+
+
+def legalize(config: GemmConfig, m: int, n: int, k: int,
+             dtype: torch.dtype = torch.float32) -> RunGeometry:
     """Requested geometry -> run geometry.  As the reference clamps each
     block to its dimension (``min(block, dim)``), each run tile is the
     largest template not above ``min(requested block, dim)``; where no
     template is that small, the smallest template runs and the kernel
-    masks the tail."""
-    return RunGeometry(bm=_pick(BM_TEMPLATES, config.block_m, m),
+    masks the tail.  fp32 then cuts K by :func:`split_k_for` and copies 16
+    bytes at a time where both row strides allow it (``K % 4 == 0`` and
+    ``N % 4 == 0``); bf16 runs the first port's loop, uncut, by single
+    elements."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"gemm takes float32 or bfloat16, got {dtype}")
+    geom = RunGeometry(bm=_pick(BM_TEMPLATES, config.block_m, m),
                        bn=_pick(BN_TEMPLATES, config.block_n, n),
-                       bk=_pick(BK_TEMPLATES, config.block_k, k))
+                       bk=_pick(BK_TEMPLATES, config.block_k, k),
+                       dtype=str(dtype).removeprefix("torch."))
+    if dtype == torch.bfloat16:
+        return geom
+    tiles = -(-m // geom.bm) * -(-n // geom.bn)
+    return dataclasses.replace(
+        geom, split_k=split_k_for(tiles, -(-k // geom.bk)),
+        vec=k % 4 == 0 and n % 4 == 0)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -111,19 +163,25 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 def gemm_plain(a: torch.Tensor, b: torch.Tensor,
                geom: RunGeometry) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch over the same run geometry: one
-    (bm, bn) output tile at a time, its K loop in order in steps of bk
-    into an fp32 accumulator, tails by slicing, cast to a's dtype."""
+    (bm, bn) output tile at a time; for each K slice in order, its steps
+    of bk in order into an fp32 partial; the partials summed in slice
+    order (the split-K sum kernel's order); tails by slicing; cast to a's
+    dtype."""
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     for i in range(0, m, geom.bm):
         for j in range(0, n, geom.bn):
-            acc = torch.zeros((min(geom.bm, m - i), min(geom.bn, n - j)),
-                              dtype=torch.float32, device=a.device)
-            for kk in range(0, k, geom.bk):
-                acc += torch.matmul(a[i:i + geom.bm, kk:kk + geom.bk].float(),
-                                    b[kk:kk + geom.bk, j:j + geom.bn].float())
-            out[i:i + geom.bm, j:j + geom.bn] = acc.to(a.dtype)
+            total = None
+            for k0, k1 in geom.k_slices(k):
+                acc = torch.zeros((min(geom.bm, m - i), min(geom.bn, n - j)),
+                                  dtype=torch.float32, device=a.device)
+                for kk in range(k0, k1, geom.bk):
+                    ke = min(k1, kk + geom.bk)
+                    acc += torch.matmul(a[i:i + geom.bm, kk:ke].float(),
+                                        b[kk:ke, j:j + geom.bn].float())
+                total = acc if total is None else total + acc
+            out[i:i + geom.bm, j:j + geom.bn] = total.to(a.dtype)
     return out
 
 
@@ -137,21 +195,32 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
     _check(a, b)
     m, k = a.shape
     n = b.shape[1]
-    geom = legalize(config, m, n, k)
+    geom = legalize(config, m, n, k, a.dtype)
+    on_kernel = a.device.type != "cpu" and use_kernel
+    if on_kernel:
+        if a.device.type != "cuda":
+            raise ValueError(f"gemm kernel runs on CUDA tensors, got "
+                             f"{a.device}")
+        if not (a.is_contiguous() and b.is_contiguous()):
+            raise ValueError("gemm kernel takes contiguous row-major "
+                             "operands")
+        if geom.vec and (a.data_ptr() | b.data_ptr()) % 16:
+            geom = dataclasses.replace(geom, vec=False)  # unaligned views
     gemm.last_geometry = {"requested": dataclasses.asdict(config),
                           "run": dataclasses.asdict(geom)}
-    if a.device.type == "cpu" or not use_kernel:
+    if not on_kernel:
         return gemm_plain(a, b, geom)
-    if a.device.type != "cuda":
-        raise ValueError(f"gemm kernel runs on CUDA tensors, got {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("gemm kernel takes contiguous row-major operands")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    ws = (torch.empty((geom.split_k, m, n), dtype=torch.float32,
+                      device=a.device) if geom.split_k > 1 else None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _lib().repro_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                               m, n, k, _DTYPE_CODE[a.dtype],
-                               geom.bm, geom.bn, geom.bk, stream)
+                               None if ws is None else ws.data_ptr(),
+                               m, n, k, _DTYPE_CODE[a.dtype], geom.bm,
+                               geom.bn, geom.bk, geom.split_k,
+                               geom.slice_width(k),
+                               int(geom.vec), stream)
     if rc != 0:
         raise RuntimeError(f"gemm kernel launch failed (code {rc}) for "
                            f"{(m, n, k)} {a.dtype} geometry {geom}")
@@ -171,9 +240,10 @@ def build() -> str:
 
 def _bind(lib) -> None:
     lib.repro_gemm.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.repro_gemm.restype = ctypes.c_int
 
 

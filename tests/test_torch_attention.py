@@ -1,6 +1,7 @@
 """Port parity for attention: the plain version of the Hopper flash kernel
 against the reference Pallas kernel (``repro.kernels.ops.attention``,
-interpret mode), the oracle, forward chunked attention, and decode
+interpret mode) in fp32 and, with P rounded as the tensor-core kernel
+rounds it, in bf16; the oracle, forward chunked attention, and decode
 attention with its cache updates (full, per-slot, ring) against
 ``repro.models.layers``.  The kernel itself is tested on the card by
 tests/test_torch_gpu.py."""
@@ -44,8 +45,8 @@ def test_plain_flash_matches_pallas(causal, window, hq, hkv):
     got = TO.attention(*_t(q, k, v), causal=causal, window=window,
                        block_q=32, block_k=32)
     assert TF.flash_attention.launches == launches  # the CPU never launches
-    assert TF.flash_attention.last_geometry["run"] == {"bq": 32, "bk": 32,
-                                                       "dp": 16}
+    assert TF.flash_attention.last_geometry["run"] == {
+        "bq": 32, "bk": 32, "dp": 16, "dtype": "float32"}
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -61,6 +62,39 @@ def test_plain_flash_matches_pallas_mixed_blocks(s, bq, bk, causal):
     got = TF.flash_attention(*_t(q, k, v), causal=causal, block_q=bq,
                              block_k=bk)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,bq,bk", [
+    (2, 100, 4, 2, 16, True, None, 32, 32),
+    (1, 77, 6, 2, 16, True, 32, 64, 64),
+    (1, 50, 4, 1, 8, False, None, 16, 64)])
+def test_plain_flash_bf16_matches_pallas(b, s, hq, hkv, d, causal, window,
+                                         bq, bk):
+    """bf16 inputs.  The Pallas kernel keeps P in fp32 for P V; the plain
+    version rounds P to bf16 there, as the tensor-core kernel does.  That
+    moves an output, a convex combination of V's rows, by at most 2^-9
+    (P's relative rounding) x max|v|; each side then rounds the output to
+    bf16 once, at most one step apart: 2^-6 at |o| < 4.  The tolerance is
+    the sum of the two."""
+    q, k, v = _qkv(b, s, hq, hkv, d, seed=s + d)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(JO.attention(jq, jk, jv, causal=causal, window=window,
+                                   block_q=bq, block_k=bk)
+                      .astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                  .bfloat16() for x in (jq, jk, jv))
+    got = TF.flash_attention(tq, tk, tv, causal=causal, window=window,
+                             block_q=bq, block_k=bk)
+    assert got.dtype == torch.bfloat16
+    assert TF.flash_attention.last_geometry["run"]["dtype"] == "bfloat16"
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2 ** -6 + 2 ** -9 * np.abs(v).max())
+    assert np.abs(want).max() < 4
+    # the rounding of P is what the plain version adds in bf16
+    unrounded = TF.flash_attention_plain(
+        tq.float(), tk.float(), tv.float(), causal, window, d ** -0.5,
+        TF.legalize(bq, bk, s, d, torch.bfloat16))
+    assert not torch.equal(got, unrounded.bfloat16())
 
 
 def test_oracle_matches_reference_oracle():
@@ -104,17 +138,34 @@ def test_kv_tile_range_is_the_reference_block_skip():
 
 def test_legalize_rule():
     g = TF.legalize(128, 128, 1024, 128)
-    assert (g.bq, g.bk, g.dp) == (64, 32, 128)   # bk halved: 115 KB > budget
+    assert g == TF.RunGeometry(64, 32, 128, "float32")  # bk halved: 115 KB
     assert g.smem_bytes <= TF.SMEM_BUDGET
-    assert TF.legalize(128, 128, 1024, 64) == TF.RunGeometry(64, 64, 64)
-    assert TF.legalize(32, 16, 100, 16) == TF.RunGeometry(32, 16, 16)
-    assert TF.legalize(128, 128, 12, 20) == TF.RunGeometry(16, 16, 32)
-    assert TF.legalize(128, 128, 40, 8) == TF.RunGeometry(32, 32, 16)
-    for d in (8, 16, 64, 128):
-        for s in (3, 100, 4096):
-            assert TF.legalize(128, 128, s, d).smem_bytes <= TF.SMEM_BUDGET
+    assert TF.legalize(128, 128, 1024, 64) == TF.RunGeometry(64, 64, 64,
+                                                             "float32")
+    assert TF.legalize(32, 16, 100, 16) == TF.RunGeometry(32, 16, 16,
+                                                          "float32")
+    assert TF.legalize(128, 128, 12, 20) == TF.RunGeometry(16, 16, 32,
+                                                           "float32")
+    assert TF.legalize(128, 128, 40, 8) == TF.RunGeometry(32, 32, 16,
+                                                          "float32")
+    # bf16 tiles cost 2 bytes and pad rows by 8: the serving shape keeps
+    # bk 64 (Q 17 KB + two K/V stages 68 KB)
+    g = TF.legalize(128, 128, 1024, 128, torch.bfloat16)
+    assert g == TF.RunGeometry(64, 64, 128, "bfloat16")
+    assert g.smem_bytes == (64 + 4 * 64) * 136 * 2 <= TF.SMEM_BUDGET
+    assert TF.legalize(128, 128, 40, 8, torch.bfloat16) == TF.RunGeometry(
+        32, 32, 16, "bfloat16")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (8, 16, 64, 128):
+            for s in (3, 100, 4096):
+                g = TF.legalize(128, 128, s, d, dtype)
+                assert g.smem_bytes <= TF.SMEM_BUDGET
+                if dtype == torch.bfloat16:   # never halved
+                    assert g.bk == min(64, max(16, 1 << (s.bit_length() - 1)))
     with pytest.raises(ValueError):
         TF.legalize(128, 128, 64, 256)
+    with pytest.raises(TypeError):
+        TF.legalize(128, 128, 64, 64, torch.float16)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

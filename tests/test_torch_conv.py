@@ -55,7 +55,9 @@ def test_conv2d_from_knobs():
                                1, 1, **knobs)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
     assert TG.gemm.last_geometry["requested"]["block_m"] == 16
-    assert TG.gemm.last_geometry["run"] == {"bm": 16, "bn": 32, "bk": 32}
+    assert TG.gemm.last_geometry["run"] == {"bm": 16, "bn": 32, "bk": 32,
+                                            "split_k": 1, "vec": True,
+                                            "dtype": "float32"}
 
 
 def test_matmul_routes():

@@ -17,8 +17,11 @@ from repro_torch.kernels import gemm as TG
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as TR
 
+# (M, K, N): the reference's shapes, then ResNet-18's split-K shapes (conv8b,
+# conv6b, conv4a) and misaligned strides (conv1's K 147; K 129 with N 33)
 SHAPES = [(8, 8, 8), (100, 70, 90), (128, 128, 128), (1, 256, 33),
-          (257, 129, 65), (392, 4608, 512), (6272, 576, 128)]
+          (257, 129, 65), (392, 4608, 512), (1568, 2304, 256),
+          (6272, 576, 128), (300, 147, 64), (77, 129, 33)]
 CONFIGS = [(32, 32, 32, True, True), (128, 128, 128, True, True),
            (16, 64, 128, False, True), (8, 128, 256, True, False)]
 
@@ -27,9 +30,10 @@ CONFIGS = [(32, 32, 32, True, True), (128, 128, 128, True, True),
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
                                        (torch.bfloat16, 1e-2)], ids=str)
 def test_kernel_matches_plain_on_card(dtype, tol):
-    """Every launch counts once; the kernel agrees with its plain version
-    to ``tol`` x max |plain| (two fp32 sums in different orders; in bf16
-    both round the fp32 sum once)."""
+    """Every call counts once, split-K or not; the kernel agrees with its
+    plain version (the same slices, summed in the same order) to ``tol`` x
+    max |plain| (two fp32 sums in different orders; in bf16 both round the
+    fp32 sum once)."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for m, k, n in SHAPES:
@@ -121,7 +125,8 @@ def test_rmsnorm_kernel_matches_plain_on_card(dtype, tol):
                                        (torch.bfloat16, 1e-2)], ids=str)
 def test_flash_kernel_matches_plain_on_card(dtype, tol):
     """The reference's test cases (GQA, causal / full / window 32, mixed
-    blocks and tails) and the LM's prefill shape."""
+    blocks and tails), the LM's prefill shape, and the bf16 tensor-core
+    kernel's head_dim templates, windows and ragged tails."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(2, 100, hq, hkv, 16, causal, window, 32, 32)
@@ -130,6 +135,12 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol):
     cases += [(1, s, 2, 2, 8, True, None, bq, bk)
               for s, bq, bk in ((3, 16, 16), (37, 16, 64), (70, 32, 16))]
     cases += [(1, 1000, 12, 2, 128, True, None, 128, 128)]
+    # every head_dim template with GQA, window 32 and ragged S; D 20 takes
+    # the scalar copies (D % 8 != 0)
+    cases += [(2, 77, 6, 2, d, True, 32, 64, 64) for d in (8, 16, 64, 128)]
+    cases += [(1, 150, 12, 2, 128, False, None, 128, 128),
+              (2, 130, 4, 1, 64, True, None, 32, 64),
+              (1, 50, 2, 1, 20, True, None, 64, 64)]
     for b, s, hq, hkv, d, causal, window, bq, bk in cases:
         q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
         k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
