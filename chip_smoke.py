@@ -9,14 +9,20 @@ ResNet-18 width, and the LM server at qwen2-1.5b's full width and depth.
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, all at once, and
-   prints what ``ptxas -v`` says of the fp32 GEMM's and the bf16 flash
-   kernel's templates (registers, spills, static shared memory);
+   prints what ``ptxas -v`` says of the fp32 GEMM's, the bf16 flash
+   kernel's and the RMSNorm kernel's templates (registers, spills, static
+   shared memory), and which RMSNorm templates the LM path runs;
 3. holds each kernel against its plain PyTorch version on the card, fp32
    and bf16: the reference test shapes and configs, the GEMM's split-K
    shapes and misaligned row strides, the 8 ResNet-18 im2col shapes at
    batch 8 under the default and knob-derived configs, flash at every
    head_dim template with GQA, window 32 and ragged S, and the LM's shapes
-   (RMSNorm over (1024, 1536) and (8, 1536); causal flash over B=1, S in
+   (RMSNorm over prompts of 200, 384 and 1024 rows and (8, 1536), plus
+   4096 rows, (9000, 128), (5000, 4096), the widest row and x at an offset
+   of one value, which takes the scalar template; it fails unless the
+   checks ran every RMSNorm layout the LM path runs and the grid-stride
+   loop;
+   causal flash over B=1, S in
    {256, 1000, 2048}, 12 query and 2 KV heads, head_dim 128); there the
    bf16 flash kernel is also held against the plain version with P kept
    in fp32 (the reference kernel's arithmetic), within 2^-7 x max |v|;
@@ -42,8 +48,9 @@ ResNet-18 width, and the LM server at qwen2-1.5b's full width and depth.
 9. profiles one prefill and a few decode steps (``torch.profiler``):
    host wall vs device busy time, kernels launched, the top kernels;
 10. times the two LM kernels at the serving run's shapes (kernel and one
-   PyTorch call as device time in a CUDA graph, plain version, bound) and
-   prints one JSON line with the three kernels.
+   PyTorch call as device time in a CUDA graph, plain version, bound),
+   the RMSNorm kernel's floor (a (1, 32) launch) and its wrapper's host
+   microseconds a call, and prints one JSON line with the three kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, so the script exits non-zero and prints no result; without a GPU,
@@ -98,10 +105,21 @@ LM_TOL_BF16 = 5e-2        # the same in bf16: both paths round every layer's
                           # output to bf16 (2^-8), 28 layers compound it
 FLASH_TIMED_S = (256, 1024, 2048)
 NORM_TIMED_ROWS = 1024
-# (shape, on the serving path): the reference's test shapes, then the path's
-RMSNORM_CHECKS = [((4, 64), False), ((2, 100, 96), False),
-                  ((1, 7, 33), False), ((129, 256), False),
-                  ((1024, 1536), True), ((8, 1536), True)]
+NORM_FLOOR_SHAPE = (1, 32)  # the least work of a launch: its floor
+NORM_HOST_CALLS = 1000      # wrapper calls timed by the host clock
+# (shape, on the serving path, 16-byte aligned): the reference's test
+# shapes, the path's (a decode step's 8 rows and a prompt of 200, which
+# spread a row over warps; prompts of 384 and 1024, one warp a row in
+# bf16), 4096 rows, the grid-stride loop of one-warp rows (9000, 128) and
+# of wider ones (5000, 4096), the widest row, and x at an offset of one
+# value (the scalar template)
+RMSNORM_CHECKS = [((4, 64), False, True), ((2, 100, 96), False, True),
+                  ((1, 7, 33), False, True), ((129, 256), False, True),
+                  ((200, 1536), True, True), ((384, 1536), True, True),
+                  ((1024, 1536), True, True), ((8, 1536), True, True),
+                  ((4096, 1536), False, True), ((9000, 128), False, True),
+                  ((5000, 4096), False, True), ((3, 8192), False, True),
+                  ((5, 1536), False, False), ((3, 8192), False, False)]
 # ((B, S, HQ, HKV, D, causal, window, block_q, block_k), on the path)
 FLASH_CHECKS = (
     [((2, 100, hq, hkv, 16, causal, window, 32, 32), False)
@@ -121,7 +139,8 @@ PORT_KERNEL_NAMES = ("gemm_f32_kernel", "splitk_sum_kernel",
                      "gemm_loop_kernel", "flash_mma_kernel",
                      "flash_ffma_kernel", "rmsnorm_kernel")
 # the templates redesigned for the card, whose ptxas lines are printed
-NEW_TEMPLATES = ("gemm_f32_kernel", "splitk_sum_kernel", "flash_mma_kernel")
+NEW_TEMPLATES = ("gemm_f32_kernel", "splitk_sum_kernel", "flash_mma_kernel",
+                 "rmsnorm_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -208,7 +227,7 @@ def phase_build() -> float:
             f"in {secs:.1f} s")
     log(f"[build] {len(per_kernel)} kernels in {dt:.1f} s (in parallel)")
     spills, seen = 0, set()
-    for name in ("gemm", "flash_attention"):
+    for name in KERNELS:
         for r in _build.ptxas_report(name):
             base = r["kernel"].partition("<")[0]
             if base not in NEW_TEMPLATES:
@@ -221,7 +240,46 @@ def phase_build() -> float:
     check(seen == set(NEW_TEMPLATES),
           f"ptxas reported {sorted(seen)}, not every one of {NEW_TEMPLATES}")
     log(f"[build] new templates spill {spills} bytes in all")
+    log_lm_rmsnorm_templates()
     return dt
+
+
+def lm_rmsnorm_layouts() -> dict:
+    """The RMSNorm layouts the LM path runs at d_model (bf16 serving, the
+    fp32 gate) for 1 to LM_PROMPT[1] rows: (d, dtype, 16-byte copies,
+    warps a row, slots a lane, rows a block) -> the rows that run it."""
+    import torch
+    from repro_torch.kernels import rmsnorm as RN
+    d = lm_config(torch.bfloat16).d_model
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in range(1, LM_PROMPT[1] + 1):
+            g = RN.legalize(d, rows, dtype)
+            out.setdefault((d, dtype, g.vec, g.warps_per_row, g.slots,
+                            g.rows_per_block), []).append(rows)
+    return out
+
+
+def log_lm_rmsnorm_templates() -> None:
+    """The RMSNorm templates the LM path runs, with ptxas's registers and
+    spills."""
+    import torch
+    from repro_torch.kernels import _build
+    reports = {r["kernel"]: r for r in _build.ptxas_report("rmsnorm")}
+    ctypes = {torch.bfloat16: "__nv_bfloat16", torch.float32: "float"}
+    spills = 0
+    for (d, dtype, vec, warps, slots, rpb), rows in \
+            lm_rmsnorm_layouts().items():
+        name = (f"rmsnorm_kernel<{ctypes[dtype]}, {ctypes[dtype]}, "
+                f"{int(vec)}, {slots}>")
+        check(name in reports, f"ptxas reported no {name}")
+        r = reports[name]
+        spills += r["spill_stores"] + r["spill_loads"]
+        log(f"[build] the LM path's RMSNorm at d {d}, rows {rows[0]}-"
+            f"{rows[-1]}: {name}, {warps} warps a row, {rpb} a block: "
+            f"{r['registers']} registers, spills "
+            f"{r['spill_stores'] + r['spill_loads']} B")
+    log(f"[build] the LM path's RMSNorm templates spill {spills} bytes")
 
 
 def phase_check_kernel(dev) -> float:
@@ -472,24 +530,38 @@ def phase_check_lm_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst = {"rmsnorm": 0.0, "flash_attention": 0.0}
     n_checks = 0
-    for shape, on_path in RMSNORM_CHECKS:
+    ran, strided = set(), set()   # layouts and grid-stride runs checked
+    for shape, on_path, aligned in RMSNORM_CHECKS:
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
-            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            n = math.prod(shape)
+            x = torch.randn(n + 1, generator=gen, device=dev).to(dtype)
+            x = (x[:n] if aligned else x[1:]).view(shape)
             w = torch.randn(shape[-1], generator=gen, device=dev).to(dtype)
             got = RN.rmsnorm(x, w)
+            run = RN.rmsnorm.last_geometry["run"]
             want = RN.rmsnorm(x, w, use_kernel=False)
             torch.cuda.synchronize()
             diff, rel = rel_err(got, want)
             check(got.dtype == dtype and rel <= tol,
-                  f"rmsnorm {shape} {dtype}: rel err {rel:.3g}")
-            if on_path:
-                log(f"[check] rmsnorm {shape} {dtype} run="
-                    f"{RN.rmsnorm.last_geometry['run']} max_abs_err="
-                    f"{diff:.3g} rel={rel:.3g}")
-                if dtype == torch.bfloat16:
-                    worst["rmsnorm"] = max(worst["rmsnorm"], diff)
+                  f"rmsnorm {shape} {dtype} {run}: rel err {rel:.3g}")
+            check(run["vec"] == (aligned and shape[-1]
+                                 % RN.vector_width(dtype) == 0),
+                  f"rmsnorm {shape} {dtype} aligned={aligned}: run {run}")
+            log(f"[check] rmsnorm {shape} {dtype}"
+                f"{'' if aligned else ' x at an offset of one value'} "
+                f"run={run} max_abs_err={diff:.3g} rel={rel:.3g}")
+            if on_path and dtype == torch.bfloat16:
+                worst["rmsnorm"] = max(worst["rmsnorm"], diff)
+            ran.add((shape[-1], dtype, run["vec"], run["threads"] // 32,
+                     run["slots"], run["rows_per_block"]))
+            if run["grid"] * run["rows_per_block"] < n // shape[-1]:
+                strided.add((run["threads"] > 32, dtype))
             n_checks += 1
+    missing = set(lm_rmsnorm_layouts()) - ran
+    check(not missing, f"no rmsnorm check runs the LM path's {missing}")
+    check(len(strided) == 4, f"the rmsnorm grid-stride loop is checked "
+          f"only in {sorted(map(str, strided))}")
     for (b, s, hq, hkv, d, causal, window, bq, bk), on_path in FLASH_CHECKS:
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
@@ -763,14 +835,86 @@ def phase_profile_serve(dev, params, cfg) -> dict:
     return profile_runs(runs)
 
 
-def phase_time_lm_kernels(dev, cfg, serve) -> list:
+def bound(t_ops, t_bytes) -> dict:
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def time_rmsnorm(randn, rows, d) -> dict:
+    """The RMSNorm kernel at (rows, d) from ``randn``: kernel and
+    ``F.rms_norm`` by device_ms, the plain version by CUDA events, and the
+    bound (each input read once, the output written once)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as RN
+    x, w = randn(rows, d), randn(d)
+    return {"shape": [rows, d],
+            "ms": device_ms(lambda: RN.rmsnorm(x, w)),
+            "plain_ms": cuda_ms(lambda: RN.rmsnorm_plain(x, w), reps=3),
+            "library_ms": device_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)),
+            **bound(4.0 * rows * d / FP32_FLOPS * 1e3,
+                    2.0 * (2 * rows * d + d) / HBM_BYTES_PER_S * 1e3)}
+
+
+def log_row(name, r, launches=None) -> None:
+    extra = (f" run={r['run']} {r['tflops']:.2f} TFLOP/s,"
+             if "run" in r else "")
+    times = "" if launches is None else f" x{launches} launches"
+    log(f"[time] {name} {r['shape']} bf16{times}:{extra} kernel "
+        f"{r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; the kernel at "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)")
+
+
+def time_rmsnorm_floor_and_host(randn, d) -> dict:
+    """What a small RMSNorm launch cannot go below, and what its wrapper
+    costs the host, in bf16: the kernel and ``F.rms_norm`` at
+    NORM_FLOOR_SHAPE by device_ms (a launch with almost no work: the floor
+    of a kernel replayed in a CUDA graph), and the host microseconds a
+    call at (LM_SLOTS, d), kernel and ``F.rms_norm``: a host clock around
+    NORM_HOST_CALLS calls, ended by a synchronize."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as RN
+    rows, width = NORM_FLOOR_SHAPE
+    x, w = randn(rows, width), randn(width)
+    out = {"floor_shape": [rows, width],
+           "floor_ms": device_ms(lambda: RN.rmsnorm(x, w)),
+           "floor_library_ms": device_ms(
+               lambda: F.rms_norm(x, (width,), w, 1e-6))}
+    x, w = randn(LM_SLOTS, d), randn(d)
+
+    def host_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NORM_HOST_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6 / NORM_HOST_CALLS
+
+    out["host_shape"] = [LM_SLOTS, d]
+    out["host_us"] = host_us(lambda: RN.rmsnorm(x, w))
+    out["library_host_us"] = host_us(lambda: F.rms_norm(x, (d,), w, 1e-6))
+    log(f"[time] rmsnorm floor {out['floor_shape']} bf16 (device_ms): "
+        f"kernel {out['floor_ms']:.4f} ms, F.rms_norm "
+        f"{out['floor_library_ms']:.4f} ms")
+    log(f"[time] rmsnorm host cost a call at {out['host_shape']} bf16 "
+        f"(host clock over {NORM_HOST_CALLS} calls, ended by a "
+        f"synchronize): wrapper {out['host_us']:.2f} us, F.rms_norm "
+        f"{out['library_host_us']:.2f} us")
+    return out
+
+
+def phase_time_lm_kernels(dev, cfg, serve) -> tuple:
     """Each LM kernel at the serving path's shapes, bf16: kernel and one
     PyTorch call by device_ms, the plain version by CUDA events, and the
     bound.  A kernel's totals are over the serving run's launches: each
     shape's times multiplied by its launches there (every prompt length
     for prefill, (8, d_model) rows for the decode steps' norms).  The
     canonical shapes (flash at S 256, 1024, 2048; RMSNorm at 1024 rows)
-    are logged too."""
+    are logged too.  Returns the kernels' totals and the RMSNorm floor
+    and host cost (:func:`time_rmsnorm_floor_and_host`)."""
     import collections
     import torch
     import torch.nn.functional as F
@@ -782,19 +926,7 @@ def phase_time_lm_kernels(dev, cfg, serve) -> list:
     randn = lambda *shape: torch.randn(shape, generator=gen,
                                        device=dev).to(dt)
 
-    def bound(t_ops, t_bytes) -> dict:
-        return {"bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-    def rmsnorm_row(rows) -> dict:
-        x, w = randn(rows, d), randn(d)
-        return {"shape": [rows, d],
-                "ms": device_ms(lambda: RN.rmsnorm(x, w)),
-                "plain_ms": cuda_ms(lambda: RN.rmsnorm_plain(x, w), reps=3),
-                "library_ms": device_ms(lambda: F.rms_norm(x, (d,), w,
-                                                           1e-6)),
-                **bound(4.0 * rows * d / FP32_FLOPS * 1e3,
-                        2.0 * (2 * rows * d + d) / HBM_BYTES_PER_S * 1e3)}
+    rmsnorm_row = lambda rows: time_rmsnorm(randn, rows, d)
 
     def flash_row(s) -> dict:
         q, k, v = randn(1, s, hq, hd), randn(1, s, hkv, hd), randn(1, s, hkv,
@@ -815,15 +947,6 @@ def phase_time_lm_kernels(dev, cfg, serve) -> list:
                        / HBM_BYTES_PER_S * 1e3)}
         row["tflops"] = flops / row["ms"] / 1e9
         return row
-
-    def log_row(name, r, launches=None):
-        extra = (f" run={r['run']} {r['tflops']:.2f} TFLOP/s,"
-                 if "run" in r else "")
-        times = "" if launches is None else f" x{launches} launches"
-        log(f"[time] {name} {r['shape']} bf16{times}:{extra} kernel "
-            f"{r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
 
     norms = 2 * cfg.n_layers + 1
     counts = {"rmsnorm": collections.Counter(), "flash_attention":
@@ -858,7 +981,7 @@ def phase_time_lm_kernels(dev, cfg, serve) -> list:
     for s in FLASH_TIMED_S:
         log_row("flash_attention", flash_row(s))
     log_row("rmsnorm", rmsnorm_row(NORM_TIMED_ROWS))
-    return kernels
+    return kernels, time_rmsnorm_floor_and_host(randn, d)
 
 
 def main() -> int:
@@ -897,7 +1020,7 @@ def main() -> int:
     lm_params, lm_cfg, lm_rel32, lm_rel16 = phase_lm_gate(dev)
     serve = phase_serve(dev, lm_params, lm_cfg)   # resets the LM counts
     profile = phase_profile_serve(dev, lm_params, lm_cfg)
-    lm_kernels = phase_time_lm_kernels(dev, lm_cfg, serve)
+    lm_kernels, norm_floor = phase_time_lm_kernels(dev, lm_cfg, serve)
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -918,7 +1041,8 @@ def main() -> int:
                            **{k: v for k, v in serve.items()
                               if k != "launches"},
                            "profile": profile,
-                           "kernels": dict(lm_kernels)}}))
+                           "kernels": dict(lm_kernels),
+                           "rmsnorm_floor_and_host": norm_floor}}))
     sources = {"rmsnorm": "src/repro/kernels/rmsnorm.py:21",
                "flash_attention": "src/repro/kernels/flash_attention.py:29"}
     log(json.dumps({"kernels": [{

@@ -6,43 +6,105 @@ does (the reference's jnp ``layers.rmsnorm`` multiplies in x's dtype
 instead; the port follows the kernel, so the two differ by rounding in
 bf16 and agree in fp32).
 
-For CUDA tensors it launches ``csrc/rmsnorm.cu`` (one thread block a row,
-the row in registers) and counts the launch on ``rmsnorm.launches``.  For
-CPU tensors, or with ``use_kernel=False``, it runs :func:`rmsnorm_plain`,
-which walks the reference's (block_rows, d) row tiles.  ``block_rows`` is
-the reference's knob: recorded on ``rmsnorm.last_geometry`` beside the run
-geometry, and it never changes the result (rows are independent).
+For CUDA tensors it launches ``csrc/rmsnorm.cu`` (the row in registers,
+spread over warps for few rows, one warp a row for many, 16-byte copies
+where alignment allows)
+and counts the launch on ``rmsnorm.launches``; :func:`legalize` chooses
+that run geometry.  For CPU tensors, or with ``use_kernel=False``, it runs
+:func:`rmsnorm_plain`, which walks the reference's (block_rows, d) row
+tiles.  ``block_rows`` is the reference's knob: recorded on
+``rmsnorm.last_geometry`` beside the run geometry, and it never changes
+the result (rows are independent).
 """
 from __future__ import annotations
 
 import ctypes
-import dataclasses
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-THREADS = 256
-VPT_TEMPLATES = (1, 2, 4, 8, 16, 32)  # values per thread, in csrc/rmsnorm.cu
-MAX_D = THREADS * VPT_TEMPLATES[-1]
+WARP = 32
+WARPS_PER_ROW = 8              # warps a row at most
+VEC_SLOTS = (1, 2, 4, 6, 8)    # 16-byte chunks a lane: the vector templates
+SCALAR_SLOTS = 32              # values a lane holds in the scalar template
+ROWS_PER_BLOCK = 4             # rows a block where a row is one warp
+SM_COUNT = 132                 # SMs of an H100 SXM, the card the kernel targets
+SM_THREADS, SM_BLOCKS = 2048, 32   # resident on one sm_90 SM at most
+SPREAD_ROWS = 2 * SM_COUNT     # up to these rows, a row spreads over warps
+MAX_D = WARP * WARPS_PER_ROW * SCALAR_SLOTS   # 8192: any template holds it
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@dataclasses.dataclass(frozen=True)
-class RunGeometry:
-    """The compiled template one launch runs: one row per block of
-    ``threads`` threads, each holding ``vpt`` values of the row."""
+class RunGeometry(NamedTuple):
+    """What one launch runs: ``threads`` lanes a row (32 x warps a row),
+    each holding ``slots`` copies of the row's values in registers, a copy
+    16 bytes (``vec``) or one value; blocks of ``rows_per_block`` rows;
+    ``grid`` blocks, which walk the rows in steps of
+    ``grid x rows_per_block``."""
     rows_per_block: int
     threads: int
-    vpt: int
+    vec: bool
+    slots: int
+    grid: int
+
+    @property
+    def warps_per_row(self) -> int:
+        return self.threads // WARP
 
 
-def legalize(d: int) -> RunGeometry:
-    """The smallest values-per-thread template that holds a row of d."""
-    if d > MAX_D:
-        raise ValueError(f"rmsnorm kernel takes d <= {MAX_D}, got {d}")
-    vpt = next(v for v in VPT_TEMPLATES if v * THREADS >= d)
-    return RunGeometry(rows_per_block=1, threads=THREADS, vpt=vpt)
+def vector_width(dtype: torch.dtype) -> int:
+    """Values of ``dtype`` in one 16-byte copy (4 fp32, 8 bf16)."""
+    return 16 // dtype.itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def _row_layout(d: int, dtype: torch.dtype, aligned: bool,
+                spread: bool) -> tuple[int, bool, int]:
+    """(threads a row, 16-byte copies, slots a lane) of a row of d."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"rmsnorm takes float32 or bfloat16, got {dtype}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"rmsnorm kernel takes 1 <= d <= {MAX_D}, got {d}")
+    vec = aligned and d % vector_width(dtype) == 0
+    copies = d // vector_width(dtype) if vec else d
+    per_lane = 1 if spread else VEC_SLOTS[-1] if vec else SCALAR_SLOTS
+    threads = WARP * min(WARPS_PER_ROW, -(-copies // (WARP * per_lane)))
+    slots = (next(n for n in VEC_SLOTS if n * threads >= copies) if vec
+             else SCALAR_SLOTS)
+    return threads, vec, slots
+
+
+def legalize(d: int, rows: int, dtype: torch.dtype = torch.float32,
+             aligned: bool = True) -> RunGeometry:
+    """The run geometry of ``rows`` rows of ``d`` values of ``dtype``.
+
+    - 16-byte copies where the operands are 16-byte ``aligned`` and d is a
+      multiple of a copy's values (4 fp32, 8 bf16); else the scalar
+      template, SCALAR_SLOTS values a lane.
+    - Warps a row, two layouts (cached per d and dtype).  Up to
+      SPREAD_ROWS rows (two blocks an SM), a launch waits on the chain a
+      warp runs after its one load, so a row spreads over the warps that
+      give each lane one copy, up to WARPS_PER_ROW.  Past that, bytes
+      govern, so a row takes the fewest warps whose lanes hold it in at
+      most VEC_SLOTS[-1] copies (SCALAR_SLOTS values) a lane.  Then the
+      fewest VEC_SLOTS that hold the row.  qwen2's d 1536, bf16: a decode
+      step's 8 rows 6 warps a row, a copy a lane; a 1,006-row prefill one
+      warp a row, 6 copies a lane (fp32: 8 warps and 2, then 2 warps and
+      6).
+    - Rows a block: ROWS_PER_BLOCK where a row is one warp, else one (the
+      block's warps meet in one shared-memory step).
+    - Grid: a block for each rows_per_block rows, capped at SM_COUNT times
+      the blocks resident on an SM; the kernel's row loop walks what the
+      cap leaves.
+    """
+    threads, vec, slots = _row_layout(d, dtype, aligned, rows <= SPREAD_ROWS)
+    rpb = min(ROWS_PER_BLOCK, rows) if threads == WARP else 1
+    cap = SM_COUNT * min(SM_BLOCKS, SM_THREADS // (rpb * threads))
+    return RunGeometry(rows_per_block=rpb, threads=threads, vec=vec,
+                       slots=slots, grid=min(-(-rows // rpb), cap))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -80,23 +142,34 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     ``use_kernel=False``, take the plain version."""
     _check(x, w)
     d = x.shape[-1]
-    geom = legalize(d)
-    rmsnorm.last_geometry = {"requested": {"block_rows": int(block_rows)},
-                             "run": dataclasses.asdict(geom)}
-    if x.device.type == "cpu" or not use_kernel:
-        return rmsnorm_plain(x, w, eps, block_rows)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm kernel runs on CUDA tensors, got "
-                         f"{x.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("rmsnorm kernel takes contiguous operands")
     rows = x.numel() // d
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().repro_rmsnorm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                  rows, d, float(eps), _DTYPE_CODE[x.dtype],
-                                  _DTYPE_CODE[w.dtype], geom.vpt, stream)
+    dev = x.device
+    on_kernel = dev.type != "cpu" and use_kernel
+    aligned = True
+    if on_kernel:
+        if dev.type != "cuda":
+            raise ValueError(f"rmsnorm kernel runs on CUDA tensors, got {dev}")
+        if not (x.is_contiguous() and w.is_contiguous()):
+            raise ValueError("rmsnorm kernel takes contiguous operands")
+        out = torch.empty_like(x)
+        ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr())
+        aligned = not (ptrs[0] | ptrs[1] | ptrs[2]) % 16
+    geom = legalize(d, rows, x.dtype, aligned)
+    rmsnorm.last_geometry = {"requested": {"block_rows": int(block_rows)},
+                             "run": geom._asdict()}
+    if not on_kernel:
+        return rmsnorm_plain(x, w, eps, block_rows)
+    # the raw current stream: torch.cuda.current_stream() builds a Stream
+    # object, several microseconds a call on a path that makes 57 a step
+    args = (*ptrs, rows, d, float(eps), _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[w.dtype], int(geom.vec), geom.warps_per_row,
+            geom.slots, geom.rows_per_block, geom.grid,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        rc = _lib().repro_rmsnorm(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = _lib().repro_rmsnorm(*args)
     if rc != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed (code {rc}) for "
                            f"rows={rows} d={d} {x.dtype}/{w.dtype} {geom}")
@@ -112,7 +185,8 @@ def _bind(lib) -> None:
     lib.repro_rmsnorm.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     lib.repro_rmsnorm.restype = ctypes.c_int
 
 

@@ -100,24 +100,52 @@ def _rel_err(got, want) -> float:
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
                                        (torch.bfloat16, 1e-2)], ids=str)
 def test_rmsnorm_kernel_matches_plain_on_card(dtype, tol):
-    """The reference's test shapes, the LM's (prompt, 1536) and (8, 1536),
-    and the widest row; fp32 and bf16 weights."""
+    """The reference's test shapes, the LM's (prompt, 1536) at prompts of
+    200, 384 and 1000 rows, (8, 1536) and (1, 1536), 4096 rows, the
+    grid-stride loop of one-warp rows four to a block (9000, 128) and of
+    wider rows (5000, 4096), the widest row, and a contiguous x whose
+    data_ptr is not 16-byte aligned (the scalar template); fp32 and bf16
+    weights.  At d 1536 a row spreads over 8 warps (fp32) or 6 (bf16) up
+    to SPREAD_ROWS rows, and takes 2 warps (fp32) or one (bf16) past them."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape in [(4, 64), (2, 100, 96), (1, 7, 33), (129, 256),
-                  (1000, 1536), (8, 1536), (3, TR.MAX_D)]:
-        for w_dtype in (torch.float32, dtype):
+                  (200, 1536), (384, 1536), (1000, 1536), (8, 1536),
+                  (1, 1536), (4096, 1536), (9000, 128), (5000, 4096),
+                  (3, TR.MAX_D), (5, 1536, "misaligned"),
+                  (3, TR.MAX_D, "misaligned")]:
+        misaligned = shape[-1] == "misaligned"
+        if misaligned:
+            rows, d = shape[:2]
+            buf = torch.randn(rows * d + 1, generator=gen, device="cuda")
+            x = buf.to(dtype)[1:].view(rows, d)
+            assert x.is_contiguous() and x.data_ptr() % 16
+        else:
+            d = shape[-1]
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            w = torch.randn(shape[-1], generator=gen,
-                            device="cuda").to(w_dtype)
+        for w_dtype in (torch.float32, dtype):
+            w = torch.randn(d, generator=gen, device="cuda").to(w_dtype)
             launches = TR.rmsnorm.launches
             got = TR.rmsnorm(x, w)
             assert TR.rmsnorm.launches == launches + 1
+            run = TR.rmsnorm.last_geometry["run"]
+            assert run["vec"] == (not misaligned
+                                  and d % TR.vector_width(dtype) == 0)
+            rows = x.numel() // d
+            if d == 1536 and not misaligned:
+                spread = rows <= TR.SPREAD_ROWS
+                assert run["threads"] == 32 * {
+                    (True, torch.float32): 8, (True, torch.bfloat16): 6,
+                    (False, torch.float32): 2,
+                    (False, torch.bfloat16): 1}[spread, dtype]
+            if d in (128, 4096):
+                assert run["rows_per_block"] == (4 if d == 128 else 1)
+                assert run["grid"] * run["rows_per_block"] < rows
             want = TR.rmsnorm(x, w, use_kernel=False)
             assert TR.rmsnorm.launches == launches + 1
             torch.cuda.synchronize()
             assert got.dtype == dtype and got.shape == x.shape
-            assert _rel_err(got, want) <= tol
+            assert _rel_err(got, want) <= tol, (shape, w_dtype, run)
 
 
 @pytest.mark.gpu
