@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on ``cuda:0``: the paper's own loop at full
-ResNet-18 width, and the LM server at qwen2-1.5b's full width and depth.
+Drives the port's paths on ``cuda:0``: the paper's own loop at full
+ResNet-18 width, its baselines and its network co-optimization with the
+co-optimized chip's mappings deployed, and the LM server at qwen2-1.5b's
+full width and depth.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
@@ -15,14 +17,14 @@ ResNet-18 width, and the LM server at qwen2-1.5b's full width and depth.
 3. holds each kernel against its plain PyTorch version on the card, fp32
    and bf16: the reference test shapes and configs, the GEMM's split-K
    shapes and misaligned row strides, the 8 ResNet-18 im2col shapes at
-   batch 8 under the default and knob-derived configs, flash at every
+   batch 8 under the default and knob-derived configs, the GEMM's
+   ``out_dtype`` both ways (fp32 -> bf16, bf16 -> fp32), flash at every
    head_dim template with GQA, window 32 and ragged S, and the LM's shapes
    (RMSNorm over prompts of 200, 384 and 1024 rows and (8, 1536), plus
    4096 rows, (9000, 128), (5000, 4096), the widest row and x at an offset
    of one value, which takes the scalar template; it fails unless the
    checks ran every RMSNorm layout the LM path runs and the grid-stride
-   loop;
-   causal flash over B=1, S in
+   loop; causal flash over B=1, S in
    {256, 1000, 2048}, 12 query and 2 KV heads, head_dim 128); there the
    bf16 flash kernel is also held against the plain version with P kept
    in fp32 (the reference kernel's arithmetic), within 2^-7 x max |v|;
@@ -35,19 +37,31 @@ ResNet-18 width, and the LM server at qwen2-1.5b's full width and depth.
 6. times each ResNet-18 GEMM shape (kernel and one ``torch.matmul`` call
    as a yardstick, each through Python calls and as device time in a CUDA
    graph; the plain version; the card's bound) and the forward;
-7. qwen2-1.5b with seeded random weights: the kernel path against the
+7. ``[baselines]``: random search, AutoTVM and CHAMELEON tune the same 8
+   tasks at ARCO's budget and seed; tuning seconds and network latency
+   (the analytical TPU v5e model) beside ARCO's; every task ends with the
+   budget's measurements and the default hardware geometry;
+8. ``[netopt]``: the network co-optimizer at K=1 (``NetOptConfig()``), the
+   hw-frozen baseline at its upper budget, the co-optimizer at K=2;
+   seconds, network latency (model), measurements, candidates; gated on
+   the shared-hardware invariant, the K=2 partition and the budget;
+9. ``[netopt deploy]``: the GEMM count set to 0, ResNet-18 run with each
+   layer's mapping under the K=1 chip (17 launches, logits within 1e-4 of
+   cuDNN fp32), timed beside phase 5's forward and cuDNN's, profiled, and
+   each GEMM shape's device time under these geometries beside phase 6's;
+10. qwen2-1.5b with seeded random weights: the kernel path against the
    plain path (prefill + teacher-forced decode, 2 prompts) in fp32, gated
    at 1e-4 of max |logit|, then with the weights cast to bf16, gated at
    5e-2;
-8. serves 16 requests (prompts of 128-1024 tokens, 32 new tokens each)
+11. serves 16 requests (prompts of 128-1024 tokens, 32 new tokens each)
    through ``Server(n_slots=8, max_len=2048)`` in bf16, with the RMSNorm
    and flash launch counts set to 0 just before and checked at every
    step (a prefill: flash 28, RMSNorm 57; a decode step: RMSNorm 57,
    flash 0), and reports tokens/s, prefill ms by prompt length and the
    decode step with 8 active slots;
-9. profiles one prefill and a few decode steps (``torch.profiler``):
+12. profiles one prefill and a few decode steps (``torch.profiler``):
    host wall vs device busy time, kernels launched, the top kernels;
-10. times the two LM kernels at the serving run's shapes (kernel and one
+13. times the two LM kernels at the serving run's shapes (kernel and one
    PyTorch call as device time in a CUDA graph, plain version, bound),
    the RMSNorm kernel's floor (a (1, 32) launch) and its wrapper's host
    microseconds a call, and prints one JSON line with the three kernels.
@@ -79,6 +93,8 @@ BF16_TOL = 1e-2           # ... both rounded once to bf16 (2^-8 relative step)
 # to bf16 (2^-8 |o| <= 2^-8 max|v|); fp32 reassociation is far below it
 FLASH_FP32_P_BOUND = 2 ** -7  # x max |v|
 FORWARD_TOL = 1e-4        # max |logit diff| / max |logit|, as the CPU tests
+BASELINES = ("random", "autotvm", "chameleon")
+NETWORK = "resnet-18"     # the netopt runs' network label
 BF16_FLOPS = 989e12       # dense bf16 tensor-core peak (the flash bound)
 KERNELS = ("gemm", "rmsnorm", "flash_attention")
 REFERENCE_SHAPES = [(8, 8, 8), (100, 70, 90), (128, 128, 128), (1, 256, 33),
@@ -305,6 +321,29 @@ def phase_check_kernel(dev) -> float:
                 check(got.dtype == dtype and rel <= tol,
                       f"gemm {(m, k, n)} {cfg} {dtype}: rel err {rel:.3g}")
                 n_checks += 1
+    # out_dtype both ways; fp32 -> bf16 also through split-K
+    pairs = ((torch.float32, torch.bfloat16, BF16_TOL),
+             (torch.bfloat16, torch.float32, FP32_TOL))
+    cases = [(shape, cfg, pair) for shape in REFERENCE_SHAPES
+             for cfg in REFERENCE_CONFIGS for pair in pairs]
+    cases += [(shape, cfg, pairs[0]) for shape, cfg in GEMM_EXTRA_CHECKS[:3]]
+    for (m, k, n), cfg, (src, dst, tol) in cases:
+        a = torch.randn(m, k, generator=gen, device=dev).to(src)
+        b = torch.randn(k, n, generator=gen, device=dev).to(src)
+        c = G.GemmConfig(*cfg)
+        got = G.gemm(a, b, c, out_dtype=dst)
+        run = G.gemm.last_geometry["run"]
+        want = G.gemm(a, b, c, out_dtype=dst, use_kernel=False)
+        torch.cuda.synchronize()
+        diff, rel = rel_err(got, want)
+        check(got.dtype == dst and rel <= tol,
+              f"gemm {(m, k, n)} {cfg} {src} -> {dst}: rel err {rel:.3g}")
+        if run["split_k"] > 1:
+            log(f"[check] gemm M={m} K={k} N={n} fp32 -> bf16 run={run} "
+                f"max_abs_err={diff:.3g} rel={rel:.3g}")
+        n_checks += 1
+    log(f"[check] gemm out_dtype fp32 -> bf16 (tol {BF16_TOL}) and bf16 -> "
+        f"fp32 (tol {FP32_TOL}): {len(cases)} checks passed")
     for (m, k, n), cfg in GEMM_EXTRA_CHECKS:
         a = torch.randn(m, k, generator=gen, device=dev)
         b = torch.randn(k, n, generator=gen, device=dev)
@@ -398,24 +437,32 @@ def phase_episode_time(dev) -> float:
     return ms
 
 
+def resnet_setup(dev):
+    """ResNet-18's conv specs, each layer's task name, the seeded weights
+    and the 224x224 batch-8 input that every deploy phase runs."""
+    import torch
+    from repro_torch.core.task import conv_tasks
+    from repro_torch.models import cnn
+    specs = cnn.conv_specs("resnet-18")
+    layer_task = {}
+    for t in conv_tasks("resnet-18", batch=BATCH):
+        for layer in t.layer_names:
+            layer_task[layer] = t.name
+    net = cnn.init_params(SEED, "resnet-18", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((BATCH, 224, 224, 3), generator=gen, device=dev)
+    return specs, layer_task, net, x
+
+
 def phase_deploy(dev, rep):
     """Full-width ResNet-18 forward with tuned per-layer geometries; reads
     the kernel's launch count right after the first forward (the count was
     set to 0 before tuning, where the main path starts)."""
     import torch
     from repro_torch.kernels import gemm as G
-    from repro_torch.models import cnn
-    from repro_torch.core.task import conv_tasks
-    specs = cnn.conv_specs("resnet-18")
-    layer_task = {}
-    for t in conv_tasks("resnet-18", batch=BATCH):
-        for layer in t.layer_names:
-            layer_task[layer] = t.name
+    specs, layer_task, net, x = resnet_setup(dev)
     configs = [knob_config(rep[layer_task[s.name]].best_settings, s)
                for s in specs]
-    net = cnn.init_params(SEED, "resnet-18", device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    x = torch.randn((BATCH, 224, 224, 3), generator=gen, device=dev)
     with torch.no_grad():
         logits = net(x, configs)
         torch.cuda.synchronize()
@@ -487,6 +534,180 @@ def phase_time_shapes(dev, per_shape):
             f"plain {plain_ms:.1f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
+
+
+# ------------------------------------------------ baselines and netopt
+
+def timed(fn):
+    """(fn's result, host seconds ending in a synchronize)."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_baselines(dev, arco_rep, arco_s) -> dict:
+    """The paper's comparison: each baseline tunes the 8 ResNet-18 tasks
+    at ARCO's budget and seed on the card.  Gated on structure only (one
+    seed decides which algorithm wins): every task ends with the budget's
+    measurements, a finite best and the default hardware geometry (the
+    baselines explore software knobs only)."""
+    from repro_torch.compiler.session import Session
+    from repro_torch.compiler.task import TuningTask
+    from repro_torch.core.baselines import default_hardware_values
+    from repro_torch.core.tuner import TunerConfig
+    tasks = TuningTask.conv_tasks("resnet-18", batch=BATCH)
+    out = {"arco": {"tune_s": arco_s,
+                    "network_latency_s": arco_rep.network_latency()}}
+    for algo in BASELINES:
+        rep, dt = timed(lambda: Session(
+            tasks, tuner=TunerConfig.fast(), algo=algo, budget=TUNE_BUDGET,
+            seed=SEED, device=dev).run())
+        for t in tasks:
+            r = rep[t.name]
+            check(r.n_measurements == TUNE_BUDGET
+                  and math.isfinite(r.best_latency),
+                  f"{algo} {t.name}: {r.n_measurements} measurements, best "
+                  f"{r.best_latency}")
+            hw = [int(t.space.choices[k][i])
+                  for k, i in enumerate(r.best_config[:3])]
+            check(hw == [int(v) for v in default_hardware_values(t.space)],
+                  f"{algo} {t.name} moved the hardware knobs: {hw}")
+        out[algo] = {"tune_s": dt,
+                     "network_latency_s": rep.network_latency()}
+        log(f"[baselines] {algo}: 8 tasks x {TUNE_BUDGET} measurements in "
+            f"{dt:.2f} s, network latency {rep.network_latency():.4g} s "
+            f"(analytical TPU v5e model, not the H100); every task kept the "
+            f"default hardware geometry")
+    log("[baselines] tuning s (host clock, ended by a synchronize): "
+        + ", ".join(f"{a} {v['tune_s']:.2f}" for a, v in out.items())
+        + "; network latency s (analytical TPU v5e model): "
+        + ", ".join(f"{a} {v['network_latency_s']:.4g}"
+                    for a, v in out.items()))
+    return out
+
+
+def phase_netopt(dev):
+    """Network co-optimization of the 8 tasks on the card: the
+    co-optimizer at K=1 (``NetOptConfig()``), the hw-frozen baseline at
+    the co-optimizer's upper budget, and the co-optimizer at K=2.  Gated on
+    structure: every layer's mapping runs on its stage's chip, K=2 has two
+    chips and one cut, no run pays more than the upper budget.  Co-opt
+    against hw-frozen is printed, not gated: CUDA's reductions can move a
+    seeded trajectory (the CPU tests hold that bar)."""
+    import dataclasses
+    from repro_torch.compiler.netopt import (NetOptConfig, NetworkCoOptimizer,
+                                             network_hw_frozen_tune)
+    from repro_torch.compiler.task import TuningTask
+    tasks = TuningTask.conv_tasks("resnet-18", batch=BATCH)
+    cfg = NetOptConfig()
+    cap = cfg.total_layer_budget() * len(tasks)
+    runs = {}
+    runs["k1"] = timed(lambda: NetworkCoOptimizer(
+        tasks, cfg, name=NETWORK, device=dev).run())
+    runs["hw_frozen"] = timed(lambda: network_hw_frozen_tune(
+        tasks, cfg, name=NETWORK, device=dev))
+    runs["k2"] = timed(lambda: NetworkCoOptimizer(
+        tasks, dataclasses.replace(cfg, k_chips=2), name=NETWORK,
+        device=dev).run())
+    out = {}
+    for label, (rep, dt) in runs.items():
+        check(rep.verify_shared_hardware(),
+              f"netopt {label}: a layer runs off its stage's chip")
+        check(rep.total_measurements <= cap,
+              f"netopt {label}: {rep.total_measurements} measurements > "
+              f"{cap}")
+        check(math.isfinite(rep.network_latency) and rep.n_layers == 17,
+              f"netopt {label}: latency {rep.network_latency}, "
+              f"{rep.n_layers} layers")
+        out[label] = {"s": dt, "network_latency_s": rep.network_latency,
+                      "measurements": rep.total_measurements,
+                      "candidates": rep.hw_candidates,
+                      "hw_configs": rep.hw_configs,
+                      "cuts": rep.partition.get("cuts", [])}
+        log(f"[netopt] {label} ({rep.algo}): {dt:.2f} s, network latency "
+            f"{rep.network_latency:.4g} s (analytical TPU v5e model), "
+            f"{rep.total_measurements} measurements paid (cap {cap}), "
+            f"{rep.hw_candidates} candidates, chips {rep.hw_configs}")
+    k2 = runs["k2"][0]
+    check(len(k2.hw_configs) == 2 and len(k2.partition["cuts"]) == 1,
+          f"netopt K=2: {k2.hw_configs}, cuts {k2.partition['cuts']}")
+    log(f"[netopt] K=2 cut before task {k2.partition['cuts'][0]} of "
+        f"{len(tasks)}: stage chips {k2.hw_configs}")
+    ratio = (runs["k1"][0].network_latency
+             / runs["hw_frozen"][0].network_latency)
+    out["k1_over_hw_frozen"] = ratio
+    log(f"[netopt] co-opt K=1 / hw-frozen network latency {ratio:.4f} "
+        f"(model; not gated here)")
+    return runs["k1"][0], out
+
+
+def phase_netopt_deploy(dev, coopt, fwd_ms, plain_fwd_ms, rows) -> dict:
+    """The co-optimized network deployed: every layer's mapping under the
+    K=1 winner's chip (``mapping`` with ``hw_utilized``, the chip's tiles
+    clamped to the layer) mapped through ``knob_config`` to a GemmConfig,
+    ResNet-18 run with phase 5's seeded weights and input.  The GEMM's
+    launch count is set to 0 just before and must read 17 just after;
+    logits within FORWARD_TOL of cuDNN fp32.  Then where the forward's
+    time goes: the profiler over it, and each GEMM shape's device time
+    under these geometries beside phase 6's (``rows``, the per-layer
+    optima's)."""
+    import torch
+    from repro_torch.kernels import gemm as G
+    specs, layer_task, net, x = resnet_setup(dev)
+    G.gemm.launches = 0   # the netopt deploy path starts here
+    settings = {name: {**layer["mapping"], **layer["hw_utilized"]}
+                for name, layer in coopt.layers.items()}
+    configs = [knob_config(settings[layer_task[s.name]], s) for s in specs]
+    with torch.no_grad():
+        logits = net(x, configs)
+        torch.cuda.synchronize()
+        launches = G.gemm.launches   # and ends here
+        check(launches == 17, f"netopt deploy launched the kernel "
+                              f"{launches} times, expected 17")
+        plain = net(x, use_kernel=False)
+        torch.cuda.synchronize()
+    check(tuple(logits.shape) == (BATCH, 1000)
+          and bool(torch.isfinite(logits).all()), "netopt deploy logits")
+    diff, rel = rel_err(logits, plain)
+    check(rel <= FORWARD_TOL, f"netopt deploy vs cuDNN: rel err {rel:.3g}")
+    requested = {}
+    for s, cfg in zip(specs, configs):
+        requested.setdefault(layer_task[s.name], cfg)
+    for name, cfg in requested.items():
+        log(f"[netopt deploy] {name}: {settings[name]} -> requested "
+            f"{[cfg.block_m, cfg.block_n, cfg.block_k]}")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: net(x, configs), reps=5)
+    log(f"[netopt deploy] ResNet-18 224x224 batch {BATCH}: 17 kernel "
+        f"launches, logits max_abs_err {diff:.3g} (rel {rel:.3g}) vs cuDNN "
+        f"fp32; forward {ms:.3f} ms with the co-optimized chip's mappings, "
+        f"{fwd_ms:.3f} ms with the per-layer optima (phase 5), "
+        f"{plain_fwd_ms:.3f} ms through cuDNN (phase 5)")
+    with torch.no_grad():
+        profile = profile_runs({"netopt forward": (3, lambda: net(x,
+                                                                   configs))})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    gemm_ms = {"netopt": 0.0, "per_layer": 0.0}
+    for (name, m, n, k, layers), row in zip(gemm_shapes(), rows):
+        cfg = requested[name]
+        geom = G.legalize(cfg, m, n, k)
+        a = torch.randn(m, k, generator=gen, device=dev)
+        b = torch.randn(k, n, generator=gen, device=dev)
+        dev_ms = device_ms(lambda: G.gemm(a, b, cfg))
+        gemm_ms["netopt"] += dev_ms * layers
+        gemm_ms["per_layer"] += row["device_ms"] * layers
+        log(f"[netopt deploy] {name} M={m} N={n} K={k} x{layers}: run="
+            f"{[geom.bm, geom.bn, geom.bk]} split_k={geom.split_k} device "
+            f"time {dev_ms:.4f} ms; the per-layer optimum's run={row['run']} "
+            f"split_k={row['split_k']} {row['device_ms']:.4f} ms (phase 6)")
+    log(f"[netopt deploy] the 17 GEMMs' device time (device_ms): "
+        f"{gemm_ms['netopt']:.3f} ms under the co-optimized chip, "
+        f"{gemm_ms['per_layer']:.3f} ms under the per-layer optima")
+    return {"launches": launches, "logits_max_abs_err": diff,
+            "logits_rel_err": rel, "forward_ms": ms,
+            "gemm_device_ms": gemm_ms, "profile": profile}
 
 
 # -------------------------------------------------------- LM serving path
@@ -1017,6 +1238,13 @@ def main() -> int:
     launches, fwd_err, fwd_ms, plain_fwd_ms, per_shape = phase_deploy(dev, rep)
     episode_ms = phase_episode_time(dev)
     rows = phase_time_shapes(dev, per_shape)
+    baselines, base_s = timed(lambda: phase_baselines(dev, rep, tune_s))
+    log(f"[baselines] phase {base_s:.1f} s")
+    (coopt, netopt), net_s = timed(lambda: phase_netopt(dev))
+    log(f"[netopt] phase {net_s:.1f} s")
+    netopt_deploy, dep_s = timed(lambda: phase_netopt_deploy(
+        dev, coopt, fwd_ms, plain_fwd_ms, rows))
+    log(f"[netopt deploy] phase {dep_s:.1f} s")
     lm_params, lm_cfg, lm_rel32, lm_rel16 = phase_lm_gate(dev)
     serve = phase_serve(dev, lm_params, lm_cfg)   # resets the LM counts
     profile = phase_profile_serve(dev, lm_params, lm_cfg)
@@ -1033,6 +1261,10 @@ def main() -> int:
                     "forward_plain_ms": plain_fwd_ms,
                     "forward_logits_max_abs_err": fwd_err,
                     "gemm_shapes": rows,
+                    "baselines": baselines, "netopt": netopt,
+                    "netopt_deploy": netopt_deploy,
+                    "phase_s": {"baselines": base_s, "netopt": net_s,
+                                "netopt_deploy": dep_s},
                     "lm": {"arch": LM_ARCH, "dtype": "bfloat16",
                            "logits_rel_err_fp32": lm_rel32,
                            "logits_rel_err_bf16": lm_rel16,
@@ -1059,6 +1291,7 @@ def main() -> int:
         "library_ms": total("library_ms"),
         "device_ms": total("device_ms"),
         "library_device_ms": total("library_device_ms"),
+        "netopt_deploy_launches": netopt_deploy["launches"],
     }] + [{
         "name": name,
         "route": "cuda",

@@ -1,9 +1,12 @@
 """``repro_torch.compiler`` — tuning sessions on the PyTorch port.
 
-A :class:`Session` runs ARCO over :class:`TuningTask`\\ s measured through
-memoizing :class:`Oracle`\\ s, sharing a GBT cost model across tasks and
-persisting / resuming from JSONL records.  ``python -m
-repro_torch.compiler.cli --help`` is the command line.
+A :class:`Session` runs ARCO or a baseline over :class:`TuningTask`\\ s
+measured through memoizing :class:`Oracle`\\ s, sharing a GBT cost model
+across tasks, persisting / resuming from JSONL records and transferring
+surrogate rows between networks (:class:`SurrogateStore`);
+``repro_torch.compiler.netopt`` co-optimizes one chip (or a K-chip
+pipeline) for a whole network from the workload zoo (:func:`get_network`).
+``python -m repro_torch.compiler.cli --help`` is the command line.
 
 Exports resolve lazily: ``repro_torch.core.tuner`` imports the
 oracle/report submodules directly, so an eager ``from .session import
@@ -24,6 +27,12 @@ _EXPORTS = {
     "TuningTask": "repro_torch.compiler.task",
     "Session": "repro_torch.compiler.session",
     "SessionReport": "repro_torch.compiler.session",
+    "SurrogateStore": "repro_torch.compiler.surrogate_store",
+    "SurrogateSchemaError": "repro_torch.compiler.surrogate_store",
+    "RecordingGBT": "repro_torch.compiler.surrogate_store",
+    "NetworkTask": "repro_torch.compiler.zoo",
+    "get_network": "repro_torch.compiler.zoo",
+    "network_names": "repro_torch.compiler.zoo",
 }
 __all__ = sorted(_EXPORTS)
 

@@ -90,6 +90,8 @@ class Oracle:
     for cache misses; dedup, cache fill, JSONL rows and stats are shared.
     """
 
+    penalty_latency = 1e6  # recorded for measurements that fail
+
     def __init__(self, space: DesignSpace, task: str = "",
                  records: Optional[RecordLog] = None):
         self.space = space

@@ -1,21 +1,26 @@
-"""Tuning sessions: ARCO over one or many tasks with a shared cost model.
+"""Tuning sessions — ARCO or a baseline over one or many tasks.
 
-A :class:`Session` runs ARCO over :class:`~repro_torch.compiler.task.TuningTask`\\ s:
+A :class:`Session` runs ARCO or any baseline over
+:class:`~repro_torch.compiler.task.TuningTask`\\ s:
 
 * every measurement routes through one memoizing, record-persisting
   :class:`~repro_torch.compiler.oracle.Oracle` per task;
 * with ``share_cost_model=True`` (default) all tasks feed **one** GBT
   surrogate — cross-task transfer via the cell-descriptor half of the
-  feature vector;
+  feature vector; ``gbt=`` shares an external one (netopt shares one
+  software GBT across every hardware candidate's session);
 * ``records=<path.jsonl>`` persists every measurement and resumes warm,
   in files interchangeable with the reference package's;
+* ``surrogates=<store.jsonl>`` persists the GBT *training rows*
+  (:class:`~repro_torch.compiler.surrogate_store.SurrogateStore`) and
+  warm-starts the shared GBT from other networks' rows;
 * ``trace=<path>`` writes a span trace of the run;
-* ``device`` places the MAPPO nets, rollouts and analytical measurements
-  (default ``cuda``).
+* ``device`` places the MAPPO nets, rollouts, the baselines' searches and
+  the analytical measurements (default ``cuda``).
 
-The reference's surrogate store, measurement workers, remote fabric, live
-monitor and baseline algorithms belong to later slices of the port; asking
-for them raises ``NotImplementedError`` instead of being ignored.
+The reference's measurement workers, remote fabric and live monitor
+belong to the measurement fabric (ROADMAP Queue 1, item 14); asking for
+them raises ``NotImplementedError`` instead of being ignored.
 
 Quickstart::
 
@@ -34,28 +39,21 @@ from typing import Dict, Iterable, Optional, Union
 from repro_torch import obs, resolve_device
 from repro_torch.compiler.records import RecordLog
 from repro_torch.compiler.report import TuneReport
+from repro_torch.compiler.surrogate_store import (SurrogateStore,
+                                                  attach_sw_gbt, coerce_store,
+                                                  space_family)
 from repro_torch.compiler.task import TuningTask
 from repro_torch.core.cost_model import GBTModel
 from repro_torch.core.tuner import ArcoLoop, TunerConfig
 
-ALGOS = ("arco",)
-# what the reference's Session offers that a later slice of the port brings
-_LATER = {
-    "random": "slice 2 (core/baselines.py)",
-    "autotvm": "slice 2 (core/baselines.py)",
-    "chameleon": "slice 2 (core/baselines.py)",
-    "surrogates": "slice 2 (compiler/surrogate_store.py)",
-    "workers": "slice 3 (the measurement fabric)",
-    "remote": "slice 3 (the measurement fabric)",
-    "executor": "slice 3 (the measurement fabric)",
-    "monitor": "slice 3 (obs/serve.py with the measurement fabric)",
-}
+ALGOS = ("arco", "random", "autotvm", "chameleon")
 
 
-def _later(what: str) -> NotImplementedError:
+def measurement_fabric_later(what: str) -> NotImplementedError:
+    """The error for an option of the reference's measurement fabric."""
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with {_LATER[what]} of the "
-        f"PyTorch port")
+        f"{what} is not ported yet: it comes with slice 3 of the PyTorch "
+        f"port, the measurement fabric (ROADMAP Queue 1, item 14)")
 
 
 @dataclasses.dataclass
@@ -67,6 +65,10 @@ class SessionReport:
     algo: str
     shared_cost_model: bool
     budget_per_task: int
+    # cross-task surrogate transfer (compiler/surrogate_store.py):
+    # {"store": path, "readonly": bool, "warm_sw_rows": int} — empty on
+    # sessions run without a store
+    surrogates: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     @property
     def single(self) -> TuneReport:
@@ -82,6 +84,14 @@ class SessionReport:
     def __iter__(self):
         return iter(self.reports.values())
 
+    def total_best_latency(self,
+                           multiplicity: Optional[Dict[str, int]] = None
+                           ) -> float:
+        """Sum of per-task best latencies (optionally layer-weighted)."""
+        mult = multiplicity or {}
+        return sum(r.best_latency * mult.get(name, 1)
+                   for name, r in self.reports.items())
+
     def network_latency(self) -> float:
         """End-to-end network latency: per-task bests weighted by each
         task's layer multiplicity."""
@@ -92,6 +102,7 @@ class SessionReport:
         return {"algo": self.algo, "shared_cost_model": self.shared_cost_model,
                 "budget_per_task": self.budget_per_task,
                 "wall_time_s": self.wall_time_s,
+                "surrogates": dict(self.surrogates),
                 "reports": {n: r.to_dict() for n, r in self.reports.items()}}
 
     @staticmethod
@@ -101,7 +112,8 @@ class SessionReport:
                      for n, r in d["reports"].items()},
             wall_time_s=d["wall_time_s"], algo=d["algo"],
             shared_cost_model=d["shared_cost_model"],
-            budget_per_task=d["budget_per_task"])
+            budget_per_task=d["budget_per_task"],
+            surrogates=d.get("surrogates", {}))
 
 
 class Session:
@@ -113,20 +125,19 @@ class Session:
                  share_cost_model: bool = True,
                  records: Union[None, str, RecordLog] = None,
                  seed: Optional[int] = None,
+                 gbt: Optional[GBTModel] = None,
+                 surrogates: Union[None, str, SurrogateStore] = None,
+                 network: Optional[str] = None,
                  trace: Optional[str] = None,
                  device=None,
-                 surrogates=None, workers: int = 0, remote=None,
-                 executor=None, monitor=None):
+                 workers: int = 0, timeout_s: Optional[float] = None,
+                 remote=None, executor=None, monitor=None):
         if workers:
-            raise _later("workers")
-        for name, value in (("surrogates", surrogates), ("remote", remote),
+            raise measurement_fabric_later("workers")
+        for name, value in (("timeout_s", timeout_s), ("remote", remote),
                             ("executor", executor), ("monitor", monitor)):
             if value is not None:  # monitor=0 asks for an ephemeral port
-                raise _later(name)
-        if algo in _LATER:
-            raise _later(algo)
-        if algo not in ALGOS:
-            raise ValueError(f"unknown algo {algo!r}; have {ALGOS}")
+                raise measurement_fabric_later(name)
         if isinstance(tasks, TuningTask):
             tasks = [tasks]
         self.tasks = list(tasks)
@@ -135,6 +146,8 @@ class Session:
         names = [t.name for t in self.tasks]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate task names: {names}")
+        if algo not in ALGOS:
+            raise ValueError(f"unknown algo {algo!r}; have {ALGOS}")
         cfg = tuner or TunerConfig()
         if seed is not None:
             cfg = dataclasses.replace(cfg, seed=seed)
@@ -145,12 +158,37 @@ class Session:
         self.share_cost_model = share_cost_model
         self.records = (RecordLog(records) if isinstance(records, str)
                         else records)
+        # an externally supplied cost model is shared across this session's
+        # tasks AND whoever else holds it
+        self.gbt = gbt
+        # surrogate store: the ``network`` label keys the own-rows
+        # exclusion — pass the SAME name a netopt run of these tasks would
+        # use (the CLI passes the zoo network name); the default label is
+        # the joined task names
+        self.surrogates = coerce_store(surrogates)
+        self.surrogate_network = network or \
+            ",".join(t.name for t in self.tasks)[:120]
+        if self.surrogates is not None:
+            if gbt is not None:
+                raise ValueError(
+                    "surrogates= with an external gbt= is ambiguous — the "
+                    "gbt's owner (e.g. netopt) manages the store itself")
+            if not share_cost_model:
+                raise ValueError("surrogates= needs share_cost_model=True "
+                                 "(transfer targets the shared GBT)")
+            families = {space_family(t.space) for t in self.tasks}
+            if len(families) > 1:
+                # rows are stamped with ONE family; a mixed session would
+                # mislabel half of them and poison later warm starts
+                raise ValueError("surrogates= needs tasks of one space "
+                                 f"family, got {sorted(families)}")
         self.trace_path = trace
         self.device = resolve_device(device)
 
     # ----------------------------------------------------------------- run
     def run(self) -> SessionReport:
-        # no trace requested -> leave the ambient tracer alone
+        # no trace requested -> leave the ambient tracer alone (an outer
+        # netopt trace keeps collecting through this session)
         tracer = obs.Tracer(name="session") if self.trace_path else None
         scope = obs.use(tracer) if tracer is not None \
             else contextlib.nullcontext()
@@ -165,12 +203,25 @@ class Session:
 
     def _run(self) -> SessionReport:
         t0 = time.perf_counter()
-        shared_gbt = (GBTModel(n_rounds=self.cfg.gbt_rounds)
-                      if self.share_cost_model else None)
+        surrogate_stats: Dict[str, object] = {}
+        if self.surrogates is not None:
+            # rows saved here are excluded when the same network
+            # warm-starts later (its own measurements replay via records)
+            shared_gbt, surrogate_stats = attach_sw_gbt(
+                self.surrogates, n_rounds=self.cfg.gbt_rounds,
+                seed=self.cfg.seed, network=self.surrogate_network,
+                family=space_family(self.tasks[0].space))
+        else:
+            shared_gbt = self.gbt if self.gbt is not None else (
+                GBTModel(n_rounds=self.cfg.gbt_rounds, seed=self.cfg.seed)
+                if self.share_cost_model else None)
         oracles = [t.make_oracle(self.records, device=self.device)
                    for t in self.tasks]
         try:
-            reports = self._run_arco(shared_gbt, oracles)
+            if self.algo == "arco":
+                reports = self._run_arco(shared_gbt, oracles)
+            else:
+                reports = self._run_baseline(shared_gbt, oracles)
         finally:
             for oracle in oracles:
                 oracle.close()
@@ -180,7 +231,8 @@ class Session:
                              wall_time_s=time.perf_counter() - t0,
                              algo=self.algo,
                              shared_cost_model=self.share_cost_model,
-                             budget_per_task=self.budget)
+                             budget_per_task=self.budget,
+                             surrogates=surrogate_stats)
 
     def _run_arco(self, shared_gbt: Optional[GBTModel], oracles
                   ) -> Dict[str, TuneReport]:
@@ -191,7 +243,7 @@ class Session:
         loops = [
             ArcoLoop(t.space, self.cfg, oracle=oracle,
                      gbt=shared_gbt if shared_gbt is not None else GBTModel(
-                         n_rounds=self.cfg.gbt_rounds),
+                         n_rounds=self.cfg.gbt_rounds, seed=self.cfg.seed),
                      use_cs=self.use_cs, task=t.name, device=self.device)
             for t, oracle in zip(self.tasks, oracles)]
         # Seed all tasks first, collecting (and refitting) in task order.
@@ -208,3 +260,22 @@ class Session:
                     continue
                 loop.collect(block=True)
         return {t.name: loop.report() for t, loop in zip(self.tasks, loops)}
+
+    def _run_baseline(self, shared_gbt: Optional[GBTModel], oracles
+                      ) -> Dict[str, TuneReport]:
+        """Baselines run sequentially per task; the GBT-based ones still
+        share the surrogate across tasks when the cost model is shared."""
+        from repro_torch.core import baselines as B
+        reports: Dict[str, TuneReport] = {}
+        for t, oracle in zip(self.tasks, oracles):
+            kw = dict(cfg=self.cfg, budget=self.budget, oracle=oracle,
+                      task=t.name, device=self.device)
+            if self.algo == "random":
+                reports[t.name] = B.random_tune(t.space, **kw)
+            elif self.algo == "autotvm":
+                reports[t.name] = B.autotvm_tune(t.space, gbt=shared_gbt,
+                                                 **kw)
+            else:
+                reports[t.name] = B.chameleon_tune(t.space, gbt=shared_gbt,
+                                                   **kw)
+        return reports

@@ -4,12 +4,15 @@ A task's design space appends its workload descriptor to every config's
 GBT features, which is what makes cross-task cost-model transfer work: a
 shared surrogate sees ``[config features ++ workload descriptor]`` rows
 from every task it serves.  Pod-level compile cells (``TuningTask.cell``
-in the reference) wait for a later slice.
+in the reference) wait for ROADMAP item 16; the zoo's pod networks build
+their shard-space tasks with ``from_space`` over an analytical proxy.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional
+
+import numpy as np
 
 from repro_torch.compiler.oracle import AnalyticalOracle, Oracle
 from repro_torch.compiler.records import RecordLog
@@ -28,6 +31,20 @@ class TuningTask:
                     device=None) -> Oracle:
         return AnalyticalOracle(self.space, task=self.name, records=records,
                                 device=device)
+
+    def descriptor(self) -> np.ndarray:
+        """Cell-descriptor features — the workload half that
+        ``space.feature_vector`` appends to every config row, which lets a
+        shared GBT tell this task's measurements apart from another's."""
+        return np.asarray(self.space.workload_features(), np.float32)
+
+    def pinned(self, knob_idxs, values, tag: str) -> "TuningTask":
+        """This task with knobs frozen at shared *values*
+        (``DesignSpace.pin``) — e.g. one network-wide hardware config.  The
+        name gains ``#tag`` so oracle caches and JSONL records key per
+        (pin, task): revisiting the same pin replays from cache."""
+        return dataclasses.replace(self, name=f"{self.name}#{tag}",
+                                   space=self.space.pin(knob_idxs, values))
 
     # ---------------------------------------------------------- constructors
     @staticmethod

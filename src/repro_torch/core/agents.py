@@ -91,21 +91,31 @@ def init_marl_params(seed: int, device=None) -> MarlNets:
         resolve_device(device))
 
 
+@torch.no_grad()
+def load_dense(layer: nn.Linear, p) -> None:
+    """Copy one reference dense layer (numpy ``{"w": (in, out), "b"}``,
+    applied as ``x @ w + b``) into ``layer``."""
+    layer.weight.copy_(torch.from_numpy(np.array(p["w"], np.float32).T))
+    layer.bias.copy_(torch.from_numpy(np.array(p["b"], np.float32)))
+
+
+def load_policy(policy: Policy, tree: Dict) -> None:
+    load_dense(policy.h, tree["h"])
+    load_dense(policy.out, tree["out"])
+
+
+def load_critic(critic: Critic, tree: Dict) -> None:
+    for name in ("h1", "h2", "h3", "out"):
+        load_dense(getattr(critic, name), tree[name])
+
+
 def params_from_jax(tree: Dict, device=None) -> MarlNets:
-    """The reference's ``init_marl_params`` tree (numpy leaves; dense
-    weights (in, out), applied as ``x @ w + b``) as :class:`MarlNets`."""
+    """The reference's ``init_marl_params`` tree (numpy leaves) as
+    :class:`MarlNets`."""
     nets = MarlNets()
-
-    def load(layer: nn.Linear, p):
-        layer.weight.copy_(torch.from_numpy(np.array(p["w"], np.float32).T))
-        layer.bias.copy_(torch.from_numpy(np.array(p["b"], np.float32)))
-
-    with torch.no_grad():
-        for a in AGENTS:
-            load(nets.policies[a].h, tree[a]["h"])
-            load(nets.policies[a].out, tree[a]["out"])
-        for name in ("h1", "h2", "h3", "out"):
-            load(getattr(nets.critic, name), tree["critic"][name])
+    for a in AGENTS:
+        load_policy(nets.policies[a], tree[a])
+    load_critic(nets.critic, tree["critic"])
     return nets.to(resolve_device(device))
 
 

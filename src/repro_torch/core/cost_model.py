@@ -156,6 +156,9 @@ class GBTModel:
     depth: int = 4
     learning_rate: float = 0.15
     n_features: int = 18
+    # kept for the reference's signature: its fit takes a seeded rng that
+    # the exact split search never draws from, so fits do not depend on it
+    seed: int = 0
 
     def __post_init__(self):
         self._forest = empty_forest(self.n_rounds, self.depth)

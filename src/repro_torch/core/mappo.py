@@ -118,7 +118,8 @@ class Trajectory(NamedTuple):
     last_value: torch.Tensor          # (E,)
 
 
-def _sample(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+def sample_categorical(logits: torch.Tensor,
+                       gen: torch.Generator) -> torch.Tensor:
     """Categorical draw by the Gumbel-max trick (as jax.random.categorical);
     a -1e9 masked logit never wins."""
     u = torch.rand(logits.shape, generator=gen, device=logits.device)
@@ -142,7 +143,7 @@ def rollout(nets: A.MarlNets, gen: torch.Generator, env: EnvParams,
             o = A.local_obs(agent, config, env.n_choices, env.wfeat)
             logits = A.masked_policy_logits(nets.policies[agent], o,
                                             env.masks[agent])
-            a = _sample(logits, gen)
+            a = sample_categorical(logits, gen)
             lp = F.log_softmax(logits, dim=-1)
             obs[agent].append(o)
             acts[agent].append(a)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -97,7 +97,7 @@ class ArcoLoop:
         self.oracle = oracle or AnalyticalOracle(space, task=task,
                                                  device=self.device)
         self.gbt = gbt if gbt is not None else GBTModel(
-            n_rounds=cfg.gbt_rounds)
+            n_rounds=cfg.gbt_rounds, seed=cfg.seed)
         self.track = Tracker(task)
         self.gen = torch.Generator(self.device).manual_seed(cfg.seed)
         self.np_rng = np.random.default_rng(cfg.seed)
@@ -249,3 +249,9 @@ def arco_tune(space: DesignSpace, cfg: TunerConfig = TunerConfig(),
         if not loop.step(budget):
             break
     return loop.report()
+
+
+def tune_network(tasks: Dict[str, DesignSpace],
+                 tuner=arco_tune, **kw) -> Dict[str, TuneReport]:
+    """Tune every (deduplicated) task of a network; returns per-task results."""
+    return {name: tuner(space, **kw) for name, space in tasks.items()}

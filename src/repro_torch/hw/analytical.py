@@ -139,6 +139,43 @@ def conv2d_gflops(workload, latency_s):
     return 2.0 * m * n * k / latency_s / 1e9
 
 
+def activation_out_bytes(kind: str, workload) -> float:
+    """Output-activation footprint (bytes, bf16) of one task — the tensor
+    that crosses chips when a pipeline partition cuts right after it.
+    Conv outputs are ``b*oh*ow*co``, matmuls ``m*n``; other kinds (pod
+    shard cells) transfer nothing."""
+    if kind == "conv2d":
+        oh, ow, _, _, _ = _dims(workload)
+        return float(workload["b"] * oh * ow * workload["co"]) * BF16
+    if kind == "matmul":
+        return float(workload["m"] * workload["n"]) * BF16
+    return 0.0
+
+
+def interchip_transfer_s(n_bytes: float, spec: TpuSpec = DEFAULT) -> float:
+    """Time to move one boundary activation between pipeline stages over
+    the full ICI bisection (all links striped), plus one DMA issue."""
+    return float(n_bytes) / (spec.ici_links * spec.ici_bw_per_link) \
+        + spec.dma_latency_s
+
+
+# Area proxy constants (7nm-class, Accelergy-style orders of magnitude).
+# Absolute calibration does not matter: the multi-objective Pareto only
+# compares candidate chips built from the same constants.
+MAC_AREA_MM2 = 6e-4           # one bf16 MAC + pipeline registers
+SRAM_AREA_MM2_PER_MB = 0.45   # tile buffers
+
+
+def chip_area_mm2(tile_b, tile_ci, tile_co) -> float:
+    """Silicon-area proxy of one accelerator config: the GEMM-core MAC
+    array (``tile_b * tile_ci * tile_co``) plus double-buffered bf16 tile
+    SRAM (a K-chip partition pays the sum of its chips)."""
+    b, ci, co = float(tile_b), float(tile_ci), float(tile_co)
+    macs = b * ci * co
+    tiles_mb = (b * ci + ci * co + b * co) * 2.0 * BF16 / 2.0 ** 20
+    return macs * MAC_AREA_MM2 + tiles_mb * SRAM_AREA_MM2_PER_MB
+
+
 def conv2d_min_latency(workload, spec: TpuSpec = DEFAULT) -> float:
     """Roofline lower bound for a conv (perfect tiling): max(comp, mem)."""
     _, _, m, n, k = _dims(workload)

@@ -1,6 +1,7 @@
 // Tiled GEMM C = A @ B for Hopper (sm_90a), fp32 or bf16 inputs, fp32
-// accumulation, output in A's dtype.  Row-major, contiguous operands:
-// A (M, K), B (K, N), C (M, N).
+// accumulation, output in fp32 or bf16 (the reference's out_dtype, A's
+// dtype by default).  Row-major, contiguous operands: A (M, K), B (K, N),
+// C (M, N).
 //
 // Replaces the TPU kernel repro/kernels/gemm.py::_gemm_kernel.  There the
 // grid was (M/bm, N/bn, K/bk) run in order on one core, with an fp32 VMEM
@@ -47,6 +48,12 @@
 // accumulators a thread at a stride of 16, scalar loads converted to fp32
 // into static shared memory, no pipelining and no split.
 //
+// The output type is a template parameter of the two kernels that write C:
+// gemm_loop_kernel (bf16 operands, fp32 or bf16 C) and splitk_sum_kernel.
+// gemm_f32_kernel always writes fp32; for a bf16 C from fp32 operands its
+// tiles go to the fp32 workspace even when K is not cut, and the sum
+// kernel rounds each sum once to bf16.
+//
 // Tile templates (the "run geometry"): BM in {16, 32, 64, 128}, BN in
 // {32, 64, 128}, BK in {16, 32}.  fp32, for each VEC: (BM / TM) * (BN /
 // TN) threads with TM = 8 at BM 128 (else 4) and TN = 8 at BN 128 (else
@@ -81,10 +88,10 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
-template <typename T, int BM, int BN, int BK>
+template <typename T, typename O, int BM, int BN, int BK>
 __global__ void __launch_bounds__(kLoopThreads)
 gemm_loop_kernel(const T* __restrict__ A, const T* __restrict__ B,
-            T* __restrict__ C, int M, int N, int K) {
+                 O* __restrict__ C, int M, int N, int K) {
   constexpr int TM = BM / 16;  // rows per thread, strided by 16
   constexpr int TN = BN / 16;  // columns per thread, strided by 16
   // A is stored transposed (k-major) so the inner loop reads a column of
@@ -142,7 +149,7 @@ gemm_loop_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = col0 + tx + 16 * j;
-      if (c < N) C[(int64_t)r * N + c] = from_float<T>(acc[i][j]);
+      if (c < N) C[(int64_t)r * N + c] = from_float<O>(acc[i][j]);
     }
   }
 }
@@ -370,15 +377,30 @@ __device__ __forceinline__ float4 add(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// C = sum over z of ws[z], in slice order (n elements of type V a slice)
-template <typename V>
-__global__ void splitk_sum_kernel(const V* __restrict__ ws, V* __restrict__ c,
+// four bf16 outputs, the store of one float4 sum
+struct __align__(8) bf16x4 {
+  __nv_bfloat162 lo, hi;
+};
+
+__device__ __forceinline__ void cast_out(float v, float* o) { *o = v; }
+__device__ __forceinline__ void cast_out(float4 v, float4* o) { *o = v; }
+__device__ __forceinline__ void cast_out(float v, __nv_bfloat16* o) {
+  *o = __float2bfloat16(v);
+}
+__device__ __forceinline__ void cast_out(float4 v, bf16x4* o) {
+  *o = bf16x4{__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
+}
+
+// C = sum over z of ws[z], in slice order (n elements of type V a slice),
+// each sum rounded once to C's type O
+template <typename V, typename O>
+__global__ void splitk_sum_kernel(const V* __restrict__ ws, O* __restrict__ c,
                                   int64_t n, int split) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   V s = ws[i];
   for (int z = 1; z < split; ++z) s = add(s, ws[z * n + i]);
-  c[i] = s;
+  cast_out(s, c + i);
 }
 
 // ---------------------------------------------------------------- launch
@@ -387,8 +409,9 @@ struct Args {
   const void* a;
   const void* b;
   void* c;
-  float* ws;  // (split, M, N) fp32 partials when split > 1
+  float* ws;  // (split, M, N) fp32 partials when split > 1 or out_bf16
   int m, n, k, split, k_slice, vec;
+  bool out_bf16;  // C in bf16 (else fp32)
   cudaStream_t stream;
 };
 
@@ -409,39 +432,57 @@ int launch_f32_tiles(const Args& a) {
   static const int opt_in = smem_opt_in(kernel, smem);
   if (opt_in) return opt_in;
   dim3 grid((a.n + BN - 1) / BN, (a.m + BM - 1) / BM, a.split);
+  const bool to_ws = a.split > 1 || a.out_bf16;
   kernel<<<grid, Micro<BM, BN>::THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.a), static_cast<const float*>(a.b),
-      a.split > 1 ? a.ws : static_cast<float*>(a.c), a.m, a.n, a.k,
-      a.k_slice);
+      to_ws ? a.ws : static_cast<float*>(a.c), a.m, a.n, a.k, a.k_slice);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the sum of the workspace's slices into C of type O: 4 elements a thread
+// where M * N allows it (V = float4, O4 the 4-wide store of O), else 1
+template <typename O, typename O4>
+void launch_sum(const Args& a) {
+  const int64_t mn = (int64_t)a.m * a.n;
+  if (mn % 4 == 0) {
+    const unsigned blocks = static_cast<unsigned>((mn / 4 + 255) / 256);
+    splitk_sum_kernel<float4, O4><<<blocks, 256, 0, a.stream>>>(
+        reinterpret_cast<const float4*>(a.ws), static_cast<O4*>(a.c),
+        mn / 4, a.split);
+  } else {
+    const unsigned blocks = static_cast<unsigned>((mn + 255) / 256);
+    splitk_sum_kernel<float, O><<<blocks, 256, 0, a.stream>>>(
+        a.ws, static_cast<O*>(a.c), mn, a.split);
+  }
 }
 
 template <int BM, int BN, int BK>
 int launch_f32(const Args& a) {
   const int err = a.vec ? launch_f32_tiles<BM, BN, BK, true>(a)
                         : launch_f32_tiles<BM, BN, BK, false>(a);
-  if (err != 0 || a.split == 1) return err;
-  const int64_t mn = (int64_t)a.m * a.n;
-  if (mn % 4 == 0) {
-    const unsigned blocks = static_cast<unsigned>((mn / 4 + 255) / 256);
-    splitk_sum_kernel<float4><<<blocks, 256, 0, a.stream>>>(
-        reinterpret_cast<const float4*>(a.ws), static_cast<float4*>(a.c),
-        mn / 4, a.split);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((mn + 255) / 256);
-    splitk_sum_kernel<float><<<blocks, 256, 0, a.stream>>>(
-        a.ws, static_cast<float*>(a.c), mn, a.split);
-  }
+  if (err != 0 || (a.split == 1 && !a.out_bf16)) return err;
+  if (a.out_bf16)
+    launch_sum<__nv_bfloat16, bf16x4>(a);
+  else
+    launch_sum<float, float4>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename O, int BM, int BN, int BK>
+void launch_loop_to(const Args& a) {
+  typedef __nv_bfloat16 T;
+  dim3 grid((a.n + BN - 1) / BN, (a.m + BM - 1) / BM);
+  gemm_loop_kernel<T, O, BM, BN, BK><<<grid, kLoopThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.a), static_cast<const T*>(a.b),
+      static_cast<O*>(a.c), a.m, a.n, a.k);
 }
 
 template <int BM, int BN, int BK>
 int launch_loop(const Args& a) {
-  typedef __nv_bfloat16 T;
-  dim3 grid((a.n + BN - 1) / BN, (a.m + BM - 1) / BM);
-  gemm_loop_kernel<T, BM, BN, BK><<<grid, kLoopThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.a), static_cast<const T*>(a.b),
-      static_cast<T*>(a.c), a.m, a.n, a.k);
+  if (a.out_bf16)
+    launch_loop_to<__nv_bfloat16, BM, BN, BK>(a);
+  else
+    launch_loop_to<float, BM, BN, BK>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,20 +518,23 @@ int dispatch(int bm, int bn, int bk, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32 (split-K and vec as given; ws holds split * M * N
-// floats when split > 1, and each slice but the last covers k_slice, a
-// multiple of bk), 1 = bfloat16 (the loop: split must be 1).  Returns
+// dtype (the operands') and out_dtype (C's): 0 = float32, 1 = bfloat16.
+// fp32 operands: split-K and vec as given; each slice but the last covers
+// k_slice, a multiple of bk; ws holds split * M * N floats when split > 1
+// or C is bf16.  bf16 operands: the loop, split must be 1.  Returns
 // cudaGetLastError() after the launches (0 on success), or -1 when the
 // arguments name no template.
 extern "C" int repro_gemm(const void* a, const void* b, void* c, void* ws,
-                          int m, int n, int k, int dtype, int bm, int bn,
-                          int bk, int split, int k_slice, int vec,
-                          void* stream) {
+                          int m, int n, int k, int dtype, int out_dtype,
+                          int bm, int bn, int bk, int split, int k_slice,
+                          int vec, void* stream) {
   if (split < 1 || k_slice < 1 || k_slice % bk != 0 ||
-      (int64_t)k_slice * (split - 1) >= k || (split > 1 && ws == nullptr))
+      (int64_t)k_slice * (split - 1) >= k || (out_dtype != 0 && out_dtype != 1))
     return -1;
+  if (dtype == 0 && (split > 1 || out_dtype == 1) && ws == nullptr) return -1;
   const Args args{a, b, c, static_cast<float*>(ws), m, n, k, split,
-                  k_slice, vec, static_cast<cudaStream_t>(stream)};
+                  k_slice, vec, out_dtype == 1,
+                  static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch<true>(bm, bn, bk, args);
   if (dtype == 1 && split == 1) return dispatch<false>(bm, bn, bk, args);
   return -1;

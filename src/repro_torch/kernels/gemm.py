@@ -16,7 +16,10 @@ on a GPU every block runs in parallel, so they change nothing.
 ``gemm`` launches the CUDA kernel for CUDA tensors and counts each call
 once on ``gemm.launches`` (with the split-K sum, two kernels a call).  For
 CPU tensors, or with ``use_kernel=False``, it runs :func:`gemm_plain`,
-which walks the same run geometry in PyTorch, slices included.
+which walks the same run geometry in PyTorch, slices included.  As in the
+reference, ``out_dtype`` (fp32 or bf16) sets C's dtype, a's by default;
+an fp32 product written in bf16 takes the workspace and the summing
+kernel even when K is not cut, which round each sum once.
 
 The kernel is built at first use by :mod:`repro_torch.kernels._build`
 (``nvcc`` for ``sm_90a``, bound with ``ctypes``).
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -160,16 +163,17 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"operands on {a.device} and {b.device}")
 
 
-def gemm_plain(a: torch.Tensor, b: torch.Tensor,
-               geom: RunGeometry) -> torch.Tensor:
+def gemm_plain(a: torch.Tensor, b: torch.Tensor, geom: RunGeometry,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch over the same run geometry: one
     (bm, bn) output tile at a time; for each K slice in order, its steps
     of bk in order into an fp32 partial; the partials summed in slice
-    order (the split-K sum kernel's order); tails by slicing; cast to a's
-    dtype."""
+    order (the split-K sum kernel's order); tails by slicing; cast once to
+    ``out_dtype`` (a's dtype by default)."""
     m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    out_dtype = out_dtype or a.dtype
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     for i in range(0, m, geom.bm):
         for j in range(0, n, geom.bn):
             total = None
@@ -181,18 +185,23 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor,
                     acc += torch.matmul(a[i:i + geom.bm, kk:ke].float(),
                                         b[kk:ke, j:j + geom.bn].float())
                 total = acc if total is None else total + acc
-            out[i:i + geom.bm, j:j + geom.bn] = total.to(a.dtype)
+            out[i:i + geom.bm, j:j + geom.bn] = total.to(out_dtype)
     return out
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor,
          config: GemmConfig = GemmConfig(),
+         out_dtype: Optional[torch.dtype] = None,
          use_kernel: bool = True) -> torch.Tensor:
-    """C = A @ B. a: (M, K), b: (K, N), float32 or bfloat16; C in a's dtype.
+    """C = A @ B. a: (M, K), b: (K, N), float32 or bfloat16; C in
+    ``out_dtype`` (float32 or bfloat16; a's dtype when None).
 
     CUDA tensors go through the Hopper kernel (or raise); CPU tensors, and
     ``use_kernel=False``, take the plain version of the same geometry."""
     _check(a, b)
+    out_dtype = out_dtype or a.dtype
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"gemm writes float32 or bfloat16, got {out_dtype}")
     m, k = a.shape
     n = b.shape[1]
     geom = legalize(config, m, n, k, a.dtype)
@@ -209,21 +218,26 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
     gemm.last_geometry = {"requested": dataclasses.asdict(config),
                           "run": dataclasses.asdict(geom)}
     if not on_kernel:
-        return gemm_plain(a, b, geom)
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        return gemm_plain(a, b, geom, out_dtype)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    # fp32 tiles go to the workspace where the summing kernel writes C
+    use_ws = a.dtype == torch.float32 and (geom.split_k > 1
+                                           or out_dtype != a.dtype)
     ws = (torch.empty((geom.split_k, m, n), dtype=torch.float32,
-                      device=a.device) if geom.split_k > 1 else None)
+                      device=a.device) if use_ws else None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _lib().repro_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                None if ws is None else ws.data_ptr(),
-                               m, n, k, _DTYPE_CODE[a.dtype], geom.bm,
+                               m, n, k, _DTYPE_CODE[a.dtype],
+                               _DTYPE_CODE[out_dtype], geom.bm,
                                geom.bn, geom.bk, geom.split_k,
                                geom.slice_width(k),
                                int(geom.vec), stream)
     if rc != 0:
         raise RuntimeError(f"gemm kernel launch failed (code {rc}) for "
-                           f"{(m, n, k)} {a.dtype} geometry {geom}")
+                           f"{(m, n, k)} {a.dtype} -> {out_dtype} geometry "
+                           f"{geom}")
     gemm.launches += 1
     return out
 
@@ -243,7 +257,7 @@ def _bind(lib) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.repro_gemm.restype = ctypes.c_int
 
 

@@ -93,6 +93,15 @@ class ArchConfig:
         return self.d_model // self.n_heads
 
     @property
+    def sub_quadratic(self) -> bool:
+        """Sequence mixing below O(S^2): an SSM/xLSTM mixer, or sliding
+        windows only (``configs.shapes.cell_supported`` reads it)."""
+        mixers = {m for m, _ in self.pattern}
+        return bool(mixers & {"mamba", "mlstm", "slstm"}) or (
+            "attn" not in mixers and "swa" in mixers
+            and self.swa_window is not None)
+
+    @property
     def period(self) -> int:
         return len(self.pattern)
 

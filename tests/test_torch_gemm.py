@@ -55,6 +55,37 @@ def test_plain_matches_pallas_gemm_bf16():
                                rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+@pytest.mark.parametrize("pair", ["float32->bfloat16", "bfloat16->float32"])
+def test_plain_out_dtype_matches_pallas_gemm(m, k, n, pair):
+    """``out_dtype`` as in the reference: the fp32 accumulator cast once to
+    the requested type.  An fp32 product written in bf16 agrees to bf16
+    rounding (two fp32 sums in different orders may round apart by one bf16
+    step); a bf16 product written in fp32 to fp32 summation order."""
+    src, dst = pair.split("->")
+    a, b = _operands(m, k, n, seed=m * 3 + k)
+    ja, jb = jnp.asarray(a, src), jnp.asarray(b, src)
+    for cfg in ((32, 32, 32, True, True), (128, 128, 128, True, True)):
+        want = JG.gemm(ja, jb, JG.GemmConfig(*cfg), out_dtype=jnp.dtype(dst),
+                       interpret=True)
+        ta = torch.from_numpy(np.array(ja.astype(jnp.float32))).to(
+            getattr(torch, src))
+        tb = torch.from_numpy(np.array(jb.astype(jnp.float32))).to(
+            getattr(torch, src))
+        got = TG.gemm(ta, tb, TG.GemmConfig(*cfg),
+                      out_dtype=getattr(torch, dst))
+        assert got.dtype == getattr(torch, dst) and got.shape == (m, n)
+        tol = dict(rtol=2 ** -7, atol=2 ** -7) if dst == "bfloat16" \
+            else dict(rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+    # None keeps a's dtype, as the reference's ``out_dtype or a.dtype``
+    assert TG.gemm(ta, tb).dtype == ta.dtype
+    with pytest.raises(TypeError):
+        TG.gemm(ta, tb, out_dtype=torch.float16)
+
+
 def test_gemm_config_from_knobs_identical():
     for tm in (1, 7, 8, 9, 64, 100, 4096):
         for tn in (1, 64, 100, 128, 129, 512):

@@ -52,6 +52,31 @@ def test_kernel_matches_plain_on_card(dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("src,dst,tol", [
+    (torch.float32, torch.bfloat16, 1e-2),
+    (torch.bfloat16, torch.float32, 5e-5)], ids=str)
+def test_kernel_out_dtype_matches_plain_on_card(src, dst, tol):
+    """``out_dtype`` both ways: an fp32 product written in bf16 (through
+    the workspace and the summing kernel, split-K or not) and a bf16
+    product written in fp32; one count a call."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for m, k, n in SHAPES:
+        for cfg in CONFIGS[:2]:
+            a = torch.randn(m, k, generator=gen, device="cuda").to(src)
+            b = torch.randn(k, n, generator=gen, device="cuda").to(src)
+            launches = TG.gemm.launches
+            got = TG.gemm(a, b, TG.GemmConfig(*cfg), out_dtype=dst)
+            assert TG.gemm.launches == launches + 1
+            assert got.dtype == dst and got.shape == (m, n)
+            want = TG.gemm(a, b, TG.GemmConfig(*cfg), out_dtype=dst,
+                           use_kernel=False)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max()
+            assert float(err) <= tol * float(want.float().abs().max())
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take():
     require_cuda()
     a = torch.ones(64, 32, device="cuda")

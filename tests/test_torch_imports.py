@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither jax nor any
 module of the reference ``repro`` package, and its sources never import
 them."""
+import json
 import os
 import re
 import subprocess
@@ -11,7 +12,7 @@ SRC = os.path.join(ROOT, "src")
 PORT = os.path.join(SRC, "repro_torch")
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -20,8 +21,19 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k in ("jax", "jaxlib", "repro") or k.startswith(
                  ("jax.", "jaxlib.", "repro.")))
-print(len(names), bad)
+print(json.dumps({"names": names, "bad": bad}))
 """
+
+# the baselines, netopt, surrogate-store and zoo slice: each must be among
+# the modules imported above
+SLICE_MODULES = (
+    "repro_torch.core.baselines", "repro_torch.core.shard_space",
+    "repro_torch.configs.shapes", "repro_torch.compiler.surrogate_store",
+    "repro_torch.compiler.zoo", "repro_torch.compiler.netopt",
+    "repro_torch.compiler.netopt.hwspace",
+    "repro_torch.compiler.netopt.partition",
+    "repro_torch.compiler.netopt.report", "repro_torch.compiler.netopt.loop",
+    "repro_torch.compiler.netopt.genetic")
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\s|\.|$)",
                         re.MULTILINE)
@@ -32,9 +44,10 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 30, out.stdout
-    assert bad == "[]", bad
+    got = json.loads(out.stdout)
+    assert len(got["names"]) >= 40, out.stdout
+    assert set(SLICE_MODULES) <= set(got["names"])
+    assert got["bad"] == [], got["bad"]
 
 
 def _python_files():
