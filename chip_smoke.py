@@ -25,7 +25,8 @@ full width and depth.
    of one value, which takes the scalar template; it fails unless the
    checks ran every RMSNorm layout the LM path runs and the grid-stride
    loop; causal flash over B=1, S in
-   {256, 1000, 2048}, 12 query and 2 KV heads, head_dim 128); there the
+   {4, 17, 127, 513, 256, 1000, 2048}, 12 query and 2 KV heads, head_dim
+   128); there the
    bf16 flash kernel is also held against the plain version with P kept
    in fp32 (the reference kernel's arithmetic), within 2^-7 x max |v|;
 4. tunes the 8 ResNet-18 conv tasks (batch 8) with the port's ``Session``;
@@ -59,6 +60,21 @@ full width and depth.
    step (a prefill: flash 28, RMSNorm 57; a decode step: RMSNorm 57,
    flash 0), and reports tokens/s, prefill ms by prompt length and the
    decode step with 8 active slots;
+   ``[fabric]``: 16 stub measurements (0.1 s each) through the
+   ``SerialExecutor``, a ``SubprocessExecutor`` of 2 spawned workers and a
+   ``RemoteExecutor`` over one ``spawn_daemon`` daemon on 127.0.0.1:0:
+   equal values, the pool at least 1.5x faster than serial, a hung job
+   killed at its timeout with the pool respawned and the rest served, and
+   the same ``stats()`` keys on all three;
+   ``[serve live]``: the same server serves 48 requests under Poisson
+   arrivals at 2 req/s (prompts 4-512, 2-32 new tokens) while an ARCO
+   session (``tune_while_serving``, 24 measurements a cell, p99 SLA 3 s,
+   records under ``build/``) measures decode/prefill geometries in its
+   idle slots, watched by a ``MonitorServer`` on an ephemeral loopback
+   port (scraped during the run and after); gated on 48/48 served, every
+   measurement in an idle window, the budget spent, the final scrape
+   equal to the report, and the launch identities over the phase (flash
+   28 a prefill, RMSNorm 57 a prefill or decode step);
 12. profiles one prefill and a few decode steps (``torch.profiler``):
    host wall vs device busy time, kernels launched, the top kernels;
 13. times the two LM kernels at the serving run's shapes (kernel and one
@@ -149,7 +165,17 @@ FLASH_CHECKS = (
        ((2, 130, 4, 1, 64, True, None, 32, 64), False),
        ((1, 50, 2, 1, 20, True, None, 64, 64), False)]
     + [((1, s, 12, 2, 128, True, None, 128, 128), True)
-       for s in (256, 1000, 2048)])
+       for s in (4, 17, 127, 513, 256, 1000, 2048)])
+# [fabric]: the stub oracle through the three executors
+FABRIC_N, FABRIC_DELAY_S = 16, 0.1
+FABRIC_SPEEDUP = 1.5      # the pool over serial (the reference's gate)
+FABRIC_TIMEOUT_S = 1.0    # the hung job's limit, from its started-ack
+STUB = "repro_torch.compiler.executor.stub:make_stub"
+# [serve live]: timed Poisson arrivals, an ARCO session in the idle slots
+LIVE_REQUESTS, LIVE_RATE = 48, 2.0
+LIVE_PROMPT, LIVE_NEW = (4, 512), (2, 32)
+LIVE_BUDGET = 24          # measurements per cell (decode, prefill)
+LIVE_SLA_S = 3.0          # p99 target: a 32-token request is ~2 s of decode
 # the port's kernels as the profiler names them
 PORT_KERNEL_NAMES = ("gemm_f32_kernel", "splitk_sum_kernel",
                      "gemm_loop_kernel", "flash_mma_kernel",
@@ -991,6 +1017,281 @@ def phase_serve(dev, params, cfg):
             "decode_steps_timed": len(full_step_ms)}
 
 
+def phase_fabric() -> dict:
+    """The measurement fabric on the card's host: FABRIC_N stub
+    measurements of FABRIC_DELAY_S each through the in-process
+    ``SerialExecutor``, a ``SubprocessExecutor`` of 2 spawned workers
+    (spawned and warmed by one job each outside the timed region, as a
+    session reuses its pool) and a ``RemoteExecutor`` over one daemon from
+    ``spawn_daemon`` on 127.0.0.1:0 (2 slots).  Gates: equal values, the
+    pool at least FABRIC_SPEEDUP x faster than serial, a hung job killed
+    at FABRIC_TIMEOUT_S with the pool respawned and the other jobs served,
+    and the same ``stats()`` keys on all three."""
+    from repro_torch.compiler.executor import (RemoteExecutor,
+                                               SerialExecutor,
+                                               SubprocessExecutor,
+                                               WorkerSpec, spawn_daemon)
+    from repro_torch.compiler.executor.stub import stub_latency
+    spec = WorkerSpec(factory=STUB, kwargs={"delay_s": FABRIC_DELAY_S})
+    settings = [{"model_axis": 1 << (i % 7), "grad_accum": 1 << (i // 7),
+                 "fsdp": bool(i % 2)} for i in range(FABRIC_N)]
+    want = [stub_latency(st) for st in settings]
+
+    def run(ex, label):
+        t0 = time.perf_counter()
+        handles = [ex.submit("fabric", st, spec=spec) for st in settings]
+        ex.drain(handles)
+        wall = time.perf_counter() - t0
+        got = [h.result().value if h.result().ok else h.result().error
+               for h in handles]
+        check(got == want, f"[fabric] {label} values differ: {got}")
+        return wall, ex.stats()
+
+    walls, stats = {}, {}
+    serial = SerialExecutor(spec=spec)
+    walls["serial"], stats["serial"] = run(serial, "serial")
+    t0 = time.perf_counter()
+    pool = SubprocessExecutor(spec, workers=2, timeout_s=30.0)
+    warm = [pool.submit("warm-up", {"warm": i}) for i in range(2)]
+    pool.drain(warm)   # both workers spawned, imported, factory resolved
+    spawn_s = time.perf_counter() - t0
+    try:
+        walls["subprocess"], stats["subprocess"] = run(pool, "subprocess[2]")
+    finally:
+        pool.close()
+    t0 = time.perf_counter()
+    proc, endpoint = spawn_daemon(slots=2, host="127.0.0.1", port=0,
+                                  timeout_s=60.0)
+    daemon_s = time.perf_counter() - t0
+    try:
+        remote = RemoteExecutor(endpoint, timeout_s=30.0)
+        try:
+            walls["remote"], stats["remote"] = run(remote, "remote")
+        finally:
+            remote.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+    keys = [sorted(st) for st in stats.values()]
+    base = {"kind", "workers_alive", "respawns", "queued", "running",
+            "max_inflight", "jobs", "failures"}
+    check(all(base <= set(k) for k in keys),
+          f"[fabric] stats() keys differ: {keys}")
+    speedup = walls["serial"] / walls["subprocess"]
+    check(speedup >= FABRIC_SPEEDUP, f"[fabric] the pool is {speedup:.2f}x "
+          f"serial (< {FABRIC_SPEEDUP}x)")
+    hang = WorkerSpec(factory=STUB, kwargs={
+        "delay_s": FABRIC_DELAY_S, "hang_when": settings[1]})
+    pool = SubprocessExecutor(hang, workers=2, timeout_s=FABRIC_TIMEOUT_S)
+    t0 = time.perf_counter()
+    try:
+        handles = [pool.submit("fabric", st) for st in settings[:5]]
+        pool.drain(handles)
+        hang_s = time.perf_counter() - t0
+        res = [h.result() for h in handles]
+        check(not res[1].ok and "TimeoutError" in res[1].error
+              and all(r.ok and r.value == w for r, w in
+                      zip(res[:1] + res[2:], want[:1] + want[2:5]))
+              and pool.respawns == 1,
+              f"[fabric] timeout path: {[(r.ok, r.error) for r in res]}, "
+              f"respawns {pool.respawns}")
+    finally:
+        pool.close()
+    log(f"[fabric] {FABRIC_N} stub measurements of {FABRIC_DELAY_S} s: "
+        f"serial {walls['serial']:.3f} s, subprocess[2] "
+        f"{walls['subprocess']:.3f} s ({speedup:.2f}x serial; the pool "
+        f"spawned and warmed in {spawn_s:.3f} s outside it), remote over "
+        f"1 daemon "
+        f"(2 slots, {endpoint}) {walls['remote']:.3f} s "
+        f"({walls['serial'] / walls['remote']:.2f}x; daemon up in "
+        f"{daemon_s:.3f} s); values equal; stats() keys equal")
+    log(f"[fabric] timeout: the hung job of 5 killed at {FABRIC_TIMEOUT_S} s "
+        f"after its started-ack, {pool.respawns} respawn, the other 4 "
+        f"served, {hang_s:.3f} s")
+    return {"walls_s": walls, "speedup": speedup, "spawn_s": spawn_s,
+            "daemon_s": daemon_s, "timeout_drain_s": hang_s,
+            "stats": stats}
+
+
+def counting_steps(srv) -> dict:
+    """Wrap ``srv.step`` to count prefills (requests admitted) and decode
+    steps (steps that ran the batch); returns the live counter dict."""
+    counts = {"prefills": 0, "decodes": 0}
+    step = srv.step
+
+    def counted():
+        queued = len(srv.queue)
+        finished = step()
+        counts["prefills"] += queued - len(srv.queue)
+        counts["decodes"] += int(len(srv.active) + len(finished) > 0)
+        return finished
+
+    srv.step = counted
+    return counts
+
+
+def _scrape(url: str) -> tuple:
+    import urllib.request
+    with urllib.request.urlopen(url + "/status", timeout=10) as r:
+        status = json.loads(r.read())
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+        metrics = r.read().decode()
+    return status, metrics
+
+
+def _metric(text: str, name: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[-1])
+    raise SmokeFailure(f"[serve live] {name} not in the /metrics scrape")
+
+
+def phase_serve_live(dev, params, cfg) -> dict:
+    """qwen2-1.5b in bf16 served to timed Poisson arrivals while an ARCO
+    session tunes its decode/prefill geometry in the idle slots
+    (``LiveServeHost`` + ``tune_while_serving``), watched by a
+    ``MonitorServer`` on an ephemeral loopback port.  The RMSNorm and flash
+    counts are set to 0 just before the run and read just after."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.compiler.serve_tune import (LiveServeHost, ServeModel,
+                                                 ServeSLA, TraceConfig,
+                                                 tune_while_serving)
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.obs.serve import MonitorServer
+    from repro_torch.train.server import DONE, Request, Server
+    srv = Server(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    srv.submit(Request(uid=-1, prompt=np.arange(16, dtype=np.int32),
+                       max_new_tokens=2))
+    srv.run_until_drained()                     # warm-up, not counted
+    counts = counting_steps(srv)
+    records = os.path.join(ROOT, "build", "serve_live_records.jsonl")
+    os.makedirs(os.path.dirname(records), exist_ok=True)
+    if os.path.exists(records):
+        os.remove(records)                      # a cold session, not a replay
+    mon = MonitorServer(port=0, host="127.0.0.1").start()
+    scrapes, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            try:
+                scrapes.append(_scrape(mon.url))
+            except OSError:
+                pass          # the run's own check below decides
+            stop.wait(0.5)
+
+    host = LiveServeHost(
+        srv, TraceConfig(n_requests=LIVE_REQUESTS, rate_per_s=LIVE_RATE,
+                         prompt_len=LIVE_PROMPT, max_new=LIVE_NEW,
+                         seed=SEED),
+        sla=ServeSLA(target_s=LIVE_SLA_S), model=ServeModel(arch=LM_ARCH),
+        vocab=cfg.vocab, seed=SEED)
+    poller = threading.Thread(target=poll, daemon=True)
+    FA.flash_attention.launches = 0   # the live serving path starts here
+    RN.rmsnorm.launches = 0
+    poller.start()
+    try:
+        t0 = time.perf_counter()
+        rep = tune_while_serving(host, budget=LIVE_BUDGET, records=records,
+                                 monitor=mon, seed=SEED,
+                                 offline_compare=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": FA.flash_attention.launches,
+                    "rmsnorm": RN.rmsnorm.launches}   # ... and ends here
+        stop.set()
+        poller.join(timeout=15)
+        final_status, final_metrics = _scrape(mon.url)
+    finally:
+        stop.set()
+        mon.stop()
+    s = rep.serve
+    done = host.done
+    check(s["served"] == LIVE_REQUESTS and s["rejected"] == 0
+          and s["abandoned"] == 0
+          and all(r.status == DONE for r in done),
+          f"[serve live] served {s['served']}/{LIVE_REQUESTS}, rejected "
+          f"{s['rejected']}, abandoned {s['abandoned']}")
+    check(all(0 <= t < cfg.vocab for r in done for t in r.output),
+          "[serve live] generated token out of the vocabulary")
+    check(s["idle_windows"] == s["measurements"],
+          f"[serve live] measurements outside idle windows: "
+          f"{s['measurements'] - s['idle_windows']} of {s['measurements']}")
+    per_task = {n: r.n_measurements for n, r in rep.session.reports.items()}
+    n_rows = sum(1 for _ in open(records))
+    check(all(v == LIVE_BUDGET for v in per_task.values())
+          and s["measurements"] == 2 * LIVE_BUDGET == n_rows,
+          f"[serve live] budget not spent: {per_task}, {s['measurements']} "
+          f"measured, {n_rows} records")
+    norms = 2 * cfg.n_layers + 1
+    check(counts["prefills"] == LIVE_REQUESTS
+          and launches["flash_attention"] == cfg.n_layers * counts["prefills"]
+          and launches["rmsnorm"] == norms * (counts["prefills"]
+                                              + counts["decodes"]),
+          f"[serve live] launches {launches} for {counts}")
+    mid = [st["sources"]["serve"] for st, _ in scrapes
+           if "serve" in st.get("sources", {})
+           and not st["sources"]["serve"].get("final")]
+    check(bool(mid), f"[serve live] no /status scrape during the run "
+                     f"({len(scrapes)} scrapes)")
+    fin = final_status["sources"]
+    net = rep.session.network_latency()
+    check(fin["serve"].get("final") is True
+          and fin["serve"]["served"] == s["served"]
+          and fin["serve"]["measurements"]["done"] == s["measurements"]
+          and fin["serve"]["violations"] == s["violations"]
+          and fin["session"]["measurements"] == s["measurements"]
+          and _metric(final_metrics, "repro_session_measurements")
+          == s["measurements"]
+          and _metric(final_metrics, "repro_session_network_latency") == net
+          and _metric(final_metrics, "repro_executor_idle_slot_jobs")
+          == s["measurements"],
+          f"[serve live] the final scrape differs from the report: "
+          f"{fin} vs serve {s}")
+    lats = np.asarray([r.latency_s for r in done])
+    tokens = int(sum(len(r.output) for r in done))
+    out = {
+        "requests": s["served"], "wall_s": wall, "sim_time_s": s["sim_time_s"],
+        "p50_latency_s": s["p50_latency_s"],
+        "p99_latency_s": s["p99_latency_s"],
+        "mean_latency_s": s["mean_latency_s"],
+        "violation_pct": s["violation_pct"], "sla_s": LIVE_SLA_S,
+        "tokens": tokens, "tokens_per_s": s["tokens_per_sec"],
+        "mean_queue_s": s["mean_queue_s"],
+        "mean_prefill_s": s["mean_prefill_s"],
+        "mean_decode_s": float(np.mean([r.decode_s for r in done])),
+        "measurements": s["measurements"], "preempted": s["preempted"],
+        "idle_windows": s["idle_windows"], "online": rep.online,
+        "offline": rep.offline, "convergence": rep.convergence,
+        "prefills": counts["prefills"], "decodes": counts["decodes"],
+        "launches": launches, "scrapes_during_run": len(mid),
+        "session_wall_s": rep.session.wall_time_s,
+        "max_latency_s": float(lats.max())}
+    log(f"[serve live] {LM_ARCH} bf16, {LM_SLOTS} slots: {s['served']}/"
+        f"{LIVE_REQUESTS} served, 0 rejected, 0 abandoned under Poisson "
+        f"arrivals at {LIVE_RATE} req/s; p50 {s['p50_latency_s']:.3f} s, "
+        f"p99 {s['p99_latency_s']:.3f} s (SLA {LIVE_SLA_S} s, violations "
+        f"{s['violation_pct']:.2f}%), {s['tokens_per_sec']:.1f} generated "
+        f"tokens/s over {s['sim_time_s']:.1f} s of replay; mean queue "
+        f"{out['mean_queue_s']:.4f} s, prefill {out['mean_prefill_s']:.4f} "
+        f"s, decode {out['mean_decode_s']:.4f} s")
+    log(f"[serve live] {s['measurements']} measurements, all in idle "
+        f"windows ({s['idle_windows']}), {s['preempted']} preempted; "
+        f"online geometries: "
+        + "; ".join(f"{k} {v['settings']} model step {v['step_s']:.6g} s"
+                    for k, v in rep.online.items())
+        + f"; convergence (offline/online step, not gated) "
+        f"{ {k: round(v, 4) for k, v in rep.convergence.items()} }")
+    log(f"[serve live] launches {launches} for {counts['prefills']} "
+        f"prefills and {counts['decodes']} decode steps; {len(mid)} "
+        f"/status scrapes during the run, the final scrape equals the "
+        f"report; phase {wall:.1f} s (session {rep.session.wall_time_s:.1f}"
+        f" s)")
+    return out
+
+
 def profile_runs(runs: dict) -> dict:
     """``torch.profiler`` over each named (reps, fn) after one warm-up
     call, the reps ending in a synchronize: host wall ms, device busy ms
@@ -1247,6 +1548,10 @@ def main() -> int:
     log(f"[netopt deploy] phase {dep_s:.1f} s")
     lm_params, lm_cfg, lm_rel32, lm_rel16 = phase_lm_gate(dev)
     serve = phase_serve(dev, lm_params, lm_cfg)   # resets the LM counts
+    fabric, fab_s = timed(phase_fabric)
+    log(f"[fabric] phase {fab_s:.1f} s")
+    live, live_s = timed(lambda: phase_serve_live(dev, lm_params, lm_cfg))
+    log(f"[serve live] phase {live_s:.1f} s")
     profile = phase_profile_serve(dev, lm_params, lm_cfg)
     lm_kernels, norm_floor = phase_time_lm_kernels(dev, lm_cfg, serve)
 
@@ -1264,7 +1569,11 @@ def main() -> int:
                     "baselines": baselines, "netopt": netopt,
                     "netopt_deploy": netopt_deploy,
                     "phase_s": {"baselines": base_s, "netopt": net_s,
-                                "netopt_deploy": dep_s},
+                                "netopt_deploy": dep_s, "fabric": fab_s,
+                                "serve_live": live_s},
+                    "fabric": {k: v for k, v in fabric.items()
+                               if k != "stats"},
+                    "serve_live": live,
                     "lm": {"arch": LM_ARCH, "dtype": "bfloat16",
                            "logits_rel_err_fp32": lm_rel32,
                            "logits_rel_err_bf16": lm_rel16,
@@ -1304,6 +1613,7 @@ def main() -> int:
         "bound_ms": tot["bound_ms"],
         "bound_by": tot["bound_by"],
         "library_ms": tot["library_ms"],
+        "serve_live_launches": live["launches"][name],
     } for name, tot in lm_kernels]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

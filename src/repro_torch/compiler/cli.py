@@ -13,6 +13,12 @@ Two subcommands (a bare flag list still means ``tune``):
         --matmul 512x512x512 --algo autotvm --budget 64 \\
         --records artifacts/gemm.jsonl
 
+    # live /metrics + /status on an ephemeral port, and a span trace of
+    # the run (Chrome-trace JSON); --workers/--remote fan executor-backed
+    # measurements out (analytical tasks are batched in-process)
+    PYTHONPATH=src python -m repro_torch.compiler.cli tune \
+        --model resnet-18 --monitor 0 --trace artifacts/run.json
+
     # network-scope co-optimization: ONE shared accelerator config for the
     # whole network (or K=2..3 in a pipeline), per-layer software mappings
     # under it; --baseline runs the comparison points at equal budget
@@ -35,6 +41,8 @@ import json
 import sys
 from typing import List
 
+from repro_torch.compiler.executor import (add_worker_args,
+                                           validate_worker_args)
 from repro_torch.compiler.session import ALGOS, Session
 from repro_torch.compiler.surrogate_store import (add_surrogate_args,
                                                   store_from_args)
@@ -112,6 +120,10 @@ def _run_tune(args) -> int:
                       budget=args.budget, use_cs=not args.no_cs,
                       share_cost_model=not args.independent,
                       records=args.records, seed=args.seed,
+                      workers=args.workers, timeout_s=args.timeout_s,
+                      remote=args.remote, trace=args.trace,
+                      trace_sample_rate=args.trace_sample_rate,
+                      monitor=args.monitor,
                       surrogates=store, network=_network_label(args) or None,
                       device=args.device)
     summary = session.run().to_dict()
@@ -136,8 +148,11 @@ def _run_netopt(args) -> int:
                        k_chips=args.k_chips,
                        stop_on_stable_ranking=args.stop_on_stable_ranking)
     store = store_from_args(args)
-    kw = dict(records=args.records, name=_network_label(args),
-              surrogates=store, device=args.device)
+    kw = dict(records=args.records, workers=args.workers,
+              timeout_s=args.timeout_s, remote=args.remote,
+              name=_network_label(args), surrogates=store, trace=args.trace,
+              trace_sample_rate=args.trace_sample_rate,
+              monitor=args.monitor, device=args.device)
     if args.baseline == "hw-frozen":
         rep = network_hw_frozen_tune(tasks, cfg, **kw)
     elif args.baseline == "random-hw":
@@ -177,6 +192,7 @@ def main(argv=None) -> int:
     tune.add_argument("--records", default=None,
                       help="JSONL measurement records (persist + warm resume)")
     add_surrogate_args(tune)
+    add_worker_args(tune)
     tune.add_argument("--out", default=None, help="write session JSON here")
     tune.set_defaults(run=_run_tune)
 
@@ -212,10 +228,12 @@ def main(argv=None) -> int:
     net.add_argument("--records", default=None,
                      help="JSONL records: per-(hw, layer) warm resume")
     add_surrogate_args(net)
+    add_worker_args(net)
     net.add_argument("--out", default=None, help="write NetworkReport JSON")
     net.set_defaults(run=_run_netopt)
 
     args = ap.parse_args(argv)
+    validate_worker_args(ap, args)
     return args.run(args)
 
 

@@ -97,6 +97,7 @@ def network_genetic_hw_tune(tasks: Iterable[TuningTask],
     per_layer = max(cfg.total_layer_budget() // n_evals, 1)
     try:
         with ev.obs_scope():
+            ev.open()
             fit: Dict[HwPartition, float] = {}
             for p in ps.seed_partitions(min(population, n_evals), rng):
                 if p not in fit and len(fit) < n_evals:

@@ -25,11 +25,15 @@ both GBTs warm-start from other networks' stored training rows and save
 their own rows for future runs, in stores shared with the reference
 package.
 
+``workers=N`` measures every (candidate, layer) of executor-backed tasks
+on one crash-isolated :class:`~repro_torch.compiler.executor.
+SubprocessExecutor` pool, ``remote=`` on worker daemons (endpoints, or a
+caller-owned ``RemoteExecutor`` that is borrowed, never closed);
+``monitor=`` serves live ``/metrics`` and ``/status`` and
+``trace_sample_rate`` thins a ``trace=`` run's per-measurement spans.
+
 The outer search, the partition space and the numpy draws are the
 reference's; every inner session runs on ``device`` (default ``cuda``).
-The reference's measurement workers, remote fabric, live monitor and trace
-sampling belong to the measurement fabric (ROADMAP Queue 1, item 14) and
-raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ from repro_torch.compiler.netopt.partition import HwPartition, PartitionSpace
 from repro_torch.compiler.netopt.report import NetworkReport
 from repro_torch.compiler.oracle import Oracle, decode_config
 from repro_torch.compiler.records import RecordLog
-from repro_torch.compiler.session import Session, measurement_fabric_later
+from repro_torch.compiler.session import Session
 from repro_torch.compiler.surrogate_store import (SurrogateStore,
                                                   attach_sw_gbt, coerce_store,
                                                   space_family)
@@ -107,24 +111,13 @@ def _coerce_partition(cand) -> HwPartition:
     return HwPartition((), (tuple(int(v) for v in cand),))
 
 
-def _reject_fabric(workers: int, timeout_s, remote, monitor,
-                   trace_sample_rate: float) -> None:
-    if workers:
-        raise measurement_fabric_later("workers")
-    for name, value in (("timeout_s", timeout_s), ("remote", remote),
-                        ("monitor", monitor)):
-        if value is not None:
-            raise measurement_fabric_later(name)
-    if float(trace_sample_rate) != 1.0:
-        raise measurement_fabric_later("trace_sample_rate")
-
-
 class _Evaluator:
     """Shared candidate-evaluation machinery for the co-optimizer and the
     network baselines (frozen / random / genetic): owns the task list, the
-    partition space, the shared software GBT and the record log, evaluates
-    one partition as a pinned multi-task session, and keeps the running
-    trace the final :class:`NetworkReport` is built from."""
+    partition space, the shared software GBT, the (optional) worker pool
+    and the record log, evaluates one partition as a pinned multi-task
+    session, and keeps the running trace the final
+    :class:`NetworkReport` is built from."""
 
     def __init__(self, tasks: Iterable[TuningTask], cfg: NetOptConfig,
                  records: Union[None, str, RecordLog], name: str, algo: str,
@@ -132,10 +125,12 @@ class _Evaluator:
                  trace: Optional[str] = None, obs=None, device=None,
                  workers: int = 0, timeout_s: Optional[float] = None,
                  remote=None, monitor=None, trace_sample_rate: float = 1.0):
-        _reject_fabric(workers, timeout_s, remote, monitor, trace_sample_rate)
         self.tasks = list(tasks)
         if not self.tasks:
             raise ValueError("network co-optimization needs >= 1 task")
+        if remote and workers:
+            raise ValueError("remote= and workers= are mutually exclusive: "
+                             "one measurement transport per run")
         self.cfg = cfg
         self.device = resolve_device(device)
         # Sessions build a fresh oracle per (candidate, layer), so the
@@ -151,6 +146,13 @@ class _Evaluator:
             records = os.path.join(self._tmp_records_dir, "records.jsonl")
         self.records = (RecordLog(records) if isinstance(records, str)
                         else records)
+        self.workers = int(workers)
+        self.timeout_s = timeout_s
+        # endpoints string/list, or an already-built RemoteExecutor the
+        # caller owns — the latter is borrowed, never closed here
+        self.remote = remote
+        self._owns_executor = not (remote is not None
+                                   and hasattr(remote, "submit"))
         self.name = name
         self.algo = algo
         self.pspace = PartitionSpace(self.tasks, cfg.k_chips)
@@ -169,6 +171,7 @@ class _Evaluator:
         if self.surrogate_stats:
             self.surrogate_stats.update(warm_hw_rows=0, hw_rows_saved=0,
                                         warm_seeded=False)
+        self.executor = None
         self.trace: List[Dict[str, object]] = []
         self.evaluated: Dict[HwPartition, Dict[str, object]] = {}
         self.cum_measurements = 0
@@ -177,7 +180,19 @@ class _Evaluator:
         # builds one and saves it to that path at close()
         self.trace_path = trace
         self.tracer = obs if obs is not None else (
-            obslib.Tracer(name=name) if trace else None)
+            obslib.Tracer(name=name, sample_rate=trace_sample_rate)
+            if trace else None)
+        # live monitoring: port -> owned server, a MonitorServer instance
+        # -> borrowed.  The /status source and scrape-time collector only
+        # *read* evaluator/executor state, so reports stay identical with
+        # monitoring on vs off.
+        self.current_phase = ""
+        self.monitor = None
+        self._owns_monitor = False
+        self._monitor_source = None
+        if monitor is not None:
+            from repro_torch.obs.serve import coerce_monitor
+            self.monitor, self._owns_monitor = coerce_monitor(monitor)
         self.t0 = time.perf_counter()
 
     def obs_scope(self):
@@ -187,13 +202,85 @@ class _Evaluator:
             return contextlib.nullcontext()
         return obslib.use(self.tracer)
 
+    def open(self) -> None:
+        if self.monitor is not None and self._monitor_source is None:
+            self.monitor.start()
+            self._monitor_source = self.monitor.attach(
+                f"netopt:{self.name}", self._live_status,
+                collector=self._collect_metrics, tracer=self.tracer)
+        if self.executor is not None:
+            return
+        if self.workers > 0:
+            # one crash-isolated pool serves every (candidate, layer)
+            # measurement of the whole co-optimization
+            from repro_torch.compiler.executor import SubprocessExecutor
+            self.executor = SubprocessExecutor(workers=self.workers,
+                                               timeout_s=self.timeout_s)
+        elif self.remote is not None:
+            if hasattr(self.remote, "submit"):  # borrowed executor
+                self.executor = self.remote
+            else:
+                from repro_torch.compiler.executor import RemoteExecutor
+                self.executor = RemoteExecutor(self.remote,
+                                               timeout_s=self.timeout_s)
+
     def close(self) -> None:
+        # freeze the monitor's final snapshot while the executor is still
+        # scrapeable; an owned server then stops with the run, a borrowed
+        # one keeps serving the frozen values
+        if self.monitor is not None and self._monitor_source:
+            self.monitor.finalize(self._monitor_source)
+        if self.executor is not None:
+            if self.tracer is not None:
+                self.tracer.metrics.record_executor_stats(
+                    self.executor.stats())
+            if self._owns_executor:
+                self.executor.close()
+            self.executor = None
+        if self.monitor is not None and self._owns_monitor:
+            self.monitor.stop()
+            self.monitor = None
         if self._tmp_records_dir is not None:
             shutil.rmtree(self._tmp_records_dir, ignore_errors=True)
             self._tmp_records_dir = None
         if self.tracer is not None and self.trace_path:
             path, self.trace_path = self.trace_path, None  # save once
             self.tracer.save(path)
+
+    # ------------------------------------------------------ live monitoring
+    def best_latency_or_none(self) -> Optional[float]:
+        vals = [float(e["network_latency"]) for e in self.evaluated.values()]
+        return min(vals) if vals else None
+
+    def _live_status(self) -> Dict[str, object]:
+        """Copy-on-read /status section: outer-search progress + fleet
+        health (the remote executor's per-endpoint detail, including
+        daemon heartbeat load, rides in ``executor``)."""
+        return {
+            "kind": "netopt", "network": self.name, "algo": self.algo,
+            "phase": self.current_phase,
+            "k_chips": int(self.cfg.k_chips),
+            "hw_candidates": len(self.evaluated),
+            "cum_measurements": int(self.cum_measurements),
+            "budget_upper_bound": int(self.cfg.total_layer_budget()
+                                      * len(self.tasks)),
+            "best_network_latency": self.best_latency_or_none(),
+            "surrogates": dict(self.surrogate_stats),
+            "early_stop": dict(self.early_stop),
+            "executor": (self.executor.stats()
+                         if self.executor is not None else {}),
+        }
+
+    def _collect_metrics(self, metrics) -> None:
+        metrics.counter("netopt.measurements").value = \
+            float(self.cum_measurements)
+        metrics.counter("netopt.hw_candidates").value = \
+            float(len(self.evaluated))
+        best = self.best_latency_or_none()
+        if best is not None:
+            metrics.gauge("netopt.best_network_latency_s").set(best)
+        if self.executor is not None:
+            metrics.record_executor_stats(self.executor.stats())
 
     # ------------------------------------------------------------- evaluate
     def evaluate(self, cand, layer_budget: int, phase: str) -> float:
@@ -202,6 +289,7 @@ class _Evaluator:
         interleaved session, return the pipeline-aware end-to-end latency.
         Re-evaluating the same candidate replays warm from the per-(hw,
         layer) records before paying for anything new."""
+        self.current_phase = phase
         with obslib.current().span(f"phase:{phase}", cat="phase",
                                    budget=int(layer_budget)):
             return self._evaluate(cand, layer_budget, phase)
@@ -218,7 +306,7 @@ class _Evaluator:
                 report_key[t.name] = f"{t.name}#{tag}"
         sr = Session(ptasks, tuner=self.cfg.tuner, budget=layer_budget,
                      records=self.records, gbt=self.sw_gbt,
-                     device=self.device).run()
+                     executor=self.executor, device=self.device).run()
         if part.k == 1:
             net_lat = sr.network_latency()
         else:
@@ -337,7 +425,9 @@ class _Evaluator:
             surrogates=dict(self.surrogate_stats),
             partition={"k": part.k, "cuts": list(part.cuts),
                        "assignment": assignment},
-            k_chips=part.k, early_stop=dict(self.early_stop))
+            k_chips=part.k, early_stop=dict(self.early_stop),
+            executor_stats=(self.executor.stats()
+                            if self.executor is not None else {}))
 
 
 class NetworkCoOptimizer:
@@ -382,6 +472,7 @@ class NetworkCoOptimizer:
         ev = self._ev
         try:
             with ev.obs_scope():
+                ev.open()
                 return self._run(self.cfg, ev, self.pspace,
                                  np.random.default_rng(self.cfg.seed))
         finally:
@@ -556,6 +647,7 @@ def network_hw_frozen_tune(tasks: Iterable[TuningTask],
                     device=device, **fabric)
     try:
         with ev.obs_scope():
+            ev.open()
             ev.evaluate(ev.hw.default_values(ev.tasks),
                         cfg.total_layer_budget(), "frozen")
             return ev.report()
@@ -583,6 +675,7 @@ def network_random_hw_tune(tasks: Iterable[TuningTask],
     per_layer = max(cfg.total_layer_budget() // n_candidates, 1)
     try:
         with ev.obs_scope():
+            ev.open()
             attempts = 0
             while len(ev.evaluated) < n_candidates and attempts < 64:
                 attempts += 1

@@ -60,9 +60,9 @@ class NetworkReport:
     # transfer-aware early stop bookkeeping ({} = did not trigger):
     # {"round", "stable_refits", "skipped_candidates", "measurements_saved"}
     early_stop: Dict[str, object] = dataclasses.field(default_factory=dict)
-    # the measurement transport's final stats in the reference's documents;
-    # the port measures in-process (the fabric is ROADMAP item 14), so its
-    # own reports carry {} — kept so documents cross between the packages
+    # final Executor.stats() snapshot of the run's measurement transport
+    # (jobs/failures/respawns; remote runs add per-endpoint reconnect and
+    # ack-to-result detail) — {} for in-process runs and old documents
     executor_stats: Dict[str, object] = dataclasses.field(
         default_factory=dict)
 

@@ -4,29 +4,50 @@ The protocol is ``measure(configs) -> (latencies, features)`` over int
 choice-index configurations.  The base class owns the cross-cutting
 concerns: memoization (keyed on the config tuple), JSONL record
 persistence (via :class:`repro_torch.compiler.records.RecordLog`, rows
-interchangeable with the reference's), hit/miss/dedup accounting.
+interchangeable with the reference's), hit/miss/dedup/failure accounting
+and the failed-measurement penalty.
 
 Measurement is split-phase underneath: ``measure_async(configs)`` returns
 a :class:`PendingBatch` whose ``get()`` yields ``(latencies, features)``.
-The analytical oracle resolves the batch eagerly at submit time; the seam
-is where executor-backed oracles plug in (a later slice of the port).
+The analytical oracle resolves the batch eagerly at submit time; a
+:class:`SettingsOracle` on a :class:`~repro_torch.compiler.executor.
+SubprocessExecutor` (or a remote fleet, or a server's idle slots) keeps
+the batch genuinely in flight, letting a session overlap GBT refits and
+MAPPO updates with measurements.  Results always land back in this
+parent-process oracle, so memo/records/resume semantics are identical no
+matter who executed the measurement.
+
+Two concrete oracles (the reference's ``CompileOracle`` is XLA-bound and
+waits for ROADMAP item 16):
+
+* :class:`AnalyticalOracle` — the batched analytical TPU v5e model
+  (``DesignSpace.measure``) on ``device`` (default ``cuda``).
+* :class:`SettingsOracle` — one python measure function per decoded knob
+  *settings* dict, run through an executor, with the failure penalty.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import obs, resolve_device
+from repro_torch.compiler.executor import (Executor, MeasureResult,
+                                           SerialExecutor, WorkerSpec)
 from repro_torch.compiler.records import RecordLog
 from repro_torch.core.design_space import DesignSpace
+from repro_torch.obs import log
 
 
 def decode_config(space: DesignSpace, config) -> Dict[str, object]:
     """Choice indices -> human-readable knob settings for ``space``."""
-    return {name: int(space.choices[k][int(config[k])])
-            for k, name in enumerate(space.knob_names)}
+    vals = [space.choices[k][int(config[k])] for k in range(space.n_knobs)]
+    from repro_torch.core.shard_space import (ShardSpace,
+                                              knob_values_to_settings)
+    if isinstance(space, ShardSpace):
+        return knob_values_to_settings(vals)
+    return {name: int(v) for name, v in zip(space.knob_names, vals)}
 
 
 class _EagerBatch:
@@ -69,7 +90,10 @@ class PendingBatch:
         o = self._oracle
         if not self._collected:
             if self._inflight is not None:
-                lat, feats, extras = self._inflight.collect()
+                with obs.current().span("measure-wait", cat="executor-wait",
+                                        task=o.task,
+                                        n=len(self._miss_idx)):
+                    lat, feats, extras = self._inflight.collect()
                 for j, i in enumerate(self._miss_idx):
                     o._remember(self._keys[i], float(lat[j]),
                                 np.asarray(feats[j], np.float32),
@@ -87,7 +111,8 @@ class Oracle:
     """Memoizing, record-persisting measurement oracle (protocol base).
 
     Subclasses implement ``_measure_batch(configs) -> (lat, feats, extras)``
-    for cache misses; dedup, cache fill, JSONL rows and stats are shared.
+    for cache misses (or override ``_submit_batch`` for asynchronous
+    execution); dedup, cache fill, JSONL rows and stats are shared.
     """
 
     penalty_latency = 1e6  # recorded for measurements that fail
@@ -134,8 +159,9 @@ class Oracle:
         return PendingBatch(self, keys, n_hits, n_dedup, miss_idx, inflight)
 
     def _submit_batch(self, configs: np.ndarray):
-        """Start measuring ``configs``; the default computes eagerly
-        in-process via ``_measure_batch``."""
+        """Start measuring ``configs``; returns an in-flight object with
+        ``ready()`` / ``collect() -> (lat, feats, extras)``.  The default
+        computes eagerly in-process via ``_measure_batch``."""
         with obs.current().span("measure", cat="measure", task=self.task,
                                 n=len(configs)):
             return _EagerBatch(self._measure_batch(configs))
@@ -159,6 +185,11 @@ class Oracle:
             self.records.append(row)
 
     @property
+    def seen(self):
+        """Keys of every memoized configuration (incl. resumed records)."""
+        return self._cache.keys()
+
+    @property
     def n_cached(self) -> int:
         return len(self._cache)
 
@@ -166,6 +197,12 @@ class Oracle:
         return {"hits": self.hits, "misses": self.misses,
                 "dedup": self.dedup, "failures": self.failures,
                 "cached": self.n_cached}
+
+    def features(self, configs) -> np.ndarray:
+        """GBT features of ``configs``, computed on the host (the
+        per-settings oracles measure there too)."""
+        c = torch.as_tensor(np.asarray(configs), dtype=torch.long)
+        return self.space.feature_vector(c).numpy().astype(np.float32)
 
 
 class AnalyticalOracle(Oracle):
@@ -184,3 +221,108 @@ class AnalyticalOracle(Oracle):
         lat = self.space.measure(c).cpu().numpy().astype(np.float64)
         feats = self.space.feature_vector(c).cpu().numpy().astype(np.float32)
         return lat, feats, None
+
+
+class _ExecutorBatch:
+    """Handles for one batch of per-settings jobs on an executor."""
+
+    def __init__(self, oracle: "SettingsOracle", handles, feats):
+        self._oracle = oracle
+        self._handles = handles
+        self._feats = feats
+
+    def ready(self) -> bool:
+        self._oracle.executor.poll()
+        return all(h.done() for h in self._handles)
+
+    def collect(self):
+        o = self._oracle
+        o.executor.drain(self._handles)
+        lats = np.empty(len(self._handles), np.float64)
+        extras: List[Dict] = []
+        for i, h in enumerate(self._handles):
+            lats[i], extra = o._settle(h.settings, h.result())
+            extras.append(extra)
+        return lats, self._feats, extras
+
+
+class SettingsOracle(Oracle):
+    """Per-config oracle over decoded knob *settings* with failure penalty.
+
+    ``fn(settings)`` returns either a latency float or a result dict with a
+    ``step_penalized_s`` entry.  A failed measurement — the fn raised, the
+    worker died, or the job timed out — records the hinge
+    ``penalty_latency`` plus the error string: an infeasible configuration
+    must never win the search, but the surrogate still learns from it.
+
+    Execution goes through an :class:`~repro_torch.compiler.executor.
+    Executor`; the default :class:`SerialExecutor` runs each measurement
+    in-process at submit time, while a ``SubprocessExecutor`` fans the
+    batch across workers — ``measure`` still blocks for the whole batch,
+    but ``measure_async`` lets a session overlap other work.  Features
+    are computed on the host.  ``close()`` tears the executor down iff
+    this oracle built it (or ``own_executor=True`` says so); a borrowed
+    executor (a session's shared pool) outlives it.
+    """
+
+    def __init__(self, space: DesignSpace,
+                 fn: Optional[Callable[[Dict], object]] = None,
+                 task: str = "", records: Optional[RecordLog] = None,
+                 verbose: bool = False,
+                 executor: Optional[Executor] = None,
+                 own_executor: Optional[bool] = None,
+                 worker_spec: Optional[WorkerSpec] = None):
+        if fn is None and executor is None:
+            raise ValueError("SettingsOracle needs fn= and/or executor=")
+        self.fn = fn
+        self.verbose = verbose
+        self.executor = executor or SerialExecutor(fn=fn)
+        # jobs carry this spec so a *shared* executor (one pool serving a
+        # whole multi-task session) measures with this oracle's factory
+        self.worker_spec = worker_spec
+        self._own_executor = (executor is None if own_executor is None
+                              else own_executor)
+        super().__init__(space, task=task, records=records)
+
+    _RESULT_KEYS = ("step_s", "compile_s", "hbm_residency_gib", "feasible",
+                    "dominant")
+
+    def _submit_batch(self, configs):
+        feats = self.features(configs) if len(configs) else \
+            np.zeros((0, 0), np.float32)
+        handles = [self.executor.submit(self.task,
+                                        decode_config(self.space, cfg),
+                                        spec=self.worker_spec)
+                   for cfg in configs]
+        return _ExecutorBatch(self, handles, feats)
+
+    def _settle(self, settings: Dict[str, object],
+                res: MeasureResult) -> Tuple[float, Dict]:
+        """Map one executor result to (latency, JSONL extras)."""
+        extra: Dict[str, object] = {"settings": settings}
+        error = res.error
+        lat = None
+        if res.ok:
+            out = res.value
+            try:  # a malformed result is a failure, not a session crash
+                if isinstance(out, dict):
+                    lat = float(out["step_penalized_s"])
+                    extra["result"] = {k: out[k] for k in self._RESULT_KEYS
+                                       if k in out}
+                else:
+                    lat = float(out)
+            except Exception as e:
+                error = f"{type(e).__name__}: {e}"
+        if lat is None:  # infeasible / crashed / timed out / malformed
+            self.failures += 1
+            lat = self.penalty_latency
+            extra["error"] = error[:300]
+            # verbose oracles surface every failure; quiet ones still log
+            # it at debug so REPRO_LOG=debug exposes the penalty rows
+            log.log("warn" if self.verbose else "debug",
+                    f"  measure {settings}: FAILED {extra['error'][:140]}")
+        return lat, extra
+
+    def close(self) -> None:
+        if self._own_executor:
+            self.executor.close()

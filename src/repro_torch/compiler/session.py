@@ -14,13 +14,23 @@ A :class:`Session` runs ARCO or any baseline over
 * ``surrogates=<store.jsonl>`` persists the GBT *training rows*
   (:class:`~repro_torch.compiler.surrogate_store.SurrogateStore`) and
   warm-starts the shared GBT from other networks' rows;
-* ``trace=<path>`` writes a span trace of the run;
+* ``workers=N`` fans per-settings measurements across ONE crash-isolated
+  subprocess pool shared by every task, with ``timeout_s``
+  per-measurement timeouts; the interleaved ARCO scheduler then overlaps
+  one task's GBT refits and MAPPO updates with another's in-flight
+  measurements (analytical tasks are batched and cheap — they ignore
+  ``workers``);
+* ``remote="host:port[,host:port]"`` fans the same measurements over TCP
+  worker daemons (``python -m repro_torch.compiler.executor.worker``);
+  ``executor=`` borrows a caller's executor (a server's idle slots, a
+  fleet connection); the final ``Executor.stats()`` snapshot of an owned
+  executor lands in ``SessionReport.executor_stats``;
+* ``trace=<path>`` writes a span trace of the run (``trace_sample_rate``
+  keeps that fraction of per-measurement spans); ``monitor=PORT`` (or a
+  borrowed :class:`~repro_torch.obs.serve.MonitorServer`) serves live
+  ``/metrics`` and ``/status``;
 * ``device`` places the MAPPO nets, rollouts, the baselines' searches and
   the analytical measurements (default ``cuda``).
-
-The reference's measurement workers, remote fabric and live monitor
-belong to the measurement fabric (ROADMAP Queue 1, item 14); asking for
-them raises ``NotImplementedError`` instead of being ignored.
 
 Quickstart::
 
@@ -49,13 +59,6 @@ from repro_torch.core.tuner import ArcoLoop, TunerConfig
 ALGOS = ("arco", "random", "autotvm", "chameleon")
 
 
-def measurement_fabric_later(what: str) -> NotImplementedError:
-    """The error for an option of the reference's measurement fabric."""
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with slice 3 of the PyTorch "
-        f"port, the measurement fabric (ROADMAP Queue 1, item 14)")
-
-
 @dataclasses.dataclass
 class SessionReport:
     """Typed result of one session: per-task reports + run metadata."""
@@ -69,6 +72,11 @@ class SessionReport:
     # {"store": path, "readonly": bool, "warm_sw_rows": int} — empty on
     # sessions run without a store
     surrogates: Dict[str, object] = dataclasses.field(default_factory=dict)
+    # final Executor.stats() snapshot (jobs/failures/respawns; remote runs
+    # add per-endpoint detail) — empty for in-process sessions and for
+    # documents written without the field
+    executor_stats: Dict[str, object] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def single(self) -> TuneReport:
@@ -103,6 +111,7 @@ class SessionReport:
                 "budget_per_task": self.budget_per_task,
                 "wall_time_s": self.wall_time_s,
                 "surrogates": dict(self.surrogates),
+                "executor_stats": dict(self.executor_stats),
                 "reports": {n: r.to_dict() for n, r in self.reports.items()}}
 
     @staticmethod
@@ -113,7 +122,8 @@ class SessionReport:
             wall_time_s=d["wall_time_s"], algo=d["algo"],
             shared_cost_model=d["shared_cost_model"],
             budget_per_task=d["budget_per_task"],
-            surrogates=d.get("surrogates", {}))
+            surrogates=d.get("surrogates", {}),
+            executor_stats=d.get("executor_stats", {}))
 
 
 class Session:
@@ -125,19 +135,16 @@ class Session:
                  share_cost_model: bool = True,
                  records: Union[None, str, RecordLog] = None,
                  seed: Optional[int] = None,
+                 workers: int = 0, timeout_s: Optional[float] = None,
+                 remote: Union[None, str, list] = None,
                  gbt: Optional[GBTModel] = None,
+                 executor=None,
                  surrogates: Union[None, str, SurrogateStore] = None,
                  network: Optional[str] = None,
                  trace: Optional[str] = None,
-                 device=None,
-                 workers: int = 0, timeout_s: Optional[float] = None,
-                 remote=None, executor=None, monitor=None):
-        if workers:
-            raise measurement_fabric_later("workers")
-        for name, value in (("timeout_s", timeout_s), ("remote", remote),
-                            ("executor", executor), ("monitor", monitor)):
-            if value is not None:  # monitor=0 asks for an ephemeral port
-                raise measurement_fabric_later(name)
+                 monitor=None,
+                 trace_sample_rate: float = 1.0,
+                 device=None):
         if isinstance(tasks, TuningTask):
             tasks = [tasks]
         self.tasks = list(tasks)
@@ -158,6 +165,18 @@ class Session:
         self.share_cost_model = share_cost_model
         self.records = (RecordLog(records) if isinstance(records, str)
                         else records)
+        if remote and workers:
+            raise ValueError("remote= and workers= are mutually exclusive: "
+                             "one measurement transport per session")
+        if remote and executor is not None:
+            raise ValueError("remote= and executor= are mutually exclusive")
+        if (timeout_s is not None and not workers and not remote
+                and executor is None):
+            raise ValueError("timeout_s needs workers >= 1 or remote=: "
+                             "in-process measurements cannot be preempted")
+        self.workers = workers
+        self.timeout_s = timeout_s
+        self.remote = remote
         # an externally supplied cost model is shared across this session's
         # tasks AND whoever else holds it
         self.gbt = gbt
@@ -182,16 +201,109 @@ class Session:
                 # mislabel half of them and poison later warm starts
                 raise ValueError("surrogates= needs tasks of one space "
                                  f"family, got {sorted(families)}")
+        # tracing: ``trace=`` makes this session build its own tracer and
+        # save it there after run(); without it, run() does NOT touch the
+        # ambient tracer (an outer netopt trace keeps collecting)
         self.trace_path = trace
+        self.trace_sample_rate = float(trace_sample_rate)
+        # live monitoring: ``monitor=PORT`` starts an owned MonitorServer
+        # for this run; ``monitor=MonitorServer`` is borrowed — either way
+        # the session attaches a /status source + scrape-time collector
+        # and finalizes it (freezing the last snapshot) before teardown.
+        # Monitoring only reads session state, so reports stay identical
+        # with it on vs off.
+        self._monitor_arg = monitor
+        self._monitor = None
+        self._monitor_owned = False
+        self._monitor_source = None
+        self._loops = []  # live ArcoLoop list (status snapshots read it)
+        self._live_reports: Dict[str, TuneReport] = {}
+        self._oracles = []  # created by run(), closed in its finally
+        # ONE worker pool shared by all tasks; an external executor= is the
+        # caller's (outlives the session — never closed here)
+        self._executor = executor
+        self._own_executor = executor is None
         self.device = resolve_device(device)
+
+    # ------------------------------------------------------ live monitoring
+    def _live_progress(self):
+        """Copy-on-read progress numbers for the monitor: per-task state,
+        total paid measurements, and the weighted best-so-far network
+        latency (defined once every task has a finite best)."""
+        mult = {t.name: t.multiplicity for t in self.tasks}
+        tasks: Dict[str, Dict[str, object]] = {}
+        for loop in list(self._loops):
+            tr = loop.track
+            best = float(tr.best_lat)
+            tasks[tr.task] = {
+                "measurements": int(tr.count),
+                "best_latency": best if best < float("inf") else None,
+            }
+        for name, rep in dict(self._live_reports).items():
+            tasks[name] = {"measurements": int(rep.n_measurements),
+                           "best_latency": float(rep.best_latency),
+                           "done": True}
+        total = sum(int(t["measurements"]) for t in tasks.values())
+        net = None
+        if tasks and all(t["best_latency"] is not None
+                         for t in tasks.values()):
+            net = sum(float(t["best_latency"]) * mult.get(n, 1)
+                      for n, t in tasks.items())
+        return tasks, total, net
+
+    def _live_status(self) -> Dict[str, object]:
+        tasks, total, net = self._live_progress()
+        oracle = {"hits": 0, "misses": 0, "failures": 0}
+        for o in list(self._oracles):
+            st = o.stats()
+            for k in oracle:
+                oracle[k] += int(st.get(k, 0))
+        executor = self._executor
+        return {
+            "kind": "session", "algo": self.algo,
+            "budget_per_task": int(self.budget),
+            "n_tasks": len(self.tasks),
+            "measurements": total,
+            "best_network_latency": net,
+            "tasks": tasks,
+            "oracle": oracle,
+            "executor": executor.stats() if executor is not None else {},
+        }
+
+    def _collect_metrics(self, metrics) -> None:
+        """Scrape-time collector: map live progress + executor stats onto
+        the monitor's own registry (never the ambient tracer's)."""
+        tasks, total, net = self._live_progress()
+        metrics.counter("session.measurements").value = float(total)
+        if net is not None:
+            metrics.gauge("session.network_latency").set(net)
+        executor = self._executor
+        if executor is not None:
+            metrics.record_executor_stats(executor.stats())
+
+    def _make_oracle(self, task: TuningTask):
+        oracle = task.make_oracle(self.records, workers=self.workers,
+                                  timeout_s=self.timeout_s,
+                                  executor=self._executor,
+                                  device=self.device)
+        self._oracles.append(oracle)
+        return oracle
 
     # ----------------------------------------------------------------- run
     def run(self) -> SessionReport:
-        # no trace requested -> leave the ambient tracer alone (an outer
-        # netopt trace keeps collecting through this session)
-        tracer = obs.Tracer(name="session") if self.trace_path else None
+        tracer = (obs.Tracer(name="session",
+                             sample_rate=self.trace_sample_rate)
+                  if self.trace_path else None)
         scope = obs.use(tracer) if tracer is not None \
             else contextlib.nullcontext()
+        if self._monitor_arg is not None:
+            from repro_torch.obs.serve import coerce_monitor
+            self._monitor, self._monitor_owned = \
+                coerce_monitor(self._monitor_arg)
+            self._monitor.start()
+            self._monitor_source = self._monitor.attach(
+                "session", self._live_status,
+                collector=self._collect_metrics, tracer=tracer)
         try:
             with scope:
                 with obs.current().span("session", cat="session",
@@ -200,6 +312,9 @@ class Session:
         finally:
             if tracer is not None:
                 tracer.save(self.trace_path)
+            if self._monitor is not None and self._monitor_owned:
+                self._monitor.stop()
+                self._monitor = None
 
     def _run(self) -> SessionReport:
         t0 = time.perf_counter()
@@ -215,16 +330,40 @@ class Session:
             shared_gbt = self.gbt if self.gbt is not None else (
                 GBTModel(n_rounds=self.cfg.gbt_rounds, seed=self.cfg.seed)
                 if self.share_cost_model else None)
-        oracles = [t.make_oracle(self.records, device=self.device)
-                   for t in self.tasks]
+        if self.workers > 0 and self._executor is None:
+            # one pool for the whole session — N workers total, not N per
+            # task; jobs carry each oracle's own WorkerSpec.  Workers spawn
+            # lazily, so this is free for tasks that never submit
+            # (analytical oracles, fully-warm resumes).
+            from repro_torch.compiler.executor import SubprocessExecutor
+            self._executor = SubprocessExecutor(workers=self.workers,
+                                                timeout_s=self.timeout_s)
+        elif self.remote and self._executor is None:
+            # the same over TCP: one fleet connection serving every task,
+            # jobs routed to capability-compatible daemons
+            from repro_torch.compiler.executor import RemoteExecutor
+            self._executor = RemoteExecutor(self.remote,
+                                            timeout_s=self.timeout_s)
+        executor_stats: Dict[str, object] = {}
         try:
             if self.algo == "arco":
-                reports = self._run_arco(shared_gbt, oracles)
+                reports = self._run_arco(shared_gbt)
             else:
-                reports = self._run_baseline(shared_gbt, oracles)
+                reports = self._run_baseline(shared_gbt)
         finally:
-            for oracle in oracles:
+            # freeze the monitor's last snapshot FIRST, while oracles,
+            # trackers and the executor are all still readable — a
+            # post-run scrape then answers with final values
+            if self._monitor is not None and self._monitor_source:
+                self._monitor.finalize(self._monitor_source)
+            for oracle in self._oracles:  # tear down any worker pools
                 oracle.close()
+            self._oracles = []
+            if self._executor is not None and self._own_executor:
+                executor_stats = self._executor.stats()
+                obs.current().metrics.record_executor_stats(executor_stats)
+                self._executor.close()
+                self._executor = None
         for t in self.tasks:  # reports carry their task's layer weight
             reports[t.name].multiplicity = t.multiplicity
         return SessionReport(reports=reports,
@@ -232,42 +371,72 @@ class Session:
                              algo=self.algo,
                              shared_cost_model=self.share_cost_model,
                              budget_per_task=self.budget,
-                             surrogates=surrogate_stats)
+                             surrogates=surrogate_stats,
+                             executor_stats=executor_stats)
 
-    def _run_arco(self, shared_gbt: Optional[GBTModel], oracles
+    def _run_arco(self, shared_gbt: Optional[GBTModel]
                   ) -> Dict[str, TuneReport]:
         """Interleaved ARCO: one iteration per task per round, every task
-        refitting the same surrogate when the cost model is shared.  The
-        analytical oracle resolves each batch at submit time, so every
-        ``step_submit`` is collected at once."""
+        refitting the same surrogate when the cost model is shared.
+
+        Each task goes through ``step_submit``/``collect`` halves: with
+        in-process oracles a batch resolves at submit time and the
+        schedule is the plain one-iteration-per-task round robin, while
+        executor-backed oracles leave batches in flight — the scheduler
+        then runs other tasks' MAPPO/GBT work and only blocks when *all*
+        remaining tasks are waiting on measurements.
+        """
         loops = [
-            ArcoLoop(t.space, self.cfg, oracle=oracle,
+            ArcoLoop(t.space, self.cfg, oracle=self._make_oracle(t),
                      gbt=shared_gbt if shared_gbt is not None else GBTModel(
                          n_rounds=self.cfg.gbt_rounds, seed=self.cfg.seed),
                      use_cs=self.use_cs, task=t.name, device=self.device)
-            for t, oracle in zip(self.tasks, oracles)]
-        # Seed all tasks first, collecting (and refitting) in task order.
+            for t in self.tasks]
+        self._loops = loops  # live-status snapshots read the trackers
+        # Seed all tasks first, collecting (and refitting) in task order;
+        # the seed batches of all tasks share the worker pool.
         for loop in loops:
             loop.seed_submit(self.budget)
         for loop in loops:
             loop.collect(block=True)
         active = list(loops)
         while active:
+            progressed = False
             for loop in list(active):
-                if (loop.exhausted or loop.track.count >= self.budget
-                        or not loop.step_submit(self.budget)):
+                if loop.has_pending:
+                    if not loop.collect(block=False):
+                        continue  # still measuring; run the other tasks
+                    progressed = True
+                if loop.exhausted or loop.track.count >= self.budget:
                     active.remove(loop)
+                    progressed = True
                     continue
-                loop.collect(block=True)
+                if loop.step_submit(self.budget):
+                    progressed = True
+                    if loop.pending_ready():
+                        # in-process oracle: finish the iteration now, so
+                        # the schedule matches the synchronous loop exactly
+                        loop.collect(block=True)
+                else:
+                    active.remove(loop)
+                    progressed = True
+            if not progressed and active:
+                # every remaining task is waiting on the oracle — block on
+                # the first one instead of spinning
+                next(l for l in active if l.has_pending).collect(block=True)
         return {t.name: loop.report() for t, loop in zip(self.tasks, loops)}
 
-    def _run_baseline(self, shared_gbt: Optional[GBTModel], oracles
+    def _run_baseline(self, shared_gbt: Optional[GBTModel]
                       ) -> Dict[str, TuneReport]:
         """Baselines run sequentially per task; the GBT-based ones still
-        share the surrogate across tasks when the cost model is shared."""
+        share the surrogate across tasks when the cost model is shared
+        (their ``oracle.measure`` calls still fan each *batch* across the
+        worker pool when the oracle is executor-backed)."""
         from repro_torch.core import baselines as B
-        reports: Dict[str, TuneReport] = {}
-        for t, oracle in zip(self.tasks, oracles):
+        self._live_reports.clear()
+        reports = self._live_reports  # filled per task; /status reads it
+        for t in self.tasks:
+            oracle = self._make_oracle(t)
             kw = dict(cfg=self.cfg, budget=self.budget, oracle=oracle,
                       task=t.name, device=self.device)
             if self.algo == "random":

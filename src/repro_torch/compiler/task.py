@@ -10,7 +10,8 @@ their shard-space tasks with ``from_space`` over an analytical proxy.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import inspect
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -21,14 +22,35 @@ from repro_torch.core.design_space import DesignSpace
 
 @dataclasses.dataclass(frozen=True)
 class TuningTask:
-    """One tuning task: a design space, a name and a layer multiplicity."""
+    """One tuning task: a design space, a name, and how to build its oracle."""
 
     name: str
     space: DesignSpace
     multiplicity: int = 1           # layers sharing this workload
+    # oracle_factory(task, records) -> Oracle; None = AnalyticalOracle
+    oracle_factory: Optional[Callable[["TuningTask", Optional[RecordLog]],
+                                      Oracle]] = None
 
     def make_oracle(self, records: Optional[RecordLog] = None,
-                    device=None) -> Oracle:
+                    workers: int = 0, timeout_s: Optional[float] = None,
+                    executor=None, device=None) -> Oracle:
+        """Build this task's oracle.  ``workers``/``timeout_s`` configure
+        subprocess fan-out for expensive per-settings oracles, and
+        ``executor`` is a session-shared pool (one pool serving every
+        task, jobs carrying per-task specs); ``device`` places the
+        analytical oracle.  A factory receives ``workers``/``timeout_s``
+        and ``executor`` only if its signature takes them (or
+        ``**kwargs``), as in the reference."""
+        if self.oracle_factory is not None:
+            params = inspect.signature(self.oracle_factory).parameters
+            kw = {}
+            var_kw = any(p.kind == inspect.Parameter.VAR_KEYWORD
+                         for p in params.values())
+            if var_kw or "workers" in params:
+                kw.update(workers=workers, timeout_s=timeout_s)
+            if var_kw or "executor" in params:
+                kw["executor"] = executor
+            return self.oracle_factory(self, records, **kw)
         return AnalyticalOracle(self.space, task=self.name, records=records,
                                 device=device)
 
@@ -42,7 +64,9 @@ class TuningTask:
         """This task with knobs frozen at shared *values*
         (``DesignSpace.pin``) — e.g. one network-wide hardware config.  The
         name gains ``#tag`` so oracle caches and JSONL records key per
-        (pin, task): revisiting the same pin replays from cache."""
+        (pin, task): revisiting the same pin replays from cache.
+        Multiplicity and the oracle factory carry over (factories build
+        from ``task.space``, which is now the pinned subspace)."""
         return dataclasses.replace(self, name=f"{self.name}#{tag}",
                                    space=self.space.pin(knob_idxs, values))
 

@@ -110,6 +110,15 @@ class ArcoLoop:
         self._pending = None
 
     # ----------------------------------------------------------- async seam
+    @property
+    def has_pending(self) -> bool:
+        return self._pending is not None
+
+    def pending_ready(self) -> bool:
+        """True when the in-flight batch (if any) can be collected without
+        blocking."""
+        return self._pending is None or self._pending[1].ready()
+
     def collect(self, block: bool = False) -> bool:
         """Finalize the in-flight measurement batch: wait for the oracle,
         record the results, refit the GBT.  Returns False when a batch is

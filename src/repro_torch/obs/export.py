@@ -1,9 +1,10 @@
 """Trace persistence: Chrome-trace/Perfetto JSON and raw JSONL (a copy of
-the reference's ``repro/obs/export.py`` for an unsampled tracer).
+the reference's ``repro/obs/export.py``; files interchangeable with its).
 
 The Chrome JSON object format (``{"traceEvents": [...]}``) loads
 directly into ``chrome://tracing`` and https://ui.perfetto.dev: complete
-spans are ``ph: "X"`` with microsecond ``ts``/``dur``.  Timestamps are wall-clock microseconds (tracer epoch +
+spans are ``ph: "X"`` with microsecond ``ts``/``dur``, instant events
+``ph: "i"``.  Timestamps are wall-clock microseconds (tracer epoch +
 monotonic offset) so traces merged from several hosts line up.  The
 metrics registry snapshot rides along under ``otherData`` — extra
 top-level keys are explicitly allowed by the format.
@@ -35,6 +36,8 @@ def chrome_trace(tracer) -> Dict[str, object]:
         }
         if ev["ph"] == "X":
             row["dur"] = ev["dur"] * 1e6
+        if ev["ph"] == "i":
+            row["s"] = "t"  # instant scope: thread
         if "args" in ev:
             row["args"] = ev["args"]
         out.append(row)
@@ -42,6 +45,9 @@ def chrome_trace(tracer) -> Dict[str, object]:
         "tracer": tracer.name,
         "metrics": tracer.metrics.snapshot(),
     }
+    sampling = getattr(tracer, "sampling_stats", lambda: {})()
+    if sampling:
+        other["sampling"] = sampling
     return {
         "traceEvents": out,
         "displayTimeUnit": "ms",
@@ -63,6 +69,14 @@ def save_trace(tracer, path: str) -> None:
                 row = dict(ev)
                 row["wall_s"] = tracer.epoch + row.pop("t")
                 f.write(json.dumps(row, sort_keys=True, default=str) + "\n")
+            # sampled tracer: a trailing metadata row carries the exact
+            # kept/dropped bookkeeping (ph "M" — readers that only look
+            # at "X"/"i" rows skip it harmlessly)
+            sampling = getattr(tracer, "sampling_stats", lambda: {})()
+            if sampling:
+                f.write(json.dumps(
+                    {"ph": "M", "name": "sampling", "args": sampling,
+                     "wall_s": 0.0}, sort_keys=True, default=str) + "\n")
         return
     with open(path, "w") as f:
         json.dump(chrome_trace(tracer), f, indent=1, default=str)

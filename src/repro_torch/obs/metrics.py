@@ -1,9 +1,14 @@
-"""Counters / gauges / histograms behind one thread-safe registry.
+"""Counters / gauges / histograms behind one thread-safe registry (a copy
+of the reference's ``repro/obs/metrics.py``).
 
-A copy of the reference's ``repro/obs/metrics.py`` without its
-executor-stats mapping (the port has no executor pool yet).  A tracer's
-registry rides along in a saved trace (``otherData.metrics`` in the
-Chrome export).
+The registry unifies the per-executor ``stats()`` shapes: every executor
+already answers the same eight keys (``kind``, ``workers_alive``,
+``respawns``, ``queued``, ``running``, ``max_inflight``, ``jobs``,
+``failures``), and :meth:`Metrics.record_executor_stats` maps them onto
+typed instruments — monotone totals become counters, point-in-time
+occupancy becomes gauges — so a saved trace carries the terminal
+executor state next to its spans (``otherData.metrics`` in the Chrome
+export).
 
 Like the tracer, a :class:`NoopMetrics` singleton makes the disabled
 path allocation-free: instrument lookups return shared do-nothing
@@ -13,7 +18,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict
+from typing import Dict, Mapping
 
 
 class Counter:
@@ -140,6 +145,25 @@ class Metrics:
     def histogram(self, name: str) -> Histogram:
         return self._get(self._histograms, name, Histogram)
 
+    def record_executor_stats(self, stats: Mapping[str, object],
+                              prefix: str = "executor") -> None:
+        """Map the uniform ``Executor.stats()`` keys onto instruments.
+
+        Totals (``jobs``, ``failures``, ``respawns``) land as counters
+        *set to* the executor's own running total (executors already
+        accumulate; re-recording overwrites rather than double-counts),
+        occupancy (``workers_alive``, ``queued``, ``running``,
+        ``max_inflight``) as gauges.
+        """
+        kind = stats.get("kind", "?")
+        for key in ("jobs", "failures", "respawns"):
+            if key in stats:
+                c = self.counter(f"{prefix}.{kind}.{key}")
+                c.value = float(stats[key])  # overwrite: source is a total
+        for key in ("workers_alive", "queued", "running", "max_inflight"):
+            if key in stats:
+                self.gauge(f"{prefix}.{kind}.{key}").set(float(stats[key]))
+
     def snapshot(self) -> Dict[str, object]:
         with self._lock:
             return {
@@ -185,6 +209,10 @@ class NoopMetrics:
 
     def histogram(self, name: str) -> _NoopInstrument:
         return _NOOP_INSTRUMENT
+
+    def record_executor_stats(self, stats: Mapping[str, object],
+                              prefix: str = "executor") -> None:
+        pass
 
     def snapshot(self) -> Dict[str, object]:
         return {}

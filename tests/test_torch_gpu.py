@@ -253,3 +253,53 @@ def test_lm_prefill_and_decode_launch_counts_on_card():
         plain, pcache = TT.decode_step(params, pcache, toks[:, i:i + 1], cfg,
                                        use_kernel=False)
         assert _rel_err(logits, plain) <= 1e-4
+
+
+def counting_steps(srv):
+    """Wrap ``srv.step`` to count prefills (requests admitted) and decode
+    steps (steps that ran the batch); returns the live counter dict."""
+    counts = {"prefills": 0, "decodes": 0}
+    step = srv.step
+
+    def counted():
+        queued = len(srv.queue)
+        finished = step()
+        counts["prefills"] += queued - len(srv.queue)
+        counts["decodes"] += int(len(srv.active) + len(finished) > 0)
+        return finished
+
+    srv.step = counted
+    return counts
+
+
+@pytest.mark.gpu
+def test_live_serve_tune_on_card_launch_counts():
+    """Reduced qwen2-1.5b in fp32 on the card served to timed arrivals
+    while an online tuning session measures in its idle slots: every
+    request served, every measurement in an idle window, and the kernels
+    launched exactly as the serving work needs (the measurements are host
+    numpy and launch neither kernel)."""
+    require_cuda()
+    from repro_torch.compiler.serve_tune import (LiveServeHost, ServeSLA,
+                                                 TraceConfig,
+                                                 tune_while_serving)
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.train.server import Server
+    cfg = get_config("qwen2-1.5b", reduced=True).with_(
+        dtype=torch.float32, param_dtype=torch.float32)
+    srv = Server(TT.init_params(0, cfg), cfg, n_slots=4, max_len=64)
+    counts = counting_steps(srv)
+    host = LiveServeHost(
+        srv, TraceConfig(n_requests=8, rate_per_s=20.0, prompt_len=(4, 16),
+                         max_new=(2, 8), seed=2),
+        sla=ServeSLA(target_s=60.0), vocab=cfg.vocab, seed=0)
+    f0, r0 = TF.flash_attention.launches, TR.rmsnorm.launches
+    rep = tune_while_serving(host, budget=4, offline_compare=False)
+    s = rep.serve
+    assert s["served"] == 8 and s["rejected"] == 0 and s["abandoned"] == 0
+    assert s["measurements"] == 8 and s["idle_windows"] == 8
+    assert counts["prefills"] == 8
+    assert TF.flash_attention.launches - f0 == cfg.n_layers * 8
+    assert TR.rmsnorm.launches - r0 == (2 * cfg.n_layers + 1) * (
+        counts["prefills"] + counts["decodes"])

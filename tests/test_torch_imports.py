@@ -33,7 +33,31 @@ SLICE_MODULES = (
     "repro_torch.compiler.netopt.hwspace",
     "repro_torch.compiler.netopt.partition",
     "repro_torch.compiler.netopt.report", "repro_torch.compiler.netopt.loop",
-    "repro_torch.compiler.netopt.genetic")
+    "repro_torch.compiler.netopt.genetic",
+    # the measurement fabric and online serve tuning
+    "repro_torch.compiler.executor", "repro_torch.compiler.executor.base",
+    "repro_torch.compiler.executor.stub", "repro_torch.compiler.executor.wire",
+    "repro_torch.compiler.executor.pool",
+    "repro_torch.compiler.executor.remote",
+    "repro_torch.compiler.executor.worker", "repro_torch.obs.serve",
+    "repro_torch.compiler.serve_tune")
+
+# the fabric's modules: a spawned measurement worker or a worker daemon
+# loads them and must not pay a torch (or numpy) import
+_FABRIC_IMPORT = """
+import importlib, json, sys
+for name in ("repro_torch.compiler.executor",
+             "repro_torch.compiler.executor.base",
+             "repro_torch.compiler.executor.stub",
+             "repro_torch.compiler.executor.wire",
+             "repro_torch.compiler.executor.pool",
+             "repro_torch.compiler.executor.remote",
+             "repro_torch.compiler.executor.worker",
+             "repro_torch.obs", "repro_torch.obs.serve"):
+    importlib.import_module(name)
+print(json.dumps(sorted(k for k in ("torch", "numpy", "jax")
+                        if k in sys.modules)))
+"""
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\s|\.|$)",
                         re.MULTILINE)
@@ -48,6 +72,14 @@ def test_port_imports_without_jax_or_repro():
     assert len(got["names"]) >= 40, out.stdout
     assert set(SLICE_MODULES) <= set(got["names"])
     assert got["bad"] == [], got["bad"]
+
+
+def test_fabric_imports_without_torch():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _FABRIC_IMPORT], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout) == []
 
 
 def _python_files():

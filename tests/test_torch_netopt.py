@@ -329,19 +329,25 @@ def test_real_runs_emit_monotone_trajectories(tasks):
 
 def test_pinned_session_and_fabric_options(tasks):
     """A pinned task keys its records per pin and never moves the pinned
-    knobs; the measurement fabric's options raise, naming ROADMAP item 14."""
+    knobs; the measurement fabric's options behave as the reference's: one
+    transport a run, a timeout only where measurements can be preempted,
+    and a pool's final stats in the report."""
     t = tasks[0].pinned(TN.HW_KNOBS, (1, 64, 128), "hw[b1,ci64,co128]")
     assert t.name == "c1#hw[b1,ci64,co128]"
     np.testing.assert_array_equal(t.descriptor(), tasks[0].descriptor())
     rep = Session(t, tuner=TINY, budget=8, device="cpu").run()
     assert rep.single.best_config[:3] == [0, 0, 0]
-    for kw in (dict(workers=2), dict(timeout_s=5.0), dict(remote="h:1"),
-               dict(monitor=0), dict(trace_sample_rate=0.5)):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TN.NetworkCoOptimizer(tasks, _tiny_netcfg(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TN.network_hw_frozen_tune(tasks, _tiny_netcfg(), device="cpu",
-                                  workers=1)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        TN.NetworkCoOptimizer(tasks, _tiny_netcfg(), device="cpu",
+                              workers=2, remote="h:1")
+    with pytest.raises(ValueError, match="timeout_s needs workers"):
+        Session(t, tuner=TINY, budget=8, device="cpu", timeout_s=5.0)
+    pooled = TN.network_hw_frozen_tune(tasks, _tiny_netcfg(), device="cpu",
+                                       workers=2)
+    plain = TN.network_hw_frozen_tune(tasks, _tiny_netcfg(), device="cpu")
+    assert pooled.executor_stats["kind"] == "subprocess"
+    assert pooled.executor_stats["jobs"] == 0  # analytical: in-process
+    assert pooled.network_latency == plain.network_latency
 
 
 def _cli(*argv):

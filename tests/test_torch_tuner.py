@@ -169,10 +169,19 @@ def test_session_shared_gbt_trace_and_unported_options(tmp_path):
     with open(trace) as f:
         names = {e["name"] for e in json.load(f)["traceEvents"]}
     assert {"session", "mappo-update", "measure", "surrogate-refit"} <= names
-    for kw in (dict(workers=2), dict(remote="h:1"), dict(timeout_s=1.0),
-               dict(monitor=0), dict(executor=object())):
-        with pytest.raises(NotImplementedError, match="slice 3.*item 14"):
-            Session(tasks, device="cpu", **kw)
+    # the measurement fabric's options (once unported, now the reference's
+    # checks): a timeout needs a preemptible transport, one transport a
+    # session, and a pool reports its final stats
+    with pytest.raises(ValueError, match="timeout_s needs workers"):
+        Session(tasks, device="cpu", timeout_s=1.0)
+    for kw in (dict(workers=2), dict(executor=object())):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            Session(tasks, device="cpu", remote="h:1", **kw)
+    pooled = Session(tasks, tuner=FAST, budget=24, seed=1, device="cpu",
+                     workers=2).run()
+    assert pooled.executor_stats["kind"] == "subprocess"
+    assert pooled.executor_stats["jobs"] == 0  # analytical: in-process
+    assert [r.best_latency for r in pooled] == [r.best_latency for r in rep]
     with pytest.raises(ValueError):
         Session(tasks, algo="bogus", device="cpu")
     with pytest.raises(ValueError):
