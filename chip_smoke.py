@@ -5,8 +5,8 @@
 
 Drives the port's paths on ``cuda:0``: the paper's own loop at full
 ResNet-18 width, its baselines and its network co-optimization with the
-co-optimized chip's mappings deployed, and the LM server at qwen2-1.5b's
-full width and depth.
+co-optimized chip's mappings deployed, the LM server at qwen2-1.5b's full
+width and depth, and training at that width and depth.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
@@ -29,6 +29,9 @@ full width and depth.
    128); there the
    bf16 flash kernel is also held against the plain version with P kept
    in fp32 (the reference kernel's arithmetic), within 2^-7 x max |v|;
+   ``[check] rmsnorm backward``: the RMSNorm autograd Function's (dx, dw)
+   against autograd through the plain version at the training shape
+   (8192, 1536) and (8, 1536), fp32 and bf16, one launch a forward;
 4. tunes the 8 ResNet-18 conv tasks (batch 8) with the port's ``Session``;
 5. deploys: runs ResNet-18 at 224x224, batch 8, fp32, seeded weights, each
    conv layer through the GEMM with its tuned geometry, and compares the
@@ -80,7 +83,22 @@ full width and depth.
 13. times the two LM kernels at the serving run's shapes (kernel and one
    PyTorch call as device time in a CUDA graph, plain version, bound),
    the RMSNorm kernel's floor (a (1, 32) launch) and its wrapper's host
-   microseconds a call, and prints one JSON line with the three kernels.
+   microseconds a call;
+14. ``[train]``: qwen2-1.5b at full width and depth, bf16, seeded weights,
+   20 steps of 4 x 2048 synthetic tokens through ``train_step_fn`` and
+   the ``Prefetcher`` (cosine lr 3e-4, warmup 4), the launch counts set
+   to 0 just before: every step launches RMSNorm 113 times (57 in the
+   forward, 56 recomputed under remat) and flash and GEMM never, losses
+   and grad norms finite, the last 3 losses below the first 3; step
+   seconds, tokens/s, peak memory, one profiled step, and the RMSNorm
+   kernel timed at the step's (8192, 1536);
+15. ``[train faults]``: the ``Trainer`` on the card at the reference
+   trainer test's setup (reduced smollm-360m, 40 steps, checkpoints every
+   10, a crash at step 17 and a NaN batch at 26: both roll back, the loss
+   ends lower), a restart resuming at step 40, and ``python -m
+   repro_torch.launch.train --arch qwen2-1.5b --reduced --steps 20`` as a
+   subprocess on the card; then one JSON line with the three kernels
+   (RMSNorm's with its training launches).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, so the script exits non-zero and prints no result; without a GPU,
@@ -176,6 +194,12 @@ LIVE_REQUESTS, LIVE_RATE = 48, 2.0
 LIVE_PROMPT, LIVE_NEW = (4, 512), (2, 32)
 LIVE_BUDGET = 24          # measurements per cell (decode, prefill)
 LIVE_SLA_S = 3.0          # p99 target: a 32-token request is ~2 s of decode
+# [train]: full-width qwen2-1.5b bf16 training steps (8,192 tokens a step,
+# two 1,024-key attention chunks); the RMSNorm rows of a step
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 4
+TRAIN_NORM_SHAPE = (TRAIN_BATCH * TRAIN_SEQ, 1536)
+LAUNCH_TIMEOUT_S = 300    # the launcher subprocess of [train faults]
 # the port's kernels as the profiler names them
 PORT_KERNEL_NAMES = ("gemm_f32_kernel", "splitk_sum_kernel",
                      "gemm_loop_kernel", "flash_mma_kernel",
@@ -1326,16 +1350,48 @@ def profile_runs(runs: dict) -> dict:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         port_ms = sum(v for k, v in by_name.items()
                       if any(p in k for p in PORT_KERNEL_NAMES))
+        classes = {}
+        for k, v in by_name.items():
+            cls = kernel_class(k)
+            classes[cls] = classes.get(cls, 0.0) + v
         out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                      "device_idle_share": 1.0 - busy_ms / wall_ms,
                      "kernels": len(kernels) / reps, "port_kernels_ms": port_ms,
-                     "top": [(k[:60], v) for k, v in top]}
+                     "top": [(k[:60], v) for k, v in top],
+                     "by_class_ms": classes}
         log(f"[profile] {name}: host wall {wall_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / wall_ms):.1f}%), "
             f"{len(kernels) / reps:.0f} kernels, the port's kernels "
             f"{port_ms:.3f} ms; top by device time: "
             + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+        log(f"[profile] {name} by kernel class: " + "; ".join(
+            f"{k} {v:.3f} ms" for k, v in sorted(classes.items(),
+                                                 key=lambda kv: -kv[1])))
     return out
+
+
+def kernel_class(name: str) -> str:
+    """A profiled CUDA kernel's class, by its name: the port's own
+    kernels, cuBLAS/CUTLASS GEMMs by operand type (cuBLAS's Hopper GEMMs,
+    ``nvjet_*``, do not name it), elementwise, reduction, softmax-like,
+    copy, other."""
+    low = name.lower()
+    if any(p in name for p in PORT_KERNEL_NAMES):
+        return "port"
+    if low.startswith("nvjet"):
+        return "gemm_nvjet"
+    if "gemm" in low or "xmma" in low or "cutlass" in low:
+        return ("gemm_bf16" if "bf16" in low or "bfloat" in low
+                else "gemm_fp32" if "f32" in low or "sgemm" in low
+                else "gemm_other")
+    for cls, keys in (("reduce", ("reduce",)),
+                      ("softmax", ("softmax", "logsumexp")),
+                      ("elementwise", ("elementwise",)),
+                      ("copy", ("copy", "cat", "index", "gather",
+                                "scatter"))):
+        if any(k in low for k in keys):
+            return cls
+    return "other"
 
 
 def phase_profile_serve(dev, params, cfg) -> dict:
@@ -1506,6 +1562,250 @@ def phase_time_lm_kernels(dev, cfg, serve) -> tuple:
     return kernels, time_rmsnorm_floor_and_host(randn, d)
 
 
+def phase_check_rmsnorm_backward(dev) -> dict:
+    """The RMSNorm autograd Function on the card, at the training shape
+    and a serve shape: its forward launches the kernel once (counted) and
+    its output is held against ``rmsnorm_plain`` on the same inputs, its
+    (dx, dw) against autograd through ``rmsnorm_plain``; fp32 within
+    FP32_TOL and bf16 within BF16_TOL of max |plain|.  In bf16 the plain
+    side runs on the fp32 values of the same bf16 inputs: autograd through
+    the bf16 plain version sums its 128-row tiles' dw in bf16 (64
+    roundings at 8192 rows, more than BF16_TOL), where the Function sums
+    in fp32 and rounds once.  Returns the largest absolute errors of the
+    forward and of the gradients in bf16 at the training shape."""
+    import torch
+    from repro_torch.kernels import rmsnorm as RN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    worst = {"forward_max_abs_err": 0.0, "backward_max_abs_err": 0.0}
+    for shape in (TRAIN_NORM_SHAPE, (LM_SLOTS, TRAIN_NORM_SHAPE[1])):
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            x0, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+            w0 = torch.randn(shape[-1], generator=gen, device=dev).to(dtype)
+            x, w = (t.clone().requires_grad_(True) for t in (x0, w0))
+            before = RN.rmsnorm.launches
+            out = RN.rmsnorm(x, w)
+            check(RN.rmsnorm.launches == before + 1,
+                  f"rmsnorm Function {shape} {dtype}: "
+                  f"{RN.rmsnorm.launches - before} launches, not 1")
+            diff, rel = rel_err(out.detach(), RN.rmsnorm_plain(x0, w0))
+            check(out.dtype == dtype and rel <= tol,
+                  f"rmsnorm Function forward {shape} {dtype}: rel err "
+                  f"{rel:.3g}")
+            log(f"[check] rmsnorm Function forward {shape} {dtype} "
+                f"max_abs_err={diff:.3g} rel={rel:.3g}")
+            if dtype == torch.bfloat16 and shape == TRAIN_NORM_SHAPE:
+                worst["forward_max_abs_err"] = diff
+            dx, dw = torch.autograd.grad(out, (x, w), g)
+            xp, wp = (t.float().clone().requires_grad_(True)
+                      for t in (x0, w0))
+            px, pw = torch.autograd.grad(RN.rmsnorm_plain(xp, wp), (xp, wp),
+                                         g.float())
+            torch.cuda.synchronize()
+            for name, got, want in (("dx", dx, px), ("dw", dw, pw)):
+                diff, rel = rel_err(got, want)
+                check(got.dtype == dtype and rel <= tol,
+                      f"rmsnorm backward {name} {shape} {dtype}: rel err "
+                      f"{rel:.3g}")
+                log(f"[check] rmsnorm backward {name} {shape} {dtype} "
+                    f"max_abs_err={diff:.3g} rel={rel:.3g}")
+                if dtype == torch.bfloat16 and shape == TRAIN_NORM_SHAPE:
+                    worst["backward_max_abs_err"] = max(
+                        worst["backward_max_abs_err"], diff)
+    return worst
+
+
+def norm_launches_per_step(cfg, grad_accum: int = 1) -> int:
+    """RMSNorm launches of one training step: 2 a layer and the final norm
+    in the forward, and with remat the layers' 2 again when the backward
+    recomputes each block; per microbatch."""
+    fwd = 2 * cfg.n_layers + 1
+    return grad_accum * (fwd + (2 * cfg.n_layers if cfg.remat else 0))
+
+
+def phase_train(dev) -> dict:
+    """``[train]``: full-width qwen2-1.5b in bf16 from ``init_params(SEED)``
+    takes TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens through the
+    port's ``train_step_fn`` fed by the ``Prefetcher``.  The RMSNorm,
+    flash and GEMM counts are set to 0 just before the loop; every step
+    must launch RMSNorm exactly :func:`norm_launches_per_step` times and
+    flash and GEMM never, every loss and grad_norm must be finite, and the
+    last 3 losses' mean must be below the first 3's.  No checkpoints here:
+    the Trainer's save of 10.7 GB of bf16 weights and moments through zlib
+    would take minutes.  Then one more step under the profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as S
+    cfg = lm_config(torch.bfloat16)
+    tc = S.TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, structure=64, seed=SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(SEED, cfg, device=dev)
+    opt = S.make_optimizer(tc, params)
+    step = S.train_step_fn(cfg, tc)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    per_step = norm_launches_per_step(cfg, tc.grad_accum)
+    log(f"[train] {LM_ARCH} bf16, {T.param_count(params) / 1e9:.3f} B "
+        f"parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"{TRAIN_STEPS} steps, lr {TRAIN_LR} (cosine, warmup "
+        f"{TRAIN_WARMUP}), remat {cfg.remat}; RMSNorm {per_step} launches "
+        f"a step expected; setup {setup_s:.1f} s")
+    prefetch = Prefetcher(SyntheticLM(dc))
+    RN.rmsnorm.launches = FA.flash_attention.launches = G.gemm.launches = 0
+    losses, norms, secs = [], [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            before = RN.rmsnorm.launches
+            t0 = time.perf_counter()
+            metrics = step(params, opt, prefetch.next())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            check(RN.rmsnorm.launches - before == per_step,
+                  f"[train] step {i}: {RN.rmsnorm.launches - before} "
+                  f"RMSNorm launches, expected {per_step}")
+            check(FA.flash_attention.launches == 0 and G.gemm.launches == 0,
+                  f"[train] step {i}: flash {FA.flash_attention.launches}, "
+                  f"gemm {G.gemm.launches} launches (expected 0)")
+            log(f"[train] step {i}: loss {losses[-1]:.4f} grad_norm "
+                f"{norms[-1]:.4f} {secs[-1]:.3f} s, RMSNorm "
+                f"{RN.rmsnorm.launches - before} launches")
+    finally:
+        prefetch.close()
+    launches = RN.rmsnorm.launches
+    check(all(math.isfinite(v) for v in losses + norms),
+          f"[train] non-finite loss or grad_norm: {losses} {norms}")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(last < first, f"[train] loss did not fall: first 3 {first:.4f}, "
+          f"last 3 {last:.4f}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = secs[1:]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"arch": LM_ARCH, "dtype": "bfloat16", "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "setup_s": setup_s,
+           "first_step_s": secs[0], "step_s_mean": float(np.mean(steady)),
+           "step_s_min": min(steady), "step_s_max": max(steady),
+           "tokens_per_s": tokens / float(np.mean(steady)),
+           "peak_mem_bytes": peak, "loss_first3": first, "loss_last3": last,
+           "losses": losses, "grad_norms": norms,
+           "rmsnorm_launches": launches, "rmsnorm_per_step": per_step}
+    log(f"[train] {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (first 3 {first:.4f}, last 3 {last:.4f}); step "
+        f"{out['step_s_mean']:.3f} s mean over steps 2-{TRAIN_STEPS} "
+        f"(min {out['step_s_min']:.3f}, max {out['step_s_max']:.3f}; the "
+        f"first {secs[0]:.3f} s), {out['tokens_per_s']:.0f} tokens/s, peak "
+        f"memory {peak / 2 ** 30:.2f} GiB; RMSNorm {launches} launches "
+        f"({per_step} a step), flash 0, GEMM 0")
+    batch = SyntheticLM(dc).batch_at(TRAIN_STEPS)
+    out["profile"] = profile_runs(
+        {"train_step": (1, lambda: step(params, opt, batch))})
+    # the kernel at a training step's norm shape, over the run's launches
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    row = time_rmsnorm(lambda *shape: torch.randn(
+        shape, generator=gen, device=dev).to(torch.bfloat16),
+        *TRAIN_NORM_SHAPE)
+    log_row("rmsnorm", row, launches)
+    out["rmsnorm_time"] = dict(row, launches=launches, **{
+        f"total_{k}": row[k] * launches
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    log(f"[time] rmsnorm over the training run's {launches} launches: "
+        f"kernel {row['ms'] * launches:.3f} ms, library "
+        f"{row['library_ms'] * launches:.3f} ms, bound "
+        f"{row['bound_ms'] * launches:.3f} ms ({row['bound_by']})")
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_faults(dev) -> dict:
+    """``[train faults]``: the port's ``Trainer`` on the card at the
+    reference trainer test's setup (reduced smollm-360m, 40 steps,
+    checkpoints every 10, a crash injected at step 17 and a NaN batch at
+    26): both faults fire and roll back (the NaN through the embedding's
+    fill, with no device-side assert), step 40 is reached and the loss
+    ends lower.  A new Trainer on the same directory resumes at step 40
+    and runs to 46.  Then the launcher runs as a subprocess on the card
+    (its default device) and prints its JSON."""
+    import shutil
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.steps import TrainConfig
+    from repro_torch.train.trainer import (FailureInjector, Trainer,
+                                           TrainerConfig)
+    ckpt = os.path.join(ROOT, "build", "train_faults_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = get_config("smollm-360m", reduced=True)
+    tc = TrainConfig(lr=1e-3, warmup_steps=5, total_steps=60)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4,
+                    structure=16)
+    injector = FailureInjector(crash_at=17, nan_at=26)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, TrainerConfig(steps=40, ckpt_dir=ckpt,
+                                        ckpt_every=10, log_every=5),
+                 device=dev, data_cfg=dc, injector=injector)
+    log_ = tr.run()
+    run_s = time.perf_counter() - t0
+    rollbacks = [e for e in log_ if "event" in e]
+    losses = [e["loss"] for e in log_ if "loss" in e]
+    first, last = float(np.mean(losses[:2])), float(np.mean(losses[-2:]))
+    check(injector.fired == ["crash@17", "nan@26"],
+          f"[train faults] fired {injector.fired}")
+    check([e["step"] for e in rollbacks] == [10, 20],
+          f"[train faults] rollbacks {rollbacks}")
+    check(tr.step == 40 and last < first,
+          f"[train faults] step {tr.step}, loss {first:.4f} -> {last:.4f}")
+    log(f"[train faults] {tr.step} steps in {run_s:.1f} s on {dev}: fired "
+        f"{injector.fired}, rolled back to steps "
+        f"{[e['step'] for e in rollbacks]} ({rollbacks[1]['event']}); "
+        f"loss first 2 logged {first:.4f}, last 2 {last:.4f}")
+    tr2 = Trainer(cfg, tc, TrainerConfig(steps=46, ckpt_dir=ckpt,
+                                         ckpt_every=10), device=dev,
+                  data_cfg=dc)
+    resumed = tr2.step
+    check(resumed == 40 and tr2.opt.step_count == 40,
+          f"[train faults] restart resumed at {resumed} "
+          f"(opt step {tr2.opt.step_count}), not 40")
+    tr2.run()
+    check(tr2.step == 46, f"[train faults] restart ended at {tr2.step}")
+    log(f"[train faults] restart resumed at step {resumed}, ran to "
+        f"{tr2.step}")
+    launch_ckpt = os.path.join(ROOT, "build", "train_launch_ckpt")
+    shutil.rmtree(launch_ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         LM_ARCH, "--reduced", "--steps", "20", "--ckpt", launch_ckpt],
+        env=env, capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S,
+        cwd=ROOT)
+    launch_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"[train faults] launcher exited "
+          f"{res.returncode}: {res.stderr[-2000:]}")
+    head, _, body = res.stdout.partition("\n")
+    report = json.loads(body)
+    check(report["steps"] == 20 and "device=cuda" in head
+          and math.isfinite(report["last_loss"]),
+          f"[train faults] launcher printed {res.stdout[-800:]}")
+    log(f"[train faults] launcher ({launch_s:.1f} s): {head}; "
+        f"{json.dumps(report)}")
+    return {"steps": tr.step, "fired": injector.fired,
+            "rollback_steps": [e["step"] for e in rollbacks],
+            "loss_first2": first, "loss_last2": last, "run_s": run_s,
+            "resumed_at": resumed, "launcher": report, "launcher_s": launch_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -1533,6 +1833,7 @@ def main() -> int:
     build_s = phase_build()
     check_err = phase_check_kernel(dev)
     lm_check_err = phase_check_lm_kernels(dev)
+    norm_bwd = phase_check_rmsnorm_backward(dev)
     from repro_torch.kernels import gemm as G
     G.gemm.launches = 0  # the main path (tune -> deploy) starts here
     rep, tune_s = phase_tune(dev)
@@ -1554,6 +1855,12 @@ def main() -> int:
     log(f"[serve live] phase {live_s:.1f} s")
     profile = phase_profile_serve(dev, lm_params, lm_cfg)
     lm_kernels, norm_floor = phase_time_lm_kernels(dev, lm_cfg, serve)
+    del lm_params
+    torch.cuda.empty_cache()
+    train, train_s = timed(lambda: phase_train(dev))
+    log(f"[train] phase {train_s:.1f} s")
+    faults, faults_s = timed(lambda: phase_train_faults(dev))
+    log(f"[train faults] phase {faults_s:.1f} s")
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -1570,7 +1877,9 @@ def main() -> int:
                     "netopt_deploy": netopt_deploy,
                     "phase_s": {"baselines": base_s, "netopt": net_s,
                                 "netopt_deploy": dep_s, "fabric": fab_s,
-                                "serve_live": live_s},
+                                "serve_live": live_s, "train": train_s,
+                                "train_faults": faults_s},
+                    "train": train, "train_faults": faults,
                     "fabric": {k: v for k, v in fabric.items()
                                if k != "stats"},
                     "serve_live": live,
@@ -1614,6 +1923,11 @@ def main() -> int:
         "bound_by": tot["bound_by"],
         "library_ms": tot["library_ms"],
         "serve_live_launches": live["launches"][name],
+        **({"train_launches": train["rmsnorm_launches"],
+            "train": dict(train["rmsnorm_time"], max_abs_err=norm_bwd[
+                "forward_max_abs_err"]),
+            "backward_max_abs_err": norm_bwd["backward_max_abs_err"]}
+           if name == "rmsnorm" else {}),
     } for name, tot in lm_kernels]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

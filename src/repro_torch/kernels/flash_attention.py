@@ -183,6 +183,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "run": dataclasses.asdict(geom)}
     if q.device.type == "cpu" or not use_kernel:
         return flash_attention_plain(q, k, v, causal, window, scale, geom)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel's output would carry no grad_fn: refuse, not cut
+        raise RuntimeError(
+            "the flash attention kernel is forward-only (the reference "
+            "kernel has no backward); call it under torch.no_grad() or on "
+            "tensors that do not require grad; training attention is "
+            "models.layers.chunked_attention")
     if q.device.type != "cuda":
         raise ValueError(f"flash attention kernel runs on CUDA tensors, got "
                          f"{q.device}")

@@ -207,6 +207,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
     geom = legalize(config, m, n, k, a.dtype)
     on_kernel = a.device.type != "cpu" and use_kernel
     if on_kernel:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            # the kernel's output would carry no grad_fn: refuse, not cut
+            raise RuntimeError(
+                "the gemm kernel is forward-only (the reference kernel has "
+                "no backward); call it under torch.no_grad() or on tensors "
+                "that do not require grad")
         if a.device.type != "cuda":
             raise ValueError(f"gemm kernel runs on CUDA tensors, got "
                              f"{a.device}")

@@ -15,6 +15,12 @@ that run geometry.  For CPU tensors, or with ``use_kernel=False``, it runs
 tiles.  ``block_rows`` is the reference's knob: recorded on
 ``rmsnorm.last_geometry`` beside the run geometry, and it never changes
 the result (rows are independent).
+
+Training differentiates through it: where grad mode is on and an operand
+requires grad, :func:`rmsnorm` goes through an autograd Function whose
+forward is the same kernel launch and whose backward is the analytic
+gradient in plain PyTorch (:func:`rmsnorm_backward`), since the
+reference has no backward kernel for the norm.
 """
 from __future__ import annotations
 
@@ -134,13 +140,57 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     return out.reshape(shape)
 
 
+def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                     eps: float = 1e-6) -> tuple:
+    """The analytic gradient of the kernel's function ``y = x r w``, with
+    ``r = rsqrt(mean(x^2) + eps)`` recomputed from x, in fp32:
+    ``dx = r (g w - x r^2 mean(g w x))`` and ``dw = sum_rows g x r``, cast
+    to x's and w's dtypes.  Plain PyTorch: the reference has no backward
+    kernel for RMSNorm (its model differentiates jnp code)."""
+    d = x.shape[-1]
+    xf, gw = x.float().reshape(-1, d), (g.float() * w.float()).reshape(-1, d)
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    dx = r * (gw - xf * r.square() * (gw * xf).mean(dim=-1, keepdim=True))
+    dw = (g.float().reshape(-1, d) * xf * r).sum(dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)
+
+
+class _RMSNormFunction(torch.autograd.Function):
+    """The kernel (or, for CPU tensors, its plain version) forward and
+    :func:`rmsnorm_backward` backward; saves x and w, nothing else."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, block_rows):
+        ctx.eps = eps
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, eps, block_rows, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_backward(x, w, g, ctx.eps)
+        return dx, dw, None, None
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
             block_rows: int = 128, use_kernel: bool = True) -> torch.Tensor:
     """x: (..., d), w: (d,), float32 or bfloat16; the result in x's dtype.
 
     CUDA tensors go through the Hopper kernel (or raise); CPU tensors, and
-    ``use_kernel=False``, take the plain version."""
+    ``use_kernel=False``, take the plain version.  Differentiable: where
+    grad mode is on and x or w requires grad, the call goes through an
+    autograd Function whose forward is the same launch (counted the same)
+    and whose backward is :func:`rmsnorm_backward`; with
+    ``use_kernel=False`` autograd differentiates the plain version."""
     _check(x, w)
+    if (use_kernel and torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)):
+        return _RMSNormFunction.apply(x, w, eps, block_rows)
+    return _forward(x, w, eps, block_rows, use_kernel)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, eps: float, block_rows: int,
+             use_kernel: bool) -> torch.Tensor:
     d = x.shape[-1]
     rows = x.numel() // d
     dev = x.device

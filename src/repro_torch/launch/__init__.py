@@ -1,1 +1,2 @@
-"""Command-line launchers (``python -m repro_torch.launch.serve``)."""
+"""Command-line launchers (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``)."""

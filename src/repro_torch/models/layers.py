@@ -1,19 +1,21 @@
-"""Transformer building blocks of the LM serving path (PyTorch).
+"""Transformer building blocks of the LM serving and training paths.
 
-The serving subset of the reference's ``repro.models.layers``: norms,
-projections, rotary embedding, init helpers, the MLPs, forward-only
-KV-chunked attention, the prefill attention block, and decode attention
-against a KV cache (full and ring-buffer).  Parameters are plain dicts of
-tensors, as in the reference; layouts are the reference's ((B, S, H, D)
-attention, (in, out) projection weights).
+The dense subset of the reference's ``repro.models.layers``: norms,
+projections, rotary embedding, init helpers, the MLPs, KV-chunked
+attention with its custom backward, the attention block, and decode
+attention against a KV cache (full and ring-buffer).  Parameters are
+plain dicts of tensors, as in the reference; layouts are the reference's
+((B, S, H, D) attention, (in, out) projection weights).
 
 Two functions route through the hand-written kernels and take
-``use_kernel`` (default True): :func:`rmsnorm` (``kernels.rmsnorm``) and
-:func:`attention_block` (prefill attention through ``kernels.ops.attention``,
-the flash kernel).  With ``use_kernel=False`` they run the plain path:
-``rmsnorm_plain`` and the reference model's own :func:`chunked_attention`.
-Projections and decode attention are einsums, as they are outside any
-Pallas kernel in the reference.
+``use_kernel`` (default True): :func:`rmsnorm` (``kernels.rmsnorm``,
+differentiable) and :func:`attention_block` (prefill attention through
+``kernels.ops.attention``, the flash kernel).  With ``use_kernel=False``
+they run the plain path: ``rmsnorm_plain`` and the reference model's own
+:func:`chunked_attention`.  The training forward (``train=True``) always
+attends through :func:`chunked_attention`, whose backward is written out;
+the flash kernel is forward-only.  Projections and decode attention are
+einsums, as they are outside any Pallas kernel in the reference.
 """
 from __future__ import annotations
 
@@ -114,37 +116,60 @@ def mlp(x: torch.Tensor, p: Params, variant: str = "swiglu",
 
 
 # -------------------------------------------------------- chunked attention
+#
+# Flash-style attention with a *manual* backward (the reference's
+# custom_vjp, as a torch.autograd.Function).  Autograd through the chunk
+# loop would save the per-chunk probabilities -> O(S^2) residuals, which is
+# what flash attention exists to avoid.  The forward saves only
+# (q, k, v, out, logsumexp) = O(S); the backward re-scans the KV chunks,
+# recomputing the probabilities from the saved logsumexp.  This is jnp
+# code in the reference, outside any Pallas kernel, so einsums are its
+# counterpart here; the flash kernel has no backward and serves prefill.
 
-def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True, window: Optional[int] = None,
-                      chunk: int = 1024) -> torch.Tensor:
-    """Online-softmax attention, KV-chunked, forward only (the reference's
-    training-path attention; its custom backward waits for the training
-    slice).  q: (B, Sq, HQ, D), k, v: (B, Sk, HKV, D); q is scaled before
-    Q K^T."""
+def _mask_for(ci: int, chunk: int, rows: torch.Tensor, sk: int,
+              causal: bool, window: Optional[int]) -> torch.Tensor:
+    cols = ci * chunk + torch.arange(chunk, device=rows.device)
+    mask = (cols[None, :] < sk).expand(rows.shape[0], chunk)
+    if causal:
+        mask = mask & (cols[None, :] <= rows[:, None])
+    if window is not None:
+        mask = mask & (cols[None, :] > rows[:, None] - window)
+    return mask  # (Sq, chunk)
+
+
+def _chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int,
+            q_offset: int):
+    """What both passes share: the chunk width, the chunk count, k and v
+    padded with zeros to whole chunks, q in fp32 pre-scaled by 1/sqrt(D)
+    as (B, Sq, HKV, G, D), and the rows' absolute positions."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    group = hq // hkv
     chunk = min(chunk, sk)
     n_chunks = -(-sk // chunk)
-    scale = 1.0 / math.sqrt(d)
-    qg = (q.float() * scale).reshape(b, sq, hkv, group, d)
-    rows = torch.arange(sq, device=q.device)
-    m = torch.full((b, hkv, group, sq), NEG_INF, device=q.device)
-    l = torch.zeros((b, hkv, group, sq), device=q.device)
-    acc = torch.zeros((b, hkv, group, sq, d), device=q.device)
+    pad = n_chunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = (q.float() * (1.0 / math.sqrt(d))).reshape(b, sq, hkv, hq // hkv, d)
+    rows = q_offset + torch.arange(sq, device=q.device)
+    return chunk, n_chunks, k, v, qg, rows
+
+
+def _chunked_attn_fwd(q, k, v, causal, window, chunk, q_offset):
+    """Returns (out (B,Sq,HQ,D), lse (B,KV,G,Sq))."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    chunk, n_chunks, k, v, qg, rows = _chunks(q, k, v, chunk, q_offset)
+    m = torch.full(qg.shape[:1] + qg.shape[2:4] + (sq,), NEG_INF,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(m.shape + (d,), device=q.device)
     for ci in range(n_chunks):
         kc = k[:, ci * chunk:(ci + 1) * chunk].float()
         vc = v[:, ci * chunk:(ci + 1) * chunk].float()
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc)
-        cols = ci * chunk + torch.arange(kc.shape[1], device=q.device)
-        mask = torch.ones((sq, kc.shape[1]), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= cols[None, :] <= rows[:, None]
-        if window is not None:
-            mask &= cols[None, :] > rows[:, None] - window
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        mask = _mask_for(ci, chunk, rows, sk, causal, window)
+        s = s.masked_fill(~mask, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
@@ -154,15 +179,83 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     lsafe = torch.where(l == 0, torch.ones_like(l), l)
     out = acc / lsafe[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    lse = m + torch.log(lsafe)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    return out, lse
+
+
+def _chunked_attn_bwd(q, k, v, out, lse, dout, causal, window, chunk,
+                      q_offset):
+    """(dq, dk, dv) from the saved (q, k, v, out, lse), one KV chunk at a
+    time: P from the logsumexp, ``delta = sum(dout * out)``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    chunk, n_chunks, kp, vp, qg, rows = _chunks(q, k, v, chunk, q_offset)
+    dog = dout.float().reshape(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
+    og = out.float().reshape(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
+    delta = (dog * og).sum(dim=-1)                     # (B,KV,G,Sq)
+    dq = torch.zeros((b, sq, hkv, group, d), device=q.device)
+    dk = torch.empty((b, n_chunks * chunk, hkv, d), device=q.device)
+    dv = torch.empty_like(dk)
+    for ci in range(n_chunks):
+        cs = slice(ci * chunk, (ci + 1) * chunk)
+        kf, vf = kp[:, cs].float(), vp[:, cs].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
+        mask = _mask_for(ci, chunk, rows, sk, causal, window)
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
+        dv[:, cs] = torch.einsum("bhgqk,bhgqd->bkhd", p, dog)
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", dog, vf)
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+        dk[:, cs] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)  # qg is scaled
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk[:, :sk].to(k.dtype),
+            dv[:, :sk].to(v.dtype))
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, q_offset):
+        out, lse = _chunked_attn_fwd(q, k, v, causal, window, chunk,
+                                     q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, chunk, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _chunked_attn_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention, KV-chunked: the reference's training-path
+    attention with its custom backward.  q: (B, Sq, HQ, D), k, v:
+    (B, Sk, HKV, D); q is scaled before Q K^T.  Memory O(Sq * chunk) in
+    both passes.  ``q_offset``: absolute position of q[0] (prefill
+    continuation).  Where grad mode is on and an input requires grad it
+    runs as an autograd Function (forward saves q, k, v, out, logsumexp);
+    otherwise the forward alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _ChunkedAttention.apply(q, k, v, causal, window, chunk,
+                                       q_offset)
+    return _chunked_attn_fwd(q, k, v, causal, window, chunk, q_offset)[0]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
               causal: bool = True, window: Optional[int] = None,
-              use_kernel: bool = True) -> torch.Tensor:
+              use_kernel: bool = True, train: bool = False) -> torch.Tensor:
     """Prefill attention: the flash kernel (``use_kernel``) or the
-    reference model's chunked attention (the plain path)."""
-    if use_kernel:
+    reference model's chunked attention (the plain path).  ``train``: the
+    training forward's attention, always :func:`chunked_attention` (the
+    flash kernel has no backward)."""
+    if use_kernel and not train:
         return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal, window=window)
     return chunked_attention(q, k, v, causal=causal, window=window,
@@ -185,11 +278,12 @@ def qkv(h: torch.Tensor, p: Params, cfg) -> Tuple[torch.Tensor, ...]:
 def attention_block(x: torch.Tensor, p: Params, cfg,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None,
-                    use_kernel: bool = True
+                    use_kernel: bool = True, train: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full attention block (prefill path). x: (B, S, D_model).  Returns
-    (x + attention output, k, v): the roped keys and the values are what
-    the decode cache keeps."""
+    """Full attention block (prefill and training path). x: (B, S,
+    D_model).  Returns (x + attention output, k, v): the roped keys and
+    the values are what the decode cache keeps.  ``train``: see
+    :func:`attention`."""
     b, s, _ = x.shape
     h = rmsnorm(x, p["ln"], use_kernel=use_kernel)
     q, k, v = qkv(h, p, cfg)
@@ -197,7 +291,7 @@ def attention_block(x: torch.Tensor, p: Params, cfg,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     out = attention(q, k, v, cfg, causal=causal, window=window,
-                    use_kernel=use_kernel)
+                    use_kernel=use_kernel, train=train)
     return x + dense(out.reshape(b, s, -1), p["wo"]), k, v
 
 

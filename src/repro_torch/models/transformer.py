@@ -1,4 +1,4 @@
-"""Block-stack LM: the serving path (prefill + decode) in PyTorch.
+"""Block-stack LM: the training and serving paths in PyTorch.
 
 The counterpart of the reference's ``repro.models.transformer`` for the
 dense attention families.  An architecture is a period pattern of
@@ -16,20 +16,26 @@ tree that way).  The decode cache is ``{"pos": (B,) int32, "layers":
 (the reference donates it to its jitted step instead).
 
 Every RMSNorm goes through the RMSNorm kernel (2 a layer + the final
-norm) and prefill attention through the flash kernel (1 an attention
-layer); ``use_kernel=False`` runs the plain path instead (see
-:mod:`repro_torch.models.layers`).  Two entry points:
+norm; differentiable) and prefill attention through the flash kernel (1
+an attention layer); ``use_kernel=False`` runs the plain path instead (see
+:mod:`repro_torch.models.layers`).  Three entry points:
+  train:   tokens -> chunked-softmax xent loss (:func:`loss_fn`; never
+           materializes (B, S, V)); attention through
+           ``L.chunked_attention`` with its backward, blocks rematerialized
+           under ``cfg.remat``
   prefill: tokens -> logits for the last position + a decode cache
   decode:  one token a sequence + cache -> next-token logits
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -48,9 +54,9 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ``ArchConfig`` with torch dtypes.  Fields the
-    serving path does not read yet (MoE, SSM, training) are kept so every
-    config module holds the same data as the reference's."""
+    """The reference's ``ArchConfig`` with torch dtypes.  Fields the port
+    does not read yet (MoE, SSM, encoder-decoder) are kept so every config
+    module holds the same data as the reference's."""
     name: str
     family: str                 # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
@@ -201,43 +207,135 @@ def param_count(params: Params) -> int:
 # ------------------------------------------------------------------- blocks
 
 def _apply_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, positions,
-                 causal: bool, use_kernel: bool):
-    """Prefill block. Returns (x, cache entry)."""
+                 causal: bool, use_kernel: bool, train: bool = False):
+    """Prefill or training block. Returns (x, cache entry)."""
     cache: Dict[str, torch.Tensor] = {}
     if mixer in ("attn", "swa"):
         window = cfg.swa_window if mixer == "swa" else None
         x, cache["k"], cache["v"] = L.attention_block(
             x, p["mix"], cfg, positions, causal=causal, window=window,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, train=train)
     if ffn in ("mlp", "gelu"):
         x = L.mlp(x, p["ffn"], "swiglu" if ffn == "mlp" else "gelu",
                   use_kernel=use_kernel)
     return x, cache
 
 
+def _train_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, positions,
+                 use_kernel: bool) -> torch.Tensor:
+    return _apply_block(x, p, cfg, mixer, ffn, positions, True, use_kernel,
+                        train=True)[0]
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          dtype) -> torch.Tensor:
+    """``jnp.take(table, tokens, axis=0)`` with its default fill mode, cast
+    to ``dtype``: an id in [-V, V) picks its row (a negative one counts
+    from the end), any other id gives a row of NaN.  The index is clamped
+    before the gather, so an out-of-range id never reaches the device (on
+    CUDA it would be a device-side assert that leaves the context
+    unusable); the NaN rows are what lets a trainer see the bad batch."""
+    vocab = table.shape[0]
+    idx = tokens.long()
+    valid = (idx >= -vocab) & (idx < vocab)
+    idx = torch.where(idx < 0, idx + vocab, idx).clamp(0, vocab - 1)
+    return table[idx].to(dtype).masked_fill(~valid[..., None], float("nan"))
+
+
 def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
                  cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embedding. Returns (x (B,S,D), positions (B,S))."""
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    """Token embedding (:func:`embed`). Returns (x (B,S,D), positions
+    (B,S))."""
+    x = embed(params["embed"], batch["tokens"], cfg.dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     return x, positions
 
 
 def hidden_states(params: Params, batch: Dict[str, torch.Tensor],
-                  cfg: ArchConfig, use_kernel: bool = True
+                  cfg: ArchConfig, use_kernel: bool = True,
+                  train: bool = False
                   ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """Forward to the final normed hidden states. Returns (h, per-layer
-    caches {"k", "v"} of the attention layers, {} elsewhere)."""
+    caches {"k", "v"} of the attention layers, {} elsewhere).
+
+    ``train``: the training forward.  Attention goes through
+    ``L.chunked_attention`` (the reference's training attention, with its
+    custom backward), no cache is kept, and with ``cfg.remat`` each block
+    runs under ``torch.utils.checkpoint`` (non-reentrant): the backward
+    recomputes one block at a time, as the reference's nested remat does
+    (for a period of one block, its outer remat of the period adds
+    nothing).  The final norm is not recomputed."""
     check_supported(cfg)
     x, positions = embed_inputs(params, batch, cfg)
     caches = []
     for p, (mixer, ffn) in zip(params["layers"], cfg.layer_kinds()):
-        x, cache = _apply_block(x, p, cfg, mixer, ffn, positions,
-                                causal=True, use_kernel=use_kernel)
-        caches.append(cache)
+        if not train:
+            x, cache = _apply_block(x, p, cfg, mixer, ffn, positions,
+                                    causal=True, use_kernel=use_kernel)
+            caches.append(cache)
+            continue
+        block = functools.partial(_train_block, p=p, cfg=cfg, mixer=mixer,
+                                  ffn=ffn, positions=positions,
+                                  use_kernel=use_kernel)
+        # the block draws no random numbers: no RNG state to keep
+        x = (checkpoint(block, x, use_reentrant=False,
+                        preserve_rng_state=False)
+             if cfg.remat and torch.is_grad_enabled() else block(x))
+        caches.append({})
     return L.rmsnorm(x, params["final_ln"], use_kernel=use_kernel), caches
+
+
+def _xent_chunk(h: torch.Tensor, lm_head: torch.Tensor,
+                labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = torch.matmul(h, lm_head.to(h.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long().clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor,
+                 labels: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross entropy over sequence chunks: never materializes (B, S, V).
+
+    labels < 0 are masked.  Returns (sum_nll, n_tokens), fp32.  Under grad
+    mode each chunk runs under ``torch.utils.checkpoint``, so one
+    (B, chunk, V) fp32 logits chunk is live at a time in the backward too
+    (the reference's ``jax.checkpoint`` of its scan body).  The last chunk
+    may be short where the reference pads it with masked labels: the
+    padded positions add nothing to either sum."""
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, chunk):
+        args = (h[:, i:i + chunk], lm_head, labels[:, i:i + chunk])
+        n, c = (checkpoint(_xent_chunk, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+                if torch.is_grad_enabled() else _xent_chunk(*args))
+        nll, cnt = nll + n, cnt + c
+    return nll, cnt
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss: mean next-token NLL over the unmasked labels
+    plus the weighted aux loss (0 for the dense families the port runs).
+    Returns (total, {"nll", "aux", "tokens"}).
+
+    The reference casts h's cotangent back to h's dtype (``_grad_cast``)
+    so that its fp32 loss math does not promote the backward's residual
+    stream to fp32; here nothing is needed: the gradient autograd returns
+    through ``.to()`` / ``.float()`` is already in the input's dtype."""
+    h, _ = hidden_states(params, batch, cfg, train=True)
+    nll, cnt = chunked_xent(h, params["lm_head"], batch["labels"],
+                            cfg.loss_chunk)
+    loss = nll / torch.clamp(cnt, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    total = loss + cfg.aux_loss_weight * aux / max(cfg.n_layers, 1)
+    return total, {"nll": loss, "aux": aux, "tokens": cnt}
 
 
 def logits_last(params: Params, h: torch.Tensor,
@@ -312,7 +410,7 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     ``pos + 1``."""
     check_supported(cfg)
     pos = cache["pos"]
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = embed(params["embed"], tokens, cfg.dtype)
     kv_len = int(pos.max()) + 1       # one host sync a step
     for p, (mixer, ffn), entry in zip(params["layers"], cfg.layer_kinds(),
                                       cache["layers"]):

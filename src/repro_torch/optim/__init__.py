@@ -1,1 +1,2 @@
-"""Optimizers (Adam with the reference's global-norm clip)."""
+"""Optimizers (Adam with the reference's global-norm clip and cosine
+schedule)."""

@@ -1,1 +1,3 @@
-"""Serving: the continuous-batching LM ``server``."""
+"""Training and serving: the train step builders (``steps``), checkpoints
+(``checkpoint``), the fault-tolerant ``trainer`` and the continuous-batching
+LM ``server``."""

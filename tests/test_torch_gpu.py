@@ -1,10 +1,11 @@
 """The port on the card: the Hopper GEMM, RMSNorm and flash-attention
 kernels against their plain versions with their launch counters, the
-tune -> deploy path, and the LM's prefill and decode launch counts on CUDA
-tensors.  Every test here carries the ``gpu`` marker and skips where torch
-sees no CUDA device.  This file
-imports neither jax nor the reference package, so it also runs on a GPU
-machine that has only the port's dependencies:
+tune -> deploy path, the LM's prefill and decode launch counts on CUDA
+tensors, and training on the card (the RMSNorm Function's backward, a
+training step's launch counts, the embedding's NaN fill).  Every test
+here carries the ``gpu`` marker and skips where torch sees no CUDA
+device.  This file imports neither jax nor the reference package, so it
+also runs on a GPU machine that has only the port's dependencies:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -303,3 +304,78 @@ def test_live_serve_tune_on_card_launch_counts():
     assert TF.flash_attention.launches - f0 == cfg.n_layers * 8
     assert TR.rmsnorm.launches - r0 == (2 * cfg.n_layers + 1) * (
         counts["prefills"] + counts["decodes"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+def test_rmsnorm_backward_matches_plain_on_card(dtype, tol):
+    """The RMSNorm Function on CUDA: its forward is the kernel (one launch,
+    counted), its (dx, dw) within ``tol`` of max |grad| of autograd
+    through ``rmsnorm_plain`` on the fp32 values of the same inputs, at a
+    training shape and a serve shape (in bf16, autograd through the bf16
+    plain version would sum its 128-row tiles' dw in bf16)."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape in ((2048, 1536), (8, 1536), (3, 5, 96)):
+        x0 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w0 = torch.randn(shape[-1], generator=gen, device="cuda").to(dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        launches = TR.rmsnorm.launches
+        out = TR.rmsnorm(x, w)
+        assert TR.rmsnorm.launches == launches + 1
+        dx, dw = torch.autograd.grad(out, (x, w), g)
+        x2, w2 = (t.float().clone().requires_grad_(True)
+                  for t in (x0, w0))
+        px, pw = torch.autograd.grad(TR.rmsnorm_plain(x2, w2), (x2, w2),
+                                     g.float())
+        assert TR.rmsnorm.launches == launches + 1
+        torch.cuda.synchronize()
+        assert _rel_err(dx, px) <= tol and _rel_err(dw, pw) <= tol, shape
+
+
+@pytest.mark.gpu
+def test_reduced_training_step_launch_counts_on_card():
+    """One ``train_step_fn`` step of reduced qwen2-1.5b (bf16, remat) on
+    the card: RMSNorm launches 2 n_layers + 1 in the forward and 2
+    n_layers again in the backward's recompute, flash and GEMM never; the
+    metrics are finite and the parameters moved."""
+    require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import steps as TS
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    params = TT.init_params(0, cfg)
+    tc = TS.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    opt = TS.make_optimizer(tc, params)
+    step = TS.train_step_fn(cfg, tc)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                   global_batch=2)).batch_at(0)
+    before = params["embed"].detach().clone()
+    r0, f0, g0 = (TR.rmsnorm.launches, TF.flash_attention.launches,
+                  TG.gemm.launches)
+    metrics = step(params, opt, batch)
+    assert TR.rmsnorm.launches - r0 == 4 * cfg.n_layers + 1
+    assert TF.flash_attention.launches == f0 and TG.gemm.launches == g0
+    assert all(bool(torch.isfinite(metrics[k])) for k in
+               ("loss", "grad_norm"))
+    assert not torch.equal(before, params["embed"].detach())
+
+
+@pytest.mark.gpu
+def test_embedding_fill_on_card():
+    """Out-of-range token ids give NaN rows on CUDA, with no device-side
+    assert: the context stays usable after."""
+    require_cuda()
+    from repro_torch.models import transformer as TT
+    table = torch.randn(6, 4, device="cuda")
+    ids = torch.tensor([[0, 5, -1, -7, 6, -(2 ** 31) + 7]], device="cuda",
+                       dtype=torch.int32)
+    got = TT.embed(table, ids, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got[0]).all(dim=-1).cpu(),
+                       torch.tensor([False, False, False, True, True, True]))
+    assert torch.equal(got[0, 2], table[5])
+    assert bool(torch.isfinite((table * 2).sum()).cpu())  # context usable

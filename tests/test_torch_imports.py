@@ -24,8 +24,9 @@ bad = sorted(k for k in sys.modules
 print(json.dumps({"names": names, "bad": bad}))
 """
 
-# the baselines, netopt, surrogate-store and zoo slice: each must be among
-# the modules imported above
+# the modules of the later slices (baselines, netopt, surrogate store and
+# zoo; the measurement fabric; LM training): each must be among the
+# modules imported above
 SLICE_MODULES = (
     "repro_torch.core.baselines", "repro_torch.core.shard_space",
     "repro_torch.configs.shapes", "repro_torch.compiler.surrogate_store",
@@ -40,7 +41,11 @@ SLICE_MODULES = (
     "repro_torch.compiler.executor.pool",
     "repro_torch.compiler.executor.remote",
     "repro_torch.compiler.executor.worker", "repro_torch.obs.serve",
-    "repro_torch.compiler.serve_tune")
+    "repro_torch.compiler.serve_tune",
+    # LM training
+    "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.train.steps", "repro_torch.train.checkpoint",
+    "repro_torch.train.trainer", "repro_torch.launch.train")
 
 # the fabric's modules: a spawned measurement worker or a worker daemon
 # loads them and must not pay a torch (or numpy) import
