@@ -6,7 +6,9 @@
 Drives the port's paths on ``cuda:0``: the paper's own loop at full
 ResNet-18 width, its baselines and its network co-optimization with the
 co-optimized chip's mappings deployed, the LM server at qwen2-1.5b's full
-width and depth, and training at that width and depth.
+width and depth, training at that width and depth, and the MoE and
+recurrent families served at full width (moonshot-v1-16b-a3b and
+xlstm-1.3b whole, jamba-1.5-large-398b cut to 5 layers).
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
@@ -26,7 +28,9 @@ width and depth, and training at that width and depth.
    checks ran every RMSNorm layout the LM path runs and the grid-stride
    loop; causal flash over B=1, S in
    {4, 17, 127, 513, 256, 1000, 2048}, 12 query and 2 KV heads, head_dim
-   128); there the
+   128; the MoE and recurrent families' shapes: RMSNorm at d 2048 and 8192
+   over 8, 200 and 512-1024 rows, flash at 16/16 heads over S 128, 517,
+   1024 and 64/8 heads over S 128, 300, 512); there the
    bf16 flash kernel is also held against the plain version with P kept
    in fp32 (the reference kernel's arithmetic), within 2^-7 x max |v|;
    ``[check] rmsnorm backward``: the RMSNorm autograd Function's (dx, dw)
@@ -97,8 +101,30 @@ width and depth, and training at that width and depth.
    10, a crash at step 17 and a NaN batch at 26: both roll back, the loss
    ends lower), a restart resuming at step 40, and ``python -m
    repro_torch.launch.train --arch qwen2-1.5b --reduced --steps 20`` as a
-   subprocess on the card; then one JSON line with the three kernels
-   (RMSNorm's with its training launches).
+   subprocess on the card;
+16. ``[serve moe]``, ``[serve ssm]``, ``[serve hybrid]``, each freeing the
+   model before it and printing its peak device memory: moonshot-v1-16b-a3b
+   (48 layers of attention + a dropping MoE of 64 experts top-6, 28.0 B
+   parameters), xlstm-1.3b (42 mLSTM + 6 sLSTM layers) and the first 5
+   layers of jamba-1.5-large-398b at its full width (Mamba, MLP, MoE of
+   16 experts top-2, one attention layer; 24.0 B parameters).  Each: the
+   kernel path against the plain path in fp32 at a cut (moonshot's first
+   2 layers, xlstm's first 8, a jamba-width mamba+mlp / attn+mlp pair;
+   gate 1e-4; xlstm's 48 also, ungated, beside the plain path's own
+   distance under a 1e-7 relative change of the embedding) and in bf16 at
+   the served depth (gate 5e-2 with the plain path routed by the kernel
+   path's expert sets), with the tokens whose expert sets differ between
+   the paths counted; then 16, 8 and 8
+   requests (prompts 128-1024, 64-256, 128-512; 32, 32, 16 new tokens)
+   through ``Server(n_slots=8, max_len=2048)`` in bf16 with the launch
+   identities checked at every step (moonshot: flash 48 and RMSNorm 97 a
+   prefill; xlstm: RMSNorm 49, flash 0; jamba: flash 1 and RMSNorm 11),
+   tokens/s, prefill ms by length and a prompt token, the decode step
+   beside the time to read every weight once, and each kernel timed at
+   the run's shapes over its launches;
+then one JSON line with the three kernels (RMSNorm's with its training
+launches; RMSNorm's and flash's with each family phase's launches and
+times).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, so the script exits non-zero and prints no result; without a GPU,
@@ -148,7 +174,7 @@ LM_ARCH = "qwen2-1.5b"
 LM_SLOTS, LM_MAX_LEN = 8, 2048
 LM_REQUESTS, LM_NEW = 16, 32
 LM_PROMPT = (128, 1024)   # prompt lengths drawn uniformly in this range
-PREFILL_BINS = (128, 256, 512)
+PREFILL_BINS = (64, 128, 256, 512)
 LM_GATE_REQUESTS, LM_GATE_STEPS = 2, 4
 LM_TOL_FP32 = 1e-4        # max |logit diff| / max |logit|, kernel vs plain
 LM_TOL_BF16 = 5e-2        # the same in bf16: both paths round every layer's
@@ -162,11 +188,16 @@ NORM_HOST_CALLS = 1000      # wrapper calls timed by the host clock
 # spread a row over warps; prompts of 384 and 1024, one warp a row in
 # bf16), 4096 rows, the grid-stride loop of one-warp rows (9000, 128) and
 # of wider ones (5000, 4096), the widest row, and x at an offset of one
-# value (the scalar template)
+# value (the scalar template); the MoE and recurrent families' widths, d
+# 2048 (moonshot, xlstm) and 8192 (jamba), at a decode step's 8 rows and
+# prompts that spread a row over warps (200) or not (1024, 512)
 RMSNORM_CHECKS = [((4, 64), False, True), ((2, 100, 96), False, True),
                   ((1, 7, 33), False, True), ((129, 256), False, True),
                   ((200, 1536), True, True), ((384, 1536), True, True),
                   ((1024, 1536), True, True), ((8, 1536), True, True),
+                  ((8, 2048), True, True), ((200, 2048), True, True),
+                  ((1024, 2048), True, True), ((8, 8192), True, True),
+                  ((200, 8192), True, True), ((512, 8192), True, True),
                   ((4096, 1536), False, True), ((9000, 128), False, True),
                   ((5000, 4096), False, True), ((3, 8192), False, True),
                   ((5, 1536), False, False), ((3, 8192), False, False)]
@@ -183,7 +214,12 @@ FLASH_CHECKS = (
        ((2, 130, 4, 1, 64, True, None, 32, 64), False),
        ((1, 50, 2, 1, 20, True, None, 64, 64), False)]
     + [((1, s, 12, 2, 128, True, None, 128, 128), True)
-       for s in (4, 17, 127, 513, 256, 1000, 2048)])
+       for s in (4, 17, 127, 513, 256, 1000, 2048)]
+    # moonshot's MHA and the jamba cut's GQA at their prompt lengths
+    + [((1, s, 16, 16, 128, True, None, 128, 128), True)
+       for s in (128, 517, 1024)]
+    + [((1, s, 64, 8, 128, True, None, 128, 128), True)
+       for s in (128, 300, 512)])
 # [fabric]: the stub oracle through the three executors
 FABRIC_N, FABRIC_DELAY_S = 16, 0.1
 FABRIC_SPEEDUP = 1.5      # the pool over serial (the reference's gate)
@@ -200,6 +236,34 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 4
 TRAIN_NORM_SHAPE = (TRAIN_BATCH * TRAIN_SEQ, 1536)
 LAUNCH_TIMEOUT_S = 300    # the launcher subprocess of [train faults]
+# [serve moe], [serve ssm], [serve hybrid]: the MoE and recurrent families,
+# each served in bf16 at its full width (the hybrid's depth cut), after an
+# fp32 gate at a cut depth and a bf16 gate at the served depth
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("moonshot-v1-16b-a3b", "xlstm-1.3b",
+                                   "jamba-1.5-large-398b")
+MOE_GATE_LAYERS = 2       # the fp32 gate's moonshot: its first 2 layers
+SSM_GATE_LAYERS = 8       # the fp32 gate's xlstm: its first period (7
+                          # mLSTM + 1 sLSTM); all 48 are measured beside
+                          # the model's own noise, ungated
+# the embedding's relative perturbation that measures a model's own noise:
+# the size of one rounding in each dtype
+NOISE = {"float32": 1e-7, "bfloat16": 2 ** -8}
+# the families whose bf16 gate also holds the free-running paths (with the
+# same expert sets); xlstm's own noise at 48 layers exceeds the gate (its
+# logits move by O(1) under one bf16 rounding of the input: PERF.md), so
+# its bf16 gate is block by block only (:func:`_lockstep`)
+FREE_BF16_GATE = ("moe", "hybrid")
+HYBRID_LAYERS = 5         # jamba's first 5: mamba+mlp, mamba+moe,
+                          # mamba+mlp, mamba+moe, attn+mlp
+HYBRID_GATE_PATTERN = (("mamba", "mlp"), ("attn", "mlp"))  # fp32 gate
+# (arch, requests, prompt lengths drawn in, new tokens each)
+FAMILY_SERVE = {"moe": (MOE_ARCH, 16, (128, 1024), 32),
+                "ssm": (SSM_ARCH, 8, (64, 256), 32),
+                "hybrid": (HYBRID_ARCH, 8, (128, 512), 16)}
+# the gates' prompt lengths, where not the served ones: xlstm's prefill is
+# one Python step a token and layer (~20 ms a token), and its gates run 11
+# prefills a prompt
+GATE_PROMPT = {"ssm": (64, 128)}
 # the port's kernels as the profiler names them
 PORT_KERNEL_NAMES = ("gemm_f32_kernel", "splitk_sum_kernel",
                      "gemm_loop_kernel", "flash_mma_kernel",
@@ -311,18 +375,24 @@ def phase_build() -> float:
 
 
 def lm_rmsnorm_layouts() -> dict:
-    """The RMSNorm layouts the LM path runs at d_model (bf16 serving, the
-    fp32 gate) for 1 to LM_PROMPT[1] rows: (d, dtype, 16-byte copies,
-    warps a row, slots a lane, rows a block) -> the rows that run it."""
+    """The RMSNorm layouts the LM paths run at each served model's d_model
+    (bf16 serving, the fp32 gates) for 1 row to its longest prompt's:
+    (d, dtype, 16-byte copies, warps a row, slots a lane, rows a block) ->
+    the rows that run it."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import rmsnorm as RN
-    d = lm_config(torch.bfloat16).d_model
+    widths = {lm_config(torch.bfloat16).d_model: LM_PROMPT[1]}
+    for arch, _, prompt, _ in FAMILY_SERVE.values():
+        d = get_config(arch).d_model
+        widths[d] = max(widths.get(d, 0), prompt[1])
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for rows in range(1, LM_PROMPT[1] + 1):
-            g = RN.legalize(d, rows, dtype)
-            out.setdefault((d, dtype, g.vec, g.warps_per_row, g.slots,
-                            g.rows_per_block), []).append(rows)
+    for d, max_rows in widths.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for rows in range(1, max_rows + 1):
+                g = RN.legalize(d, rows, dtype)
+                out.setdefault((d, dtype, g.vec, g.warps_per_row, g.slots,
+                                g.rows_per_block), []).append(rows)
     return out
 
 
@@ -881,33 +951,63 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def _path_vs_plain(params, cfg, prompts, dev) -> float:
+def _path_vs_plain(params, cfg, prompts, dev) -> dict:
     """Largest logit difference / max |logit| between the kernel path and
     the plain path: prefill, then LM_GATE_STEPS teacher-forced decode
-    steps, for each prompt (each continued by its own drawn tokens)."""
+    steps, for each prompt (each continued by its own drawn tokens).
+
+    With MoE layers the plain path runs twice: routed by its own router
+    (``rel``), and routed by the kernel path's expert sets, call for call
+    (``rel_same_routes``: ``moe.route_replay``), which leaves the kernels'
+    arithmetic as the only difference.  ``flipped`` counts the tokens
+    whose expert sets differ between the kernel path and the plain path's
+    own routing, of ``routed`` (router calls summed; 0 without MoE).
+    Without MoE ``rel_same_routes`` is ``rel``."""
     import torch
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
-    worst = 0.0
+    moe = any(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    paths = (True, False, False)[:3 if moe else 2]   # use_kernel a path
+    worst = [0.0] * len(paths)
+    routes = ([], [])                  # the first two paths' router calls
+    start = 0                          # path 0's last call's first route
+
+    def run(j, fn):
+        """Path j's call: paths 0 and 1 log their routes, path 2 replays
+        the ones path 0's same call just logged."""
+        nonlocal start
+        if j == 0:
+            start = len(routes[0])
+        MOE.route_log = routes[j] if j < 2 else None
+        MOE.route_replay = list(routes[0][start:]) if j == 2 else None
+        try:
+            return fn()
+        finally:
+            check(not MOE.route_replay, "routes left unreplayed")
+            MOE.route_log = MOE.route_replay = None
     for toks in prompts:
         t = torch.as_tensor(toks[None], device=dev)
         n = t.shape[1] - LM_GATE_STEPS
-        caches, logits = [], []
-        for use_kernel in (True, False):
-            lg, cache = T.prefill(params, {"tokens": t[:, :n]}, cfg,
-                                  n + LM_GATE_STEPS + 1,
-                                  use_kernel=use_kernel)
-            caches.append(cache)
-            logits.append(lg)
+        caches, logits = [None] * len(paths), [None] * len(paths)
+        for j, use_kernel in enumerate(paths):
+            logits[j], caches[j] = run(j, lambda: T.prefill(
+                params, {"tokens": t[:, :n]}, cfg, n + LM_GATE_STEPS + 1,
+                use_kernel=use_kernel))
         for i in range(n, n + LM_GATE_STEPS + 1):
             check(bool(torch.isfinite(logits[0]).all()), "non-finite logits")
-            worst = max(worst, rel_err(logits[0], logits[1])[1])
+            for j in range(1, len(paths)):
+                worst[j] = max(worst[j], rel_err(logits[0], logits[j])[1])
             if i == n + LM_GATE_STEPS:
                 break
-            for j, use_kernel in enumerate((True, False)):
-                logits[j], caches[j] = T.decode_step(
+            for j, use_kernel in enumerate(paths):
+                logits[j], caches[j] = run(j, lambda: T.decode_step(
                     params, caches[j], t[:, i:i + 1], cfg,
-                    use_kernel=use_kernel)
-    return worst
+                    use_kernel=use_kernel))
+    check(len(routes[0]) == len(routes[1]), "the paths' router calls differ")
+    flipped = sum(int((a != b).any(-1).sum()) for a, b in zip(*routes))
+    routed = sum(a.shape[0] for a in routes[0])
+    return {"rel": worst[1], "rel_same_routes": worst[-1],
+            "flipped": flipped, "routed": routed}
 
 
 def phase_lm_gate(dev):
@@ -932,7 +1032,7 @@ def phase_lm_gate(dev):
         f"{cfg32.d_ff}, vocab {cfg32.vocab}, {T.param_count(params)/1e9:.3f}"
         f" B params, seeded fp32 init {time.perf_counter() - t0:.1f} s")
     with torch.no_grad():
-        rel32 = _path_vs_plain(params, cfg32, prompts, dev)
+        rel32 = _path_vs_plain(params, cfg32, prompts, dev)["rel"]
     check(rel32 <= LM_TOL_FP32, f"fp32 kernel path vs plain path: logits "
                                 f"rel err {rel32:.3g} > {LM_TOL_FP32}")
     log(f"[lm] fp32 kernel path vs plain path, prompts "
@@ -943,7 +1043,7 @@ def phase_lm_gate(dev):
     torch.cuda.empty_cache()
     cfg16 = lm_config(torch.bfloat16)
     with torch.no_grad():
-        rel16 = _path_vs_plain(params, cfg16, prompts, dev)
+        rel16 = _path_vs_plain(params, cfg16, prompts, dev)["rel"]
     check(rel16 <= LM_TOL_BF16, f"bf16 kernel path vs plain path: logits "
                                 f"rel err {rel16:.3g} > {LM_TOL_BF16}")
     log(f"[lm] bf16 kernel path vs plain path: {rel16:.3g} (gate "
@@ -951,13 +1051,28 @@ def phase_lm_gate(dev):
     return params, cfg16, rel32, rel16
 
 
-def phase_serve(dev, params, cfg):
+def norms_per_pass(cfg) -> int:
+    """RMSNorm launches of one forward (a prefill or a decode step): one
+    a mixer and one an FFN that a layer has, and the final norm."""
+    return 1 + sum((mixer != "none") + (ffn != "none")
+                   for mixer, ffn in cfg.layer_kinds())
+
+
+def attention_layers(cfg) -> int:
+    """Flash launches of one prefill: one an attention layer."""
+    return sum(mixer in ("attn", "swa") for mixer, _ in cfg.layer_kinds())
+
+
+def phase_serve(dev, params, cfg, tag="[serve]", arch=LM_ARCH,
+                n_requests=LM_REQUESTS, prompt=LM_PROMPT, new=LM_NEW,
+                seed=SEED + 5):
     """The serving path: ``Server(n_slots=8, max_len=2048)`` in bf16 serves
-    16 requests (prompts drawn in LM_PROMPT, LM_NEW new tokens each).  The
-    RMSNorm and flash launch counts are set to 0 just before and read just
-    after, and checked step by step: each prefill launches flash once a
-    layer and RMSNorm 2 n_layers + 1 times, each decode step RMSNorm
-    2 n_layers + 1 times and flash never."""
+    ``n_requests`` requests (prompts drawn in ``prompt``, ``new`` new
+    tokens each; qwen2-1.5b's: 16, 128-1024, 32).  The RMSNorm and flash
+    launch counts are set to 0 just before and read just after, and
+    checked step by step: each prefill launches flash once an attention
+    layer and RMSNorm :func:`norms_per_pass` times, each decode step
+    RMSNorm as many times and flash never."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as FA
@@ -967,12 +1082,12 @@ def phase_serve(dev, params, cfg):
     srv.submit(Request(uid=-1, prompt=np.arange(16, dtype=np.int32),
                        max_new_tokens=2))
     srv.run_until_drained()                     # warm-up, not counted
-    rng = np.random.default_rng(SEED + 5)
-    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt[0], prompt[1] + 1, size=n_requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=int(n))
-                    .astype(np.int32), max_new_tokens=LM_NEW)
+                    .astype(np.int32), max_new_tokens=new)
             for i, n in enumerate(lens)]
-    norms = 2 * cfg.n_layers + 1
+    norms, flashes = norms_per_pass(cfg), attention_layers(cfg)
     FA.flash_attention.launches = 0   # the serving path starts here
     RN.rmsnorm.launches = 0
     torch.cuda.synchronize()
@@ -991,7 +1106,7 @@ def phase_serve(dev, params, cfg):
         end.record()
         admitted = queued - len(srv.queue)
         decoded = int(len(srv.active) + len(finished) > 0)
-        check(FA.flash_attention.launches - f0 == cfg.n_layers * admitted,
+        check(FA.flash_attention.launches - f0 == flashes * admitted,
               f"flash launched {FA.flash_attention.launches - f0} times for "
               f"{admitted} prefills")
         check(RN.rmsnorm.launches - r0 == norms * (admitted + decoded),
@@ -1006,20 +1121,22 @@ def phase_serve(dev, params, cfg):
     wall = time.perf_counter() - t0
     launches = {"flash_attention": FA.flash_attention.launches,
                 "rmsnorm": RN.rmsnorm.launches}   # the serving path ends here
-    check(all(r.status == DONE and len(r.output) == LM_NEW for r in reqs)
+    check(all(r.status == DONE and len(r.output) == new for r in reqs)
           and not srv.rejected and not srv.abandoned,
-          f"served {sum(r.status == DONE for r in reqs)}/{LM_REQUESTS}, "
+          f"served {sum(r.status == DONE for r in reqs)}/{n_requests}, "
           f"rejected {len(srv.rejected)}, abandoned {len(srv.abandoned)}")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.output),
           "generated token out of the vocabulary")
-    check(launches["flash_attention"] == cfg.n_layers * prefills
+    check(launches["flash_attention"] == flashes * prefills
           and launches["rmsnorm"] == norms * (prefills + decodes),
           f"serving launch counts {launches}")
+    for name in ("rmsnorm", "flash_attention")[:1 + bool(flashes)]:
+        check(launches[name] > 0, f"{tag} launched no {name}")
     tokens = sum(len(r.output) for r in reqs)
-    log(f"[serve] {LM_ARCH} bf16, {LM_SLOTS} slots, max_len {LM_MAX_LEN}: "
-        f"{LM_REQUESTS}/{LM_REQUESTS} done, 0 rejected, 0 abandoned; "
+    log(f"{tag} {arch} bf16, {LM_SLOTS} slots, max_len {LM_MAX_LEN}: "
+        f"{n_requests}/{n_requests} done, 0 rejected, 0 abandoned; "
         f"{prefills} prefills, {decodes} decode steps; launches {launches}: "
-        f"flash {cfg.n_layers} and rmsnorm {norms} a prefill, rmsnorm "
+        f"flash {flashes} and rmsnorm {norms} a prefill, rmsnorm "
         f"{norms} and flash 0 a decode step")
     bins = {}
     for r in reqs:
@@ -1027,15 +1144,17 @@ def phase_serve(dev, params, cfg):
         bins.setdefault(lo, []).append(r.prefill_s * 1e3)
     prefill_ms = {f">={lo}": (float(np.mean(v)), len(v))
                   for lo, v in sorted(bins.items())}
-    step_ms = float(np.mean(full_step_ms)) if full_step_ms else None
-    log(f"[serve] {tokens} tokens in {wall:.3f} s: {tokens / wall:.1f} "
+    check(bool(full_step_ms), f"{tag} no decode step ran {LM_SLOTS} slots")
+    step_ms = float(np.mean(full_step_ms))
+    log(f"{tag} {tokens} tokens in {wall:.3f} s: {tokens / wall:.1f} "
         f"generated tokens/s; mean prefill ms by prompt length "
         f"{ {k: round(v[0], 3) for k, v in prefill_ms.items()} } (requests "
         f"{ {k: v[1] for k, v in prefill_ms.items()} }); decode step with "
         f"{LM_SLOTS} active slots {step_ms:.3f} ms (mean of "
         f"{len(full_step_ms)}, CUDA events)")
     return {"launches": launches, "prefills": prefills, "decodes": decodes,
-            "prompt_lens": [int(n) for n in lens], "wall_s": wall,
+            "prompt_lens": [int(n) for n in lens],
+            "prefill_s": [r.prefill_s for r in reqs], "wall_s": wall,
             "tokens": tokens, "tokens_per_s": tokens / wall,
             "prefill_ms_by_len": prefill_ms, "decode_step_ms": step_ms,
             "decode_steps_timed": len(full_step_ms)}
@@ -1484,21 +1603,21 @@ def time_rmsnorm_floor_and_host(randn, d) -> dict:
     return out
 
 
-def phase_time_lm_kernels(dev, cfg, serve) -> tuple:
-    """Each LM kernel at the serving path's shapes, bf16: kernel and one
+def time_serve_kernels(dev, cfg, serve, seed=SEED + 6,
+                       run="the serving run") -> tuple:
+    """Each LM kernel at a serving run's shapes, bf16: kernel and one
     PyTorch call by device_ms, the plain version by CUDA events, and the
     bound.  A kernel's totals are over the serving run's launches: each
     shape's times multiplied by its launches there (every prompt length
-    for prefill, (8, d_model) rows for the decode steps' norms).  The
-    canonical shapes (flash at S 256, 1024, 2048; RMSNorm at 1024 rows)
-    are logged too.  Returns the kernels' totals and the RMSNorm floor
-    and host cost (:func:`time_rmsnorm_floor_and_host`)."""
+    for prefill, (8, d_model) rows for the decode steps' norms).  Returns
+    ([(kernel, totals)] for the kernels the run launched, and the shapes'
+    row functions, ``randn``)."""
     import collections
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
-    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     dt, d = torch.bfloat16, cfg.d_model
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     randn = lambda *shape: torch.randn(shape, generator=gen,
@@ -1526,16 +1645,18 @@ def phase_time_lm_kernels(dev, cfg, serve) -> tuple:
         row["tflops"] = flops / row["ms"] / 1e9
         return row
 
-    norms = 2 * cfg.n_layers + 1
+    norms, flashes = norms_per_pass(cfg), attention_layers(cfg)
     counts = {"rmsnorm": collections.Counter(), "flash_attention":
               collections.Counter()}
     for n in serve["prompt_lens"]:
         counts["rmsnorm"][n] += norms
-        counts["flash_attention"][n] += cfg.n_layers
+        counts["flash_attention"][n] += flashes
     counts["rmsnorm"][LM_SLOTS] += norms * serve["decodes"]
     kernels = []
     for name, row_fn in (("rmsnorm", rmsnorm_row),
                          ("flash_attention", flash_row)):
+        if not serve["launches"][name]:
+            continue
         cnt = counts[name]
         check(sum(cnt.values()) == serve["launches"][name],
               f"{name}: timed shapes cover {sum(cnt.values())} launches, "
@@ -1551,15 +1672,25 @@ def phase_time_lm_kernels(dev, cfg, serve) -> tuple:
                            else "bytes")
         tot["launches"] = serve["launches"][name]
         tot["shapes"] = [dict(r, launches=cnt[n]) for n, r in rows.items()]
-        log(f"[time] {name} over the serving run's {tot['launches']} "
+        log(f"[time] {name} over {run}'s {tot['launches']} "
             f"launches: kernel {tot['ms']:.3f} ms, library "
             f"{tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.1f} ms, "
             f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
         kernels.append((name, tot))
+    return kernels, (rmsnorm_row, flash_row, randn)
+
+
+def phase_time_lm_kernels(dev, cfg, serve) -> tuple:
+    """:func:`time_serve_kernels` over the qwen2-1.5b serving run; the
+    canonical shapes (flash at S 256, 1024, 2048; RMSNorm at 1024 rows)
+    are logged too.  Returns the kernels' totals and the RMSNorm floor
+    and host cost (:func:`time_rmsnorm_floor_and_host`)."""
+    kernels, (rmsnorm_row, flash_row, randn) = time_serve_kernels(
+        dev, cfg, serve)
     for s in FLASH_TIMED_S:
         log_row("flash_attention", flash_row(s))
     log_row("rmsnorm", rmsnorm_row(NORM_TIMED_ROWS))
-    return kernels, time_rmsnorm_floor_and_host(randn, d)
+    return kernels, time_rmsnorm_floor_and_host(randn, cfg.d_model)
 
 
 def phase_check_rmsnorm_backward(dev) -> dict:
@@ -1806,6 +1937,257 @@ def phase_train_faults(dev) -> dict:
             "resumed_at": resumed, "launcher": report, "launcher_s": launch_s}
 
 
+def family_config(kind: str, dtype, gate: bool = False):
+    """The served model of a family phase in ``dtype``, or its fp32 gate's
+    cut (``gate``): moonshot at its first MOE_GATE_LAYERS layers, xlstm at
+    its first SSM_GATE_LAYERS, jamba's width over HYBRID_GATE_PATTERN.
+    The served jamba is its first HYBRID_LAYERS layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(FAMILY_SERVE[kind][0]).with_(dtype=dtype,
+                                                  param_dtype=dtype)
+    if kind == "hybrid":
+        pattern = (HYBRID_GATE_PATTERN if gate
+                   else cfg.pattern[:HYBRID_LAYERS])
+        return cfg.with_(pattern=pattern, n_layers=len(pattern))
+    if gate:
+        return cfg.with_(n_layers={"moe": MOE_GATE_LAYERS,
+                                   "ssm": SSM_GATE_LAYERS}[kind])
+    return cfg
+
+
+def _noise(params, cfg, prompts, dev, eps: float) -> float:
+    """The plain path's own logit distance (prefill, then LM_GATE_STEPS
+    teacher-forced decode steps, / max |logit|) when the embedding table
+    is multiplied by (1 + eps N(0, 1)): how far a rounding-size change of
+    the input moves this model's logits."""
+    import torch
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    emb = params["embed"]
+    moved = dict(params, embed=emb * (1 + eps * torch.randn(
+        emb.shape, generator=gen, device=dev, dtype=emb.dtype)))
+    worst = 0.0
+    for toks in prompts:
+        t = torch.as_tensor(toks[None], device=dev)
+        n = t.shape[1] - LM_GATE_STEPS
+        out = [T.prefill(p, {"tokens": t[:, :n]}, cfg, n + LM_GATE_STEPS + 1,
+                         use_kernel=False) for p in (params, moved)]
+        for i in range(n, n + LM_GATE_STEPS + 1):
+            worst = max(worst, rel_err(out[1][0], out[0][0])[1])
+            if i == n + LM_GATE_STEPS:
+                break
+            out = [T.decode_step(p, c, t[:, i:i + 1], cfg, use_kernel=False)
+                   for p, (_, c) in zip((params, moved), out)]
+    return worst
+
+
+def _lockstep(params, cfg, prompts, dev) -> float:
+    """The kernel path against the plain path block by block: each block
+    of the plain path takes the kernel path's input (in a decode step, a
+    copy of its cache entry too, and the kernel block's expert sets), and
+    the logits take the kernel path's last hidden state.  Returns the
+    largest distance of a block's output or of the logits / its max
+    |value|, over the prefill and LM_GATE_STEPS teacher-forced decode
+    steps of each prompt: the kernels' rounding with no compounding
+    through the model."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    worst = 0.0
+    kinds = cfg.layer_kinds()
+
+    def pair(kernel, plain):
+        """(kernel block's output, plain block's routed as it was)."""
+        MOE.route_log = routes = []
+        try:
+            yk = kernel()
+            MOE.route_log, MOE.route_replay = None, routes
+            yp = plain()
+            check(not MOE.route_replay, "routes left unreplayed")
+        finally:
+            MOE.route_log = MOE.route_replay = None
+        return yk, yp
+
+    def last(x):
+        h = [L.rmsnorm(x, params["final_ln"], use_kernel=k)
+             for k in (True, False)]
+        return rel_err(*(T.logits_last(params, hi, cfg) for hi in h))[1]
+
+    for toks in prompts:
+        t = torch.as_tensor(toks[None], device=dev)
+        n = t.shape[1] - LM_GATE_STEPS
+        x, pos = T.embed_inputs(params, {"tokens": t[:, :n]}, cfg)
+        for p, (mixer, ffn) in zip(params["layers"], kinds):
+            y = pair(*(lambda k=k: T._apply_block(
+                x, p, cfg, mixer, ffn, pos, True, k)[0]
+                for k in (True, False)))
+            worst, x = max(worst, rel_err(*y)[1]), y[0]
+        worst = max(worst, last(x))
+        _, cache = T.prefill(params, {"tokens": t[:, :n]}, cfg,
+                             n + LM_GATE_STEPS + 1)
+        for i in range(n, n + LM_GATE_STEPS):
+            pos = cache["pos"]
+            x = T.embed(params["embed"], t[:, i:i + 1], cfg.dtype)
+            kv_len = int(pos.max()) + 1
+            for p, (mixer, ffn), entry in zip(params["layers"], kinds,
+                                              cache["layers"]):
+                copy = {k: v.clone() for k, v in entry.items()}
+                yk, yp = pair(
+                    lambda: T._decode_block(x, p, cfg, mixer, ffn, entry,
+                                            pos, kv_len, True),
+                    lambda: T._decode_block(x, p, cfg, mixer, ffn, copy,
+                                            pos, kv_len, False))
+                worst, x = max(worst, rel_err(yk, yp)[1]), yk
+            worst = max(worst, last(x))
+            cache["pos"] = pos + 1
+    return worst
+
+
+def phase_serve_family(dev, kind: str) -> dict:
+    """``[serve moe]``, ``[serve ssm]``, ``[serve hybrid]``: a family's
+    model with seeded weights.  First the kernel path against the plain
+    path (:func:`_path_vs_plain`, 2 prompts drawn in the phase's prompt
+    range) in fp32 at the gate's cut (LM_TOL_FP32, the plain path routed by
+    its own router and by the kernel path's expert sets); for xlstm also
+    in fp32 at all 48 layers, ungated, beside the model's own noise
+    (:func:`_noise`); then the served model in bf16: LM_TOL_BF16 block by
+    block (:func:`_lockstep`) and, for FREE_BF16_GATE, on the free-running
+    plain path routed by the kernel path's expert sets (its own routing's
+    distance and the tokens whose expert sets differ are printed: in bf16
+    a near-tie among the experts flips with the kernels' rounding; xlstm's
+    free-running distance is printed beside its bf16 noise); then
+    :func:`phase_serve` (launch counts set to 0 just before, the
+    identities checked at every step), a profile of a prefill and of
+    decode steps, and :func:`time_serve_kernels` at the run's shapes.  The
+    model is freed at the end; the phase's peak device memory is
+    printed."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    tag = f"[serve {kind}]"
+    arch, n_requests, prompt, new = FAMILY_SERVE[kind]
+    seed = SEED + 10 + list(FAMILY_SERVE).index(kind)
+    rng = np.random.default_rng(seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gates = {}
+    runs = [(torch.float32, True, LM_TOL_FP32)]
+    if kind == "ssm":     # xlstm whole fits in fp32: measured, not gated
+        runs.append((torch.float32, False, None))
+    runs.append((torch.bfloat16, False, LM_TOL_BF16))
+    for dtype, gate, tol in runs:
+        cfg = family_config(kind, dtype, gate)
+        lo, hi = GATE_PROMPT.get(kind, prompt)
+        prompts = [rng.integers(0, cfg.vocab, size=int(n) + LM_GATE_STEPS)
+                   .astype(np.int64) for n in rng.integers(
+                       lo, hi + 1, size=LM_GATE_REQUESTS)]
+        t0 = time.perf_counter()
+        params = T.init_params(SEED, cfg, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = T.param_count(params)
+        name = str(dtype).split(".")[-1]
+        log(f"{tag} {arch} {name}: {cfg.n_layers} layers "
+            f"{[f'{m}+{f}' for m, f in cfg.pattern]}, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, "
+            + (f"{cfg.n_experts} experts top-{cfg.moe_top_k} "
+               f"({cfg.moe_impl}), " if cfg.n_experts else "")
+            + f"vocab {cfg.vocab}: {n_params / 1e9:.3f} B "
+            f"parameters, seeded init {init_s:.1f} s")
+        free = tol is not None and (gate or kind in FREE_BF16_GATE)
+        with torch.no_grad():
+            g = _path_vs_plain(params, cfg, prompts, dev)
+            noise = (None if free else
+                     _noise(params, cfg, prompts, dev, NOISE[name]))
+            step = (_lockstep(params, cfg, prompts, dev)
+                    if dtype == torch.bfloat16 else None)
+        gated = max(g["rel"], g["rel_same_routes"]) if gate else \
+            g["rel_same_routes"]
+        rule = (f"gate {tol} on {'both' if gate else 'the second'}" if free
+                else f"not gated: the plain path moves {noise:.3g} itself "
+                     f"when the embedding moves by {NOISE[name]:.3g} "
+                     f"relative")
+        log(f"{tag} {name} kernel path vs plain path, prompts "
+            f"{[len(p) - LM_GATE_STEPS for p in prompts]}, prefill + "
+            f"{LM_GATE_STEPS} decode steps: max |logit diff| / max |logit| "
+            f"= {g['rel']:.3g} routed by each path's router, "
+            f"{g['rel_same_routes']:.3g} by the kernel path's expert sets "
+            f"({rule}); tokens whose expert sets differ between the paths: "
+            f"{g['flipped']} of {g['routed']} routed")
+        check(not free or gated <= tol, f"{tag} {name} kernel path vs "
+              f"plain path: logits rel err {gated:.3g} > {tol}")
+        if step is not None:
+            log(f"{tag} {name} block by block (each plain block fed the "
+                f"kernel path's input and cache): max |diff| / max |value| "
+                f"of a block's output or the logits = {step:.3g} (gate "
+                f"{tol})")
+            check(step <= tol, f"{tag} {name} block by block: {step:.3g} > "
+                               f"{tol}")
+        key = name if gate or dtype != torch.float32 else f"{name}_served"
+        gates[key] = {"layers": cfg.n_layers, "params": n_params,
+                      "logits_rel_err": g["rel"],
+                      "logits_rel_err_same_routes": g["rel_same_routes"],
+                      "route_flips": g["flipped"],
+                      "routed_tokens": g["routed"], "noise": noise,
+                      "block_by_block": step, "free_gated": free}
+        if dtype == torch.float32:
+            del params
+            torch.cuda.empty_cache()
+    serve = phase_serve(dev, params, cfg, tag, arch, n_requests, prompt, new,
+                        seed)
+    per_tok = [1e3 * t / n for t, n in zip(serve["prefill_s"],
+                                           serve["prompt_lens"])]
+    # a decode step reads every weight at least once (the dropping MoE
+    # runs every expert on its capacity slots)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(params))
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"{tag} prefill {float(np.mean(per_tok)):.3f} ms a prompt token "
+        f"(mean over requests; min {min(per_tok):.3f}, max "
+        f"{max(per_tok):.3f}); decode step {serve['decode_step_ms']:.3f} ms "
+        f"beside its yardstick, the {weight_bytes / 1e9:.1f} GB of weights "
+        f"read once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+        f"{floor_ms:.2f} ms")
+    # where a step's time goes: the shortest prompt's prefill, and 4
+    # decode steps of every slot at that depth
+    cache = T.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    cache["pos"][:] = prompt[0]
+    toks = torch.as_tensor(np.arange(prompt[0]) % cfg.vocab,
+                           device=dev)[None]
+    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        profile = profile_runs({
+            f"{kind} prefill {prompt[0]}": (1, lambda: T.prefill(
+                params, {"tokens": toks}, cfg, LM_MAX_LEN)),
+            f"{kind} decode_step": (4, lambda: T.decode_step(
+                params, cache, last, cfg))})
+    del cache
+    kernels, _ = time_serve_kernels(dev, cfg, serve, seed + 100, tag)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"{tag} peak device memory {peak} bytes "
+        f"({peak / 2 ** 30:.2f} GiB)")
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.n_layers,
+            "pattern": [list(b) for b in cfg.pattern], "gates": gates,
+            **{k: v for k, v in serve.items() if k != "prefill_s"},
+            "prefill_ms_per_token": float(np.mean(per_tok)),
+            "decode_floor_ms": floor_ms, "weight_bytes": weight_bytes,
+            "peak_mem_bytes": peak, "profile": profile,
+            "kernels": dict(kernels)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     try:
         import torch
@@ -1861,6 +2243,11 @@ def main() -> int:
     log(f"[train] phase {train_s:.1f} s")
     faults, faults_s = timed(lambda: phase_train_faults(dev))
     log(f"[train faults] phase {faults_s:.1f} s")
+    families, family_s = {}, {}
+    for kind in FAMILY_SERVE:
+        families[kind], family_s[kind] = timed(
+            lambda: phase_serve_family(dev, kind))
+        log(f"[serve {kind}] phase {family_s[kind]:.1f} s")
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -1878,8 +2265,13 @@ def main() -> int:
                     "phase_s": {"baselines": base_s, "netopt": net_s,
                                 "netopt_deploy": dep_s, "fabric": fab_s,
                                 "serve_live": live_s, "train": train_s,
-                                "train_faults": faults_s},
+                                "train_faults": faults_s,
+                                **{f"serve_{k}": v
+                                   for k, v in family_s.items()}},
                     "train": train, "train_faults": faults,
+                    "families": {k: {key: v for key, v in f.items()
+                                     if key != "kernels"}
+                                 for k, f in families.items()},
                     "fabric": {k: v for k, v in fabric.items()
                                if k != "stats"},
                     "serve_live": live,
@@ -1923,6 +2315,10 @@ def main() -> int:
         "bound_by": tot["bound_by"],
         "library_ms": tot["library_ms"],
         "serve_live_launches": live["launches"][name],
+        **{f"serve_{kind}_launches": f["launches"][name]
+           for kind, f in families.items()},
+        **{f"serve_{kind}": f["kernels"][name]
+           for kind, f in families.items() if name in f["kernels"]},
         **({"train_launches": train["rmsnorm_launches"],
             "train": dict(train["rmsnorm_time"], max_abs_err=norm_bwd[
                 "forward_max_abs_err"]),

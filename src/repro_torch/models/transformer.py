@@ -1,23 +1,27 @@
 """Block-stack LM: the training and serving paths in PyTorch.
 
 The counterpart of the reference's ``repro.models.transformer`` for the
-dense attention families.  An architecture is a period pattern of
-(mixer, ffn) pairs; the port supports mixers ``attn``/``swa``/``none`` and
-FFNs ``mlp``/``gelu``/``none``.  MoE, Mamba, mLSTM, sLSTM, encoder-decoder
-and vision-prefix models raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+decoder-only families.  An architecture is a period pattern of (mixer,
+ffn) pairs: mixers ``attn``/``swa``/``mamba``/``mlstm``/``slstm``/``none``
+and FFNs ``mlp``/``moe``/``gelu``/``none`` (``repro_torch.models.moe`` and
+``repro_torch.models.ssm``).  Encoder-decoder and vision-prefix models
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Where the reference scans over weights stacked (R, ...) per period
 position, the port loops over layers in Python: ``params["layers"]`` is a
 list of ``n_layers`` per-layer dicts, layer ``r * period + p`` being repeat
 r of period position p (:func:`params_from_jax` unstacks a reference
 tree that way).  The decode cache is ``{"pos": (B,) int32, "layers":
-[per-layer {"k", "v"}]}``, each (B, C, HKV, D); decode writes it in place
-(the reference donates it to its jitted step instead).
+[per-layer entry]}``: an attention layer's entry is {"k", "v"}, each
+(B, C, HKV, D); a recurrent mixer's is its state's fields (Mamba {"h",
+"conv"}, mLSTM {"c", "n", "m"}, sLSTM {"c", "n", "m", "h"}), each with the
+batch on axis 0.  Decode writes it in place (the reference donates it to
+its jitted step instead).
 
-Every RMSNorm goes through the RMSNorm kernel (2 a layer + the final
-norm; differentiable) and prefill attention through the flash kernel (1
-an attention layer); ``use_kernel=False`` runs the plain path instead (see
+Every RMSNorm goes through the RMSNorm kernel (one a mixer and one an FFN
+that the layer has, + the final norm; differentiable) and prefill
+attention through the flash kernel (1 an attention layer);
+``use_kernel=False`` runs the plain path instead (see
 :mod:`repro_torch.models.layers`).  Three entry points:
   train:   tokens -> chunked-softmax xent loss (:func:`loss_fn`; never
            materializes (B, S, V)); attention through
@@ -39,24 +43,26 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
 
-_MIXERS = ("attn", "swa", "none")
-_FFNS = ("mlp", "gelu", "none")
-_NOT_PORTED = {
-    "moe": "the MoE FFN (ROADMAP Queue 1, item 15c)",
-    "mamba": "the Mamba mixer (ROADMAP Queue 1, item 15c)",
-    "mlstm": "the mLSTM mixer (ROADMAP Queue 1, item 15c)",
-    "slstm": "the sLSTM mixer (ROADMAP Queue 1, item 15c)",
-}
+_MIXERS = ("attn", "swa", "mamba", "mlstm", "slstm", "none")
+_FFNS = ("mlp", "moe", "gelu", "none")
+# the recurrent mixers: block function and state type
+_RECURRENT = {"mamba": (SSM.mamba_block, SSM.MambaState),
+              "mlstm": (SSM.mlstm_block, SSM.LstmState),
+              "slstm": (SSM.slstm_block, SSM.SlstmState)}
+# a layer part's leaves kept in fp32 whatever the param dtype
+_FP32_LEAVES = dict(SSM.FP32_LEAVES, moe=MOE.FP32_LEAVES)
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """The reference's ``ArchConfig`` with torch dtypes.  Fields the port
-    does not read yet (MoE, SSM, encoder-decoder) are kept so every config
-    module holds the same data as the reference's."""
+    does not read yet (encoder-decoder, vision prefix) are kept so every
+    config module holds the same data as the reference's."""
     name: str
     family: str                 # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
@@ -130,10 +136,6 @@ def check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: vision-prefix models are not ported yet "
             f"(ROADMAP Queue 1, item 15c)")
     for mixer, ffn in cfg.pattern:
-        for part in (mixer, ffn):
-            if part in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: {_NOT_PORTED[part]} is not ported yet")
         if mixer not in _MIXERS or ffn not in _FFNS:
             raise ValueError(f"{cfg.name}: unknown block ({mixer}, {ffn})")
 
@@ -148,14 +150,26 @@ def _init_one_layer(gen: torch.Generator, cfg: ArchConfig, mixer: str,
         p["mix"] = L.init_attention(gen, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.head_dim,
                                     cfg.qkv_bias, dt, device)
-    if ffn in ("mlp", "gelu"):
+    elif mixer == "mamba":
+        p["mix"] = SSM.init_mamba(gen, cfg.d_model, cfg.d_state, dtype=dt,
+                                  device=device)
+    elif mixer == "mlstm":
+        p["mix"] = SSM.init_mlstm(gen, cfg.d_model, cfg.n_heads, dt, device)
+    elif mixer == "slstm":
+        p["mix"] = SSM.init_slstm(gen, cfg.d_model, cfg.n_heads, dt, device)
+    if ffn == "moe":
+        p["ffn"] = MOE.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                dt, device)
+    elif ffn in ("mlp", "gelu"):
         variant = "swiglu" if ffn == "mlp" else "gelu"
         p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, variant, dt, device)
     return p
 
 
 def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
-    """Seeded random weights, drawn on ``device`` (default ``cuda``)."""
+    """Seeded random weights, drawn on ``device`` (default ``cuda``); the
+    leaves the reference keeps in fp32 (the router, Mamba's ``A_log`` and
+    ``D``, mLSTM's ``wi``/``wf``, sLSTM's ``b*``) are fp32 here too."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -175,21 +189,30 @@ def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> Params:
     """The reference's ``init_params`` tree (numpy or jax leaves; layers a
     tuple per period position of leaves stacked (R, ...)) as the port's
     params: each stacked leaf is unstacked along axis 0 into layer
-    ``r * period + p``, and every leaf is cast to ``cfg.param_dtype``."""
+    ``r * period + p``, and cast to ``cfg.param_dtype``, except the leaves
+    the reference keeps in fp32 (see :func:`init_params`), which stay
+    fp32."""
     check_supported(cfg)
     dev = resolve_device(device)
 
-    def conv(leaf) -> torch.Tensor:
+    def conv(leaf, dtype=cfg.param_dtype) -> torch.Tensor:
         # via fp32: numpy has no bfloat16, and bf16 -> fp32 is exact
         arr = np.asarray(np.asarray(leaf).astype(np.float32))
-        return torch.from_numpy(arr).to(device=dev, dtype=cfg.param_dtype)
+        return torch.from_numpy(arr).to(device=dev, dtype=dtype)
 
-    def unstack(tree_p: Params, r: int) -> Params:
-        return {k: (unstack(v, r) if isinstance(v, dict) else conv(v[r]))
-                for k, v in tree_p.items()}
+    def unstack(tree_l: Params, r: int, kinds) -> Params:
+        out = {}
+        for part, leaves in tree_l.items():
+            fp32 = _FP32_LEAVES.get(kinds[part], ())
+            out[part] = {k: conv(v[r], torch.float32 if k in fp32
+                                 else cfg.param_dtype)
+                         for k, v in leaves.items()}
+        return out
 
-    layers = [unstack(tree["layers"][i % cfg.period], i // cfg.period)
-              for i in range(cfg.n_layers)]
+    layers = []
+    for i, (mixer, ffn) in enumerate(cfg.layer_kinds()):
+        layers.append(unstack(tree["layers"][i % cfg.period],
+                              i // cfg.period, {"mix": mixer, "ffn": ffn}))
     return {"embed": conv(tree["embed"]), "final_ln": conv(tree["final_ln"]),
             "lm_head": conv(tree["lm_head"]), "layers": layers}
 
@@ -206,25 +229,43 @@ def param_count(params: Params) -> int:
 
 # ------------------------------------------------------------------- blocks
 
+def _ffn(x, p, cfg: ArchConfig, ffn: str, use_kernel: bool
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN. Returns (x, aux: the MoE's load-balance loss, or
+    None)."""
+    if ffn == "moe":
+        return MOE.moe_block(x, p["ffn"], cfg, use_kernel=use_kernel)
+    if ffn in ("mlp", "gelu"):
+        x = L.mlp(x, p["ffn"], "swiglu" if ffn == "mlp" else "gelu",
+                  use_kernel=use_kernel)
+    return x, None
+
+
 def _apply_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, positions,
                  causal: bool, use_kernel: bool, train: bool = False):
-    """Prefill or training block. Returns (x, cache entry)."""
+    """Prefill or training block. Returns (x, aux or None, cache entry):
+    an attention layer's roped keys and values, a recurrent mixer's state
+    after the sequence (its fields as keys)."""
     cache: Dict[str, torch.Tensor] = {}
     if mixer in ("attn", "swa"):
         window = cfg.swa_window if mixer == "swa" else None
         x, cache["k"], cache["v"] = L.attention_block(
             x, p["mix"], cfg, positions, causal=causal, window=window,
             use_kernel=use_kernel, train=train)
-    if ffn in ("mlp", "gelu"):
-        x = L.mlp(x, p["ffn"], "swiglu" if ffn == "mlp" else "gelu",
-                  use_kernel=use_kernel)
-    return x, cache
+    elif mixer in _RECURRENT:
+        x, st = _RECURRENT[mixer][0](x, p["mix"], cfg,
+                                     use_kernel=use_kernel)
+        cache = st._asdict()
+    x, aux = _ffn(x, p, cfg, ffn, use_kernel)
+    return x, aux, cache
 
 
 def _train_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, positions,
-                 use_kernel: bool) -> torch.Tensor:
-    return _apply_block(x, p, cfg, mixer, ffn, positions, True, use_kernel,
-                        train=True)[0]
+                 use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    x, aux, _ = _apply_block(x, p, cfg, mixer, ffn, positions, True,
+                             use_kernel, train=True)
+    return x, (aux if aux is not None
+               else torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
@@ -255,9 +296,11 @@ def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
 def hidden_states(params: Params, batch: Dict[str, torch.Tensor],
                   cfg: ArchConfig, use_kernel: bool = True,
                   train: bool = False
-                  ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-    """Forward to the final normed hidden states. Returns (h, per-layer
-    caches {"k", "v"} of the attention layers, {} elsewhere).
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             List[Dict[str, torch.Tensor]]]:
+    """Forward to the final normed hidden states. Returns (h, aux: the MoE
+    layers' load-balance losses summed (fp32, 0 without MoE), per-layer
+    cache entries (:func:`_apply_block`; {} in training)).
 
     ``train``: the training forward.  Attention goes through
     ``L.chunked_attention`` (the reference's training attention, with its
@@ -268,22 +311,28 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor],
     nothing).  The final norm is not recomputed."""
     check_supported(cfg)
     x, positions = embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for p, (mixer, ffn) in zip(params["layers"], cfg.layer_kinds()):
         if not train:
-            x, cache = _apply_block(x, p, cfg, mixer, ffn, positions,
-                                    causal=True, use_kernel=use_kernel)
+            x, aux_i, cache = _apply_block(x, p, cfg, mixer, ffn, positions,
+                                           causal=True,
+                                           use_kernel=use_kernel)
+            if aux_i is not None:
+                aux = aux + aux_i
             caches.append(cache)
             continue
         block = functools.partial(_train_block, p=p, cfg=cfg, mixer=mixer,
                                   ffn=ffn, positions=positions,
                                   use_kernel=use_kernel)
         # the block draws no random numbers: no RNG state to keep
-        x = (checkpoint(block, x, use_reentrant=False,
-                        preserve_rng_state=False)
-             if cfg.remat and torch.is_grad_enabled() else block(x))
+        x, aux_i = (checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False)
+                    if cfg.remat and torch.is_grad_enabled() else block(x))
+        aux = aux + aux_i
         caches.append({})
-    return L.rmsnorm(x, params["final_ln"], use_kernel=use_kernel), caches
+    return (L.rmsnorm(x, params["final_ln"], use_kernel=use_kernel), aux,
+            caches)
 
 
 def _xent_chunk(h: torch.Tensor, lm_head: torch.Tensor,
@@ -322,18 +371,18 @@ def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor,
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss: mean next-token NLL over the unmasked labels
-    plus the weighted aux loss (0 for the dense families the port runs).
-    Returns (total, {"nll", "aux", "tokens"}).
+    plus the MoE layers' summed load-balance loss, weighted by
+    ``cfg.aux_loss_weight / n_layers`` (0 without MoE).  Returns (total,
+    {"nll", "aux", "tokens"}).
 
     The reference casts h's cotangent back to h's dtype (``_grad_cast``)
     so that its fp32 loss math does not promote the backward's residual
     stream to fp32; here nothing is needed: the gradient autograd returns
     through ``.to()`` / ``.float()`` is already in the input's dtype."""
-    h, _ = hidden_states(params, batch, cfg, train=True)
+    h, aux, _ = hidden_states(params, batch, cfg, train=True)
     nll, cnt = chunked_xent(h, params["lm_head"], batch["labels"],
                             cfg.loss_chunk)
     loss = nll / torch.clamp(cnt, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     total = loss + cfg.aux_loss_weight * aux / max(cfg.n_layers, 1)
     return total, {"nll": loss, "aux": aux, "tokens": cnt}
 
@@ -356,7 +405,9 @@ def _cache_seq_len(cfg: ArchConfig, mixer: str, max_len: int) -> int:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> Params:
     """Zero decode cache; per-sequence positions (each batch slot may be
-    at a different depth)."""
+    at a different depth).  A recurrent mixer's entry is its initial
+    state (Mamba: zeros, the conv tail in ``cfg.dtype``; mLSTM/sLSTM: the
+    stabilizer m at -1e30, sLSTM's n at 1e-6)."""
     check_supported(cfg)
     dev = resolve_device(device)
     layers = []
@@ -367,6 +418,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                      cfg.n_kv_heads, cfg.head_dim)
             entry["k"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
             entry["v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        elif mixer == "mamba":            # d_inner: expand 2
+            entry = SSM.init_mamba_state(batch, 2 * cfg.d_model, cfg.d_state,
+                                         cfg.dtype, device=dev)._asdict()
+        elif mixer == "mlstm":
+            entry = SSM.init_mlstm_state(batch, cfg.n_heads, cfg.head_dim,
+                                         device=dev)._asdict()
+        elif mixer == "slstm":
+            entry = SSM.init_slstm_state(batch, cfg.d_model,
+                                         device=dev)._asdict()
         layers.append(entry)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "layers": layers}
@@ -374,9 +434,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
                   kv_len: int, use_kernel: bool):
-    """One-token block. x: (B,1,D).  Writes the cache entry in place and
-    returns x.  ``kv_len``: an upper bound of every slot's cache length
-    (decode attention reads no further; the mask hides the rest anyway)."""
+    """One-token block. x: (B,1,D).  Writes the cache entry (KV or
+    recurrent state) in place and returns x.  ``kv_len``: an upper bound
+    of every slot's cache length (decode attention reads no further; the
+    mask hides the rest anyway)."""
     if mixer in ("attn", "swa"):
         b = x.shape[0]
         window = cfg.swa_window if mixer == "swa" else None
@@ -396,10 +457,13 @@ def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
             out = L.decode_attention(q, kc[:, :kv_len], vc[:, :kv_len],
                                      pos + 1, window=window)
         x = x + L.dense(out.reshape(b, 1, -1), p["mix"]["wo"])
-    if ffn in ("mlp", "gelu"):
-        x = L.mlp(x, p["ffn"], "swiglu" if ffn == "mlp" else "gelu",
-                  use_kernel=use_kernel)
-    return x
+    elif mixer in _RECURRENT:
+        block, state = _RECURRENT[mixer]
+        x, st = block(x, p["mix"], cfg, state(**entry), decode=True,
+                      use_kernel=use_kernel)
+        for key, t in st._asdict().items():
+            entry[key].copy_(t)
+    return _ffn(x, p, cfg, ffn, use_kernel)[0]
 
 
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
@@ -425,7 +489,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             max_len: int, use_kernel: bool = True
             ) -> Tuple[torch.Tensor, Params]:
     """Prefill: full forward, build a decode cache padded to ``max_len``."""
-    h, caches = hidden_states(params, batch, cfg, use_kernel=use_kernel)
+    h, _, caches = hidden_states(params, batch, cfg, use_kernel=use_kernel)
     b, s = h.shape[0], h.shape[1]
     layers = []
     for entry, (mixer, _) in zip(caches, cfg.layer_kinds()):

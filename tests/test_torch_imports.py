@@ -25,8 +25,8 @@ print(json.dumps({"names": names, "bad": bad}))
 """
 
 # the modules of the later slices (baselines, netopt, surrogate store and
-# zoo; the measurement fabric; LM training): each must be among the
-# modules imported above
+# zoo; the measurement fabric; LM training; MoE and the recurrent
+# mixers): each must be among the modules imported above
 SLICE_MODULES = (
     "repro_torch.core.baselines", "repro_torch.core.shard_space",
     "repro_torch.configs.shapes", "repro_torch.compiler.surrogate_store",
@@ -45,7 +45,9 @@ SLICE_MODULES = (
     # LM training
     "repro_torch.data", "repro_torch.data.pipeline",
     "repro_torch.train.steps", "repro_torch.train.checkpoint",
-    "repro_torch.train.trainer", "repro_torch.launch.train")
+    "repro_torch.train.trainer", "repro_torch.launch.train",
+    # the MoE FFN and the recurrent mixers
+    "repro_torch.models.moe", "repro_torch.models.ssm")
 
 # the fabric's modules: a spawned measurement worker or a worker daemon
 # loads them and must not pay a torch (or numpy) import

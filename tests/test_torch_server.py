@@ -1,9 +1,10 @@
 """Port parity for serving: the reference serving-stack behaviours
 (``tests/test_server.py``) on the port's continuous-batching ``Server``
 over the reduced qwen2-1.5b in fp32 on the CPU; the reference ``Server``
-and the port's, started from the same weights, generate the same tokens;
-and the ``repro_torch.launch.serve`` CLI (``--device cpu`` prints its
-report, no device and no GPU raises)."""
+and the port's, started from the same weights, generate the same tokens
+(the reduced qwen2-1.5b, xlstm, jamba, and moonshot with its dropping
+MoE); and the ``repro_torch.launch.serve`` CLI (``--device cpu`` prints
+its report, for qwen2-1.5b and xlstm; no device and no GPU raises)."""
 import json
 import os
 import subprocess
@@ -142,14 +143,23 @@ def test_abandoned_requests_marked_loudly(setup, srv):
     assert srv.run_until_drained() == [ok] and ok.status == DONE
 
 
-def test_same_tokens_as_reference_server():
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen2-1.5b", {}), ("xlstm-1.3b", {}), ("jamba-1.5-large-398b", {}),
+    ("moonshot-v1-16b-a3b", {"moe_impl": "dropping"})],
+    ids=["qwen2-1.5b", "xlstm-1.3b", "jamba-1.5-large-398b",
+         "moonshot-v1-16b-a3b-dropping"])
+def test_same_tokens_as_reference_server(arch, kw):
     """Same weights, same requests (more than slots, so slots are reused
     and requests join mid-decode): the reference ``Server`` and the port's
-    generate the same greedy tokens."""
-    jc = jax_get_config("qwen2-1.5b", reduced=True).with_(
-        dtype=jnp.float32, param_dtype=jnp.float32, remat=False)
-    tc = get_config("qwen2-1.5b", reduced=True).with_(
-        dtype=torch.float32, param_dtype=torch.float32)
+    generate the same greedy tokens.  A recurrent slot's state is replaced
+    whole when a request joins; with the dropping MoE every slot's token,
+    a free slot's too, competes for an expert's capacity in a decode step,
+    so the port feeds free slots what the reference feeds them (the last
+    token they held)."""
+    jc = jax_get_config(arch, reduced=True).with_(
+        dtype=jnp.float32, param_dtype=jnp.float32, remat=False, **kw)
+    tc = get_config(arch, reduced=True).with_(
+        dtype=torch.float32, param_dtype=torch.float32, **kw)
     jp = JT.init_params(jax.random.PRNGKey(1), jc)
     tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
     jsrv = JS.Server(jp, jc, n_slots=2, max_len=48)
@@ -165,19 +175,20 @@ def test_same_tokens_as_reference_server():
     assert outs[0] == outs[1]
 
 
-def _cli(*args, env_extra=None):
+def _cli(*args, env_extra=None, arch="qwen2-1.5b"):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1", **(env_extra or {}))
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "qwen2-1.5b", "--reduced", "--requests", "4", "--slots", "2",
+         arch, "--reduced", "--requests", "4", "--slots", "2",
          "--max-new", "4", *args],
         env=env, capture_output=True, text=True, timeout=300)
 
 
-def test_serve_cli_on_cpu_prints_report(tmp_path):
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "xlstm-1.3b"])
+def test_serve_cli_on_cpu_prints_report(tmp_path, arch):
     out = tmp_path / "serve.json"
-    res = _cli("--device", "cpu", "--json-out", str(out))
+    res = _cli("--device", "cpu", "--json-out", str(out), arch=arch)
     assert res.returncode == 0, res.stderr
     doc = json.loads(res.stdout)
     assert doc == json.loads(out.read_text())

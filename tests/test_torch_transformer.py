@@ -1,11 +1,15 @@
 """Port parity for the LM serving path: the port's transformer, given the
 reference's weights (``params_from_jax``), against
-``repro.models.transformer`` on the reduced qwen2-1.5b — prefill logits
-and cache, then teacher-forced decode steps — through both the kernel path
-(on the CPU: the kernels' plain versions) and the plain path; a sliding-
-window variant decoding past its window (ring cache); bf16; decode against
-the port's own prefill; config data; unsupported families."""
+``repro.models.transformer`` on the reduced qwen2-1.5b and the reduced MoE
+and recurrent families (moonshot: MoE; mixtral: MoE with a sliding-window
+ring cache; xlstm: mLSTM + sLSTM; jamba: Mamba + attention + MoE) —
+prefill logits and cache, then teacher-forced decode steps — through both
+the kernel path (on the CPU: the kernels' plain versions) and the plain
+path; a sliding-window variant decoding past its window (ring cache);
+bf16; decode against the port's own prefill; config data; the families
+still unsupported."""
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -20,24 +24,29 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as TT
 
-SUPPORTED = ("qwen2-1.5b", "qwen1.5-4b", "minitron-4b", "smollm-360m")
+SUPPORTED = ("qwen2-1.5b", "qwen1.5-4b", "minitron-4b", "smollm-360m",
+             "moonshot-v1-16b-a3b", "mixtral-8x22b", "xlstm-1.3b",
+             "jamba-1.5-large-398b")
 UNSUPPORTED = tuple(a for a in ARCH_NAMES if a not in SUPPORTED)
+# the MoE and recurrent families, held end to end against the reference
+NEW_FAMILIES = ("moonshot-v1-16b-a3b", "mixtral-8x22b", "xlstm-1.3b",
+                "jamba-1.5-large-398b")
 LOGIT_TOL = 1e-4          # x max |logit|, fp32
 BF16_LOGIT_TOL = 5e-2     # x max |logit|: see test_bf16_prefill_and_decode
 
 
-def _configs(dtype="fp32", **kw):
+def _configs(dtype="fp32", arch="qwen2-1.5b", **kw):
     jd, td = ((jnp.float32, torch.float32) if dtype == "fp32"
               else (jnp.bfloat16, torch.bfloat16))
-    jc = jax_get_config("qwen2-1.5b", reduced=True).with_(
+    jc = jax_get_config(arch, reduced=True).with_(
         dtype=jd, param_dtype=jd, remat=False, **kw)
-    tc = get_config("qwen2-1.5b", reduced=True).with_(
+    tc = get_config(arch, reduced=True).with_(
         dtype=td, param_dtype=td, **kw)
     return jc, tc
 
 
-def _models(dtype="fp32", **kw):
-    jc, tc = _configs(dtype, **kw)
+def _models(dtype="fp32", arch="qwen2-1.5b", **kw):
+    jc, tc = _configs(dtype, arch, **kw)
     jp = JT.init_params(jax.random.PRNGKey(0), jc)
     tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
     decode = jax.jit(lambda p, c, t: JT.decode_step(p, c, t, jc))
@@ -49,6 +58,20 @@ def _models(dtype="fp32", **kw):
 @pytest.fixture(scope="module")
 def fp32_models():
     return _models()
+
+
+@functools.lru_cache(maxsize=None)
+def _family_models(arch):
+    """The reduced family's fp32 models, made once per test module."""
+    return _models(arch=arch)
+
+
+@pytest.fixture(scope="module")
+def family_models(fp32_models):
+    """arch -> models (the reduced qwen2-1.5b's are ``fp32_models``)."""
+    yield lambda arch: (fp32_models if arch == "qwen2-1.5b"
+                        else _family_models(arch))
+    _family_models.cache_clear()
 
 
 @pytest.fixture(scope="module")
@@ -67,16 +90,35 @@ def _rel(got: torch.Tensor, want) -> float:
                  / np.abs(want).max())
 
 
+# the reference's cache key of a recurrent mixer's state (a NamedTuple
+# whose fields are the port's keys)
+_STATE_KEY = {"mamba": "ssm", "mlstm": "lstm", "slstm": "slstm"}
+
+
 def _check_cache(tc, tcache, jcache):
     np.testing.assert_array_equal(tcache["pos"].numpy(),
                                   np.asarray(jcache["pos"]))
-    for i, entry in enumerate(tcache["layers"]):
+    for i, (entry, (mixer, _)) in enumerate(zip(tcache["layers"],
+                                                tc.layer_kinds())):
         ref = jcache["layers"][i % tc.period]
-        for key in ("k", "v"):
-            np.testing.assert_allclose(
-                entry[key].float().numpy(),
-                np.asarray(ref[key][i // tc.period], np.float32),
-                rtol=1e-5, atol=1e-5)
+        if mixer in _STATE_KEY:
+            ref = ref[_STATE_KEY[mixer]]._asdict()
+        assert set(entry) == set(ref), (i, mixer)
+        for key in entry:
+            got = entry[key].float().numpy()
+            want = np.asarray(ref[key][i // tc.period], np.float32)
+            if mixer not in _STATE_KEY:
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+                continue
+            # a recurrent state carries every step's rounding through the
+            # stack (the last sLSTM's h after 21 steps of 8 layers: 3.6e-5
+            # of its max): held to the logits' 1e-4 of the field's max
+            # |value|, the stabilizer's -1e30 exactly
+            live = np.abs(want) < 1e29
+            np.testing.assert_array_equal(got[~live], want[~live])
+            scale = float(np.abs(want[live]).max(initial=0.0))
+            assert float(np.abs(got[live] - want[live]).max(initial=0.0)) \
+                <= LOGIT_TOL * scale, (i, mixer, key)
 
 
 def _prefill_then_decode(models, s0, max_len, steps, use_kernel, tol,
@@ -100,10 +142,17 @@ def _prefill_then_decode(models, s0, max_len, steps, use_kernel, tol,
         _check_cache(tc, tcache, jcache)
 
 
-@pytest.mark.parametrize("use_kernel", [True, False],
-                         ids=["kernel_path", "plain_path"])
-def test_prefill_and_decode_match_reference(fp32_models, use_kernel):
-    _prefill_then_decode(fp32_models, s0=13, max_len=32, steps=8,
+@pytest.mark.parametrize(
+    "arch,use_kernel",
+    [(a, k) for a in ("qwen2-1.5b",) + NEW_FAMILIES for k in (True, False)],
+    ids=[(f"{a}-" if a != "qwen2-1.5b" else "")
+         + ("kernel_path" if k else "plain_path")
+         for a in ("qwen2-1.5b",) + NEW_FAMILIES for k in (True, False)])
+def test_prefill_and_decode_match_reference(family_models, arch, use_kernel):
+    """Prompts of 13 tokens, 8 decode steps, cache of 32: mixtral's window
+    of 16 makes its cache a ring that decode wraps; xlstm's and jamba's
+    chunks of 8 end the prefill in a padded chunk."""
+    _prefill_then_decode(family_models(arch), s0=13, max_len=32, steps=8,
                          use_kernel=use_kernel, tol=LOGIT_TOL)
 
 
@@ -130,10 +179,11 @@ def test_bf16_prefill_and_decode():
                          tol=BF16_LOGIT_TOL, check_cache=False)
 
 
-def test_decode_reproduces_own_prefill(fp32_models):
+@pytest.mark.parametrize("arch", ("qwen2-1.5b",) + NEW_FAMILIES)
+def test_decode_reproduces_own_prefill(family_models, arch):
     """Teacher-forced decode must reproduce the port's own prefill logits
     (the reference's test_decode_matches_prefill_fp32)."""
-    tc, tp = fp32_models[1], fp32_models[3]
+    tc, tp = family_models(arch)[1], family_models(arch)[3]
     toks = torch.from_numpy(_tokens(tc.vocab, 1, 13, seed=2))
     _, cache = TT.prefill(tp, {"tokens": toks[:, :-1]}, tc, max_len=32)
     ld, cache = TT.decode_step(tp, cache, toks[:, -1:], tc)
