@@ -6,9 +6,11 @@
 Drives the port's paths on ``cuda:0``: the paper's own loop at full
 ResNet-18 width, its baselines and its network co-optimization with the
 co-optimized chip's mappings deployed, the LM server at qwen2-1.5b's full
-width and depth, training at that width and depth, and the MoE and
+width and depth, training at that width and depth, the MoE and
 recurrent families served at full width (moonshot-v1-16b-a3b and
-xlstm-1.3b whole, jamba-1.5-large-398b cut to 5 layers).
+xlstm-1.3b whole, jamba-1.5-large-398b cut to 5 layers), and the
+encoder-decoder and vision-prefix families served whole at full width
+(whisper-base, internvl2-26b), whisper-base also trained.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
@@ -30,7 +32,11 @@ xlstm-1.3b whole, jamba-1.5-large-398b cut to 5 layers).
    {4, 17, 127, 513, 256, 1000, 2048}, 12 query and 2 KV heads, head_dim
    128; the MoE and recurrent families' shapes: RMSNorm at d 2048 and 8192
    over 8, 200 and 512-1024 rows, flash at 16/16 heads over S 128, 517,
-   1024 and 64/8 heads over S 128, 300, 512); there the
+   1024 and 64/8 heads over S 128, 300, 512; whisper's and internvl2's:
+   RMSNorm at d 512 over 8, 223 and 1500 rows and the training step's
+   3584 and 12000, at d 6144 over 8, 200 and 1536 rows, flash non-causal
+   at (1, 1500, 8/8 heads, d 64), causal at 8/8 heads d 64 over S 4, 100,
+   223 and at 48/8 heads d 128 over S 1088, 1300, 1536); there the
    bf16 flash kernel is also held against the plain version with P kept
    in fp32 (the reference kernel's arithmetic), within 2^-7 x max |v|;
    ``[check] rmsnorm backward``: the RMSNorm autograd Function's (dx, dw)
@@ -122,6 +128,24 @@ xlstm-1.3b whole, jamba-1.5-large-398b cut to 5 layers).
    tokens/s, prefill ms by length and a prompt token, the decode step
    beside the time to read every weight once, and each kernel timed at
    the run's shapes over its launches;
+17. ``[serve audio]`` and ``[serve vlm]``, the same way: whisper-base
+   whole (6 encoder + 6 decoder layers, 97.2 M parameters; its fp32 gate
+   the whole model, the encoder over frames drawn with numpy from the
+   seed) and internvl2-26b whole (48 layers, 19.86 B parameters, 39.7 GB
+   bf16; its fp32 gate the first 2 layers, the 1024-patch prefix drawn
+   from the seed); bf16 gated at 5e-2 free-running and block by block;
+   then 16 requests (prompts 4-223, 64 new tokens) through
+   ``Server(n_slots=8, max_len=448)`` and 8 (text prompts 64-512 after
+   the 1024 zero patches, 32 new) through ``Server(8, 2048)``, with the
+   launch identities at every step (whisper: a prefill flash 12 -- 6
+   non-causal encoder launches at S 1500 and 6 causal -- and RMSNorm 32,
+   a decode step RMSNorm 19; internvl2: flash 48 and RMSNorm 97 a
+   prefill, RMSNorm 97 a decode step), each kernel timed at the run's
+   shapes (the encoder's flash non-causal);
+18. ``[train audio]``: whisper-base at full width, bf16, remat on, 10
+   steps of 8 x 448 synthetic tokens with 1500 frames a sequence drawn
+   with numpy from the seed: RMSNorm 62 launches a step (32 in the
+   forward, 30 recomputed), flash and GEMM none, the loss falling;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
 times).
@@ -200,7 +224,16 @@ RMSNORM_CHECKS = [((4, 64), False, True), ((2, 100, 96), False, True),
                   ((200, 8192), True, True), ((512, 8192), True, True),
                   ((4096, 1536), False, True), ((9000, 128), False, True),
                   ((5000, 4096), False, True), ((3, 8192), False, True),
-                  ((5, 1536), False, False), ((3, 8192), False, False)]
+                  ((5, 1536), False, False), ((3, 8192), False, False),
+                  # whisper's d 512: a decode step, the longest prompt, the
+                  # encoder's 1500 frames, a training step's 8 x 448 text
+                  # and 8 x 1500 frame rows; internvl2's d 6144: a decode
+                  # step, a prompt that spreads a row over warps, the
+                  # longest prefix + prompt
+                  ((8, 512), True, True), ((223, 512), True, True),
+                  ((1500, 512), True, True), ((3584, 512), True, True),
+                  ((12000, 512), True, True), ((8, 6144), True, True),
+                  ((200, 6144), True, True), ((1536, 6144), True, True)]
 # ((B, S, HQ, HKV, D, causal, window, block_q, block_k), on the path)
 FLASH_CHECKS = (
     [((2, 100, hq, hkv, 16, causal, window, 32, 32), False)
@@ -214,12 +247,22 @@ FLASH_CHECKS = (
        ((2, 130, 4, 1, 64, True, None, 32, 64), False),
        ((1, 50, 2, 1, 20, True, None, 64, 64), False)]
     + [((1, s, 12, 2, 128, True, None, 128, 128), True)
-       for s in (4, 17, 127, 513, 256, 1000, 2048)]
+       for s in (4, 17, 48, 127, 513, 256, 1000, 2048)]
     # moonshot's MHA and the jamba cut's GQA at their prompt lengths
     + [((1, s, 16, 16, 128, True, None, 128, 128), True)
        for s in (128, 517, 1024)]
     + [((1, s, 64, 8, 128, True, None, 128, 128), True)
-       for s in (128, 300, 512)])
+       for s in (128, 300, 512)]
+    # whisper's encoder (non-causal over its 1500 frames) and decoder
+    # prompts (one in each template's range: below 32, 32-63, 64 up; qwen2's
+    # 48 above likewise), internvl2's 1024-patch prefix + prompts;
+    # lm_flash_geometries() fails the checks unless every template the LM
+    # paths pick is among them
+    + [((1, 1500, 8, 8, 64, False, None, 128, 128), True)]
+    + [((1, s, 8, 8, 64, True, None, 128, 128), True)
+       for s in (4, 48, 100, 223)]
+    + [((1, s, 48, 8, 128, True, None, 128, 128), True)
+       for s in (1088, 1300, 1536)])
 # [fabric]: the stub oracle through the three executors
 FABRIC_N, FABRIC_DELAY_S = 16, 0.1
 FABRIC_SPEEDUP = 1.5      # the pool over serial (the reference's gate)
@@ -236,7 +279,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 4
 TRAIN_NORM_SHAPE = (TRAIN_BATCH * TRAIN_SEQ, 1536)
 LAUNCH_TIMEOUT_S = 300    # the launcher subprocess of [train faults]
-# [serve moe], [serve ssm], [serve hybrid]: the MoE and recurrent families,
+# [serve moe], [serve ssm], [serve hybrid], [serve audio], [serve vlm]: the
+# MoE and recurrent families, the encoder-decoder and the vision prefix,
 # each served in bf16 at its full width (the hybrid's depth cut), after an
 # fp32 gate at a cut depth and a bf16 gate at the served depth
 MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("moonshot-v1-16b-a3b", "xlstm-1.3b",
@@ -252,14 +296,24 @@ NOISE = {"float32": 1e-7, "bfloat16": 2 ** -8}
 # same expert sets); xlstm's own noise at 48 layers exceeds the gate (its
 # logits move by O(1) under one bf16 rounding of the input: PERF.md), so
 # its bf16 gate is block by block only (:func:`_lockstep`)
-FREE_BF16_GATE = ("moe", "hybrid")
+FREE_BF16_GATE = ("moe", "hybrid", "audio", "vlm")
 HYBRID_LAYERS = 5         # jamba's first 5: mamba+mlp, mamba+moe,
                           # mamba+mlp, mamba+moe, attn+mlp
 HYBRID_GATE_PATTERN = (("mamba", "mlp"), ("attn", "mlp"))  # fp32 gate
-# (arch, requests, prompt lengths drawn in, new tokens each)
-FAMILY_SERVE = {"moe": (MOE_ARCH, 16, (128, 1024), 32),
-                "ssm": (SSM_ARCH, 8, (64, 256), 32),
-                "hybrid": (HYBRID_ARCH, 8, (128, 512), 16)}
+AUDIO_ARCH, VLM_ARCH = "whisper-base", "internvl2-26b"
+VLM_GATE_LAYERS = 2       # the fp32 gate's internvl2: its first 2 layers
+                          # (48 in fp32 would not fit the card)
+# whisper's decoder context is 448 tokens, its prompt context 223
+AUDIO_MAX_LEN = 448
+# (arch, requests, prompt lengths drawn in, new tokens each, max_len)
+FAMILY_SERVE = {"moe": (MOE_ARCH, 16, (128, 1024), 32, LM_MAX_LEN),
+                "ssm": (SSM_ARCH, 8, (64, 256), 32, LM_MAX_LEN),
+                "hybrid": (HYBRID_ARCH, 8, (128, 512), 16, LM_MAX_LEN),
+                "audio": (AUDIO_ARCH, 16, (4, 223), 64, AUDIO_MAX_LEN),
+                "vlm": (VLM_ARCH, 8, (64, 512), 32, LM_MAX_LEN)}
+# [train audio]: whisper-base bf16 training steps, 8 x 448 text tokens
+# and 8 x 1500 frames a step
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_STEPS = 8, 10
 # the gates' prompt lengths, where not the served ones: xlstm's prefill is
 # one Python step a token and layer (~20 ms a token), and its gates run 11
 # prefills a prompt
@@ -376,16 +430,18 @@ def phase_build() -> float:
 
 def lm_rmsnorm_layouts() -> dict:
     """The RMSNorm layouts the LM paths run at each served model's d_model
-    (bf16 serving, the fp32 gates) for 1 row to its longest prompt's:
-    (d, dtype, 16-byte copies, warps a row, slots a lane, rows a block) ->
+    (bf16 serving, the fp32 gates) for 1 row to its longest prefill's (a
+    vision prefix + its longest prompt, or an encoder's frames): (d,
+    dtype, 16-byte copies, warps a row, slots a lane, rows a block) ->
     the rows that run it."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import rmsnorm as RN
     widths = {lm_config(torch.bfloat16).d_model: LM_PROMPT[1]}
-    for arch, _, prompt, _ in FAMILY_SERVE.values():
-        d = get_config(arch).d_model
-        widths[d] = max(widths.get(d, 0), prompt[1])
+    for arch, _, prompt, _, _ in FAMILY_SERVE.values():
+        cfg = get_config(arch)
+        rows = max(cfg.vision_prefix + prompt[1], cfg.enc_seq)
+        widths[cfg.d_model] = max(widths.get(cfg.d_model, 0), rows)
     out = {}
     for d, max_rows in widths.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -393,6 +449,35 @@ def lm_rmsnorm_layouts() -> dict:
                 g = RN.legalize(d, rows, dtype)
                 out.setdefault((d, dtype, g.vec, g.warps_per_row, g.slots,
                                 g.rows_per_block), []).append(rows)
+    return out
+
+
+def lm_flash_geometries() -> dict:
+    """The flash templates the LM paths run (bf16 serving, the fp32 gates)
+    in each served attention model's prefills, from 1 token to its longest
+    (a vision prefix + its longest prompt, or an encoder's frames), at the
+    blocks the model asks for: (bq, bk, dp, dtype) -> the (head_dim, S)
+    that run it."""
+    import inspect
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    ask = inspect.signature(ops.attention).parameters
+    block_q, block_k = ask["block_q"].default, ask["block_k"].default
+    models = [(lm_config(torch.bfloat16), LM_PROMPT[1])]
+    for arch, _, prompt, _, _ in FAMILY_SERVE.values():
+        cfg = get_config(arch)
+        if cfg.enc_dec or any(m in ("attn", "swa") for m, _ in cfg.pattern):
+            models.append((cfg, max(cfg.vision_prefix + prompt[1],
+                                    cfg.enc_seq)))
+    out = {}
+    for cfg, max_s in models:
+        for dtype in (torch.bfloat16, torch.float32):
+            for s in range(1, max_s + 1):
+                g = FA.legalize(block_q, block_k, s, cfg.head_dim, dtype)
+                out.setdefault((g.bq, g.bk, g.dp, g.dtype), []).append(
+                    (cfg.head_dim, s))
     return out
 
 
@@ -903,6 +988,7 @@ def phase_check_lm_kernels(dev) -> dict:
     check(not missing, f"no rmsnorm check runs the LM path's {missing}")
     check(len(strided) == 4, f"the rmsnorm grid-stride loop is checked "
           f"only in {sorted(map(str, strided))}")
+    flash_ran = set()             # templates checked
     for (b, s, hq, hkv, d, causal, window, bq, bk), on_path in FLASH_CHECKS:
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
@@ -918,6 +1004,7 @@ def phase_check_lm_kernels(dev) -> dict:
             case = (b, s, hq, hkv, d, causal, window)
             check(got.dtype == dtype and rel <= tol,
                   f"flash {case} {dtype}: rel err {rel:.3g}")
+            flash_ran.add((run["bq"], run["bk"], run["dp"], run["dtype"]))
             if on_path:
                 log(f"[check] flash B={b} S={s} HQ={hq} HKV={hkv} D={d} "
                     f"{dtype} run={run} dynamic smem "
@@ -938,6 +1025,12 @@ def phase_check_lm_kernels(dev) -> dict:
                     f"max_abs_err={diff32:.3g} rel={rel32:.3g} (bound "
                     f"{bound:.3g} = 2^-7 x max|v|)")
             n_checks += 1
+    for geom, runs in lm_flash_geometries().items():
+        check(geom in flash_ran, f"no flash check runs the LM path's "
+              f"template {geom} (head_dim, S from {runs[0]} to {runs[-1]})")
+        log(f"[check] the LM path's flash template <bq {geom[0]}, bk "
+            f"{geom[1]}, dp {geom[2]}> {geom[3]} (head_dim, S from "
+            f"{runs[0]} to {runs[-1]}) is held by a check")
     log(f"[check] {n_checks} RMSNorm/flash kernel-vs-plain checks passed "
         f"(fp32 tol {FP32_TOL} x max|plain|, bf16 {BF16_TOL})")
     return worst
@@ -951,10 +1044,42 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def _path_vs_plain(params, cfg, prompts, dev) -> dict:
+def _gate_batch(cfg, toks, frontend, dev) -> tuple:
+    """A gate prompt's prefill batch (its tokens but the last
+    LM_GATE_STEPS, behind ``frontend``'s patches or frames), the tokens
+    that continue it, and a cache length that holds prefix, prompt and
+    continuation."""
+    import torch
+    t = torch.as_tensor(toks[None], device=dev)
+    n = t.shape[1] - LM_GATE_STEPS
+    batch = dict(frontend or {}, tokens=t[:, :n])
+    return batch, t, n, cfg.vision_prefix + n + LM_GATE_STEPS + 1
+
+
+def gate_frontends(cfg, rng, count, dev) -> list:
+    """``count`` stub-frontend inputs for the gates, drawn with numpy from
+    ``rng`` (standard normal, as the reference's tests draw them), cast to
+    ``cfg.dtype`` on ``dev``: a vision prefix's patches (1, P, D), an
+    encoder's frames (1, F, D); empty dicts for a model with neither."""
+    import torch
+    out = []
+    for _ in range(count):
+        f = {}
+        for key, n in (("patches", cfg.vision_prefix),
+                       ("frames", cfg.enc_seq if cfg.enc_dec else 0)):
+            if n:
+                f[key] = torch.as_tensor(rng.standard_normal(
+                    (1, n, cfg.d_model)).astype("float32"),
+                    device=dev).to(cfg.dtype)
+        out.append(f)
+    return out
+
+
+def _path_vs_plain(params, cfg, prompts, dev, frontends=None) -> dict:
     """Largest logit difference / max |logit| between the kernel path and
     the plain path: prefill, then LM_GATE_STEPS teacher-forced decode
-    steps, for each prompt (each continued by its own drawn tokens).
+    steps, for each prompt (each continued by its own drawn tokens, behind
+    its ``frontends`` entry's patches or frames).
 
     With MoE layers the plain path runs twice: routed by its own router
     (``rel``), and routed by the kernel path's expert sets, call for call
@@ -985,14 +1110,12 @@ def _path_vs_plain(params, cfg, prompts, dev) -> dict:
         finally:
             check(not MOE.route_replay, "routes left unreplayed")
             MOE.route_log = MOE.route_replay = None
-    for toks in prompts:
-        t = torch.as_tensor(toks[None], device=dev)
-        n = t.shape[1] - LM_GATE_STEPS
+    for toks, front in zip(prompts, frontends or [None] * len(prompts)):
+        batch, t, n, max_len = _gate_batch(cfg, toks, front, dev)
         caches, logits = [None] * len(paths), [None] * len(paths)
         for j, use_kernel in enumerate(paths):
             logits[j], caches[j] = run(j, lambda: T.prefill(
-                params, {"tokens": t[:, :n]}, cfg, n + LM_GATE_STEPS + 1,
-                use_kernel=use_kernel))
+                params, batch, cfg, max_len, use_kernel=use_kernel))
         for i in range(n, n + LM_GATE_STEPS + 1):
             check(bool(torch.isfinite(logits[0]).all()), "non-finite logits")
             for j in range(1, len(paths)):
@@ -1051,34 +1174,46 @@ def phase_lm_gate(dev):
     return params, cfg16, rel32, rel16
 
 
-def norms_per_pass(cfg) -> int:
-    """RMSNorm launches of one forward (a prefill or a decode step): one
-    a mixer and one an FFN that a layer has, and the final norm."""
-    return 1 + sum((mixer != "none") + (ffn != "none")
-                   for mixer, ffn in cfg.layer_kinds())
+def norms_per_pass(cfg, prefill: bool = True) -> int:
+    """RMSNorm launches of one forward: one a mixer, one a cross part
+    (an encoder-decoder's) and one an FFN that a layer has, and the final
+    norm; a prefill (or a training forward) of an encoder-decoder also
+    runs its encoder, 2 an encoder layer and ``enc_ln``."""
+    n = 1 + sum((mixer != "none") + cfg.enc_dec + (ffn != "none")
+                for mixer, ffn in cfg.layer_kinds())
+    return n + (2 * cfg.n_enc_layers + 1 if prefill and cfg.enc_dec else 0)
+
+
+def encoder_norms(cfg) -> int:
+    """The RMSNorm launches of a prefill that run over the encoder's
+    frames (0 without an encoder)."""
+    return norms_per_pass(cfg) - norms_per_pass(cfg, prefill=False)
 
 
 def attention_layers(cfg) -> int:
-    """Flash launches of one prefill: one an attention layer."""
-    return sum(mixer in ("attn", "swa") for mixer, _ in cfg.layer_kinds())
+    """Flash launches of one prefill: one an attention layer, the
+    encoder's (non-causal) included."""
+    return (sum(mixer in ("attn", "swa") for mixer, _ in cfg.layer_kinds())
+            + (cfg.n_enc_layers if cfg.enc_dec else 0))
 
 
 def phase_serve(dev, params, cfg, tag="[serve]", arch=LM_ARCH,
                 n_requests=LM_REQUESTS, prompt=LM_PROMPT, new=LM_NEW,
-                seed=SEED + 5):
-    """The serving path: ``Server(n_slots=8, max_len=2048)`` in bf16 serves
+                seed=SEED + 5, max_len=LM_MAX_LEN):
+    """The serving path: ``Server(n_slots=8, max_len)`` in bf16 serves
     ``n_requests`` requests (prompts drawn in ``prompt``, ``new`` new
-    tokens each; qwen2-1.5b's: 16, 128-1024, 32).  The RMSNorm and flash
-    launch counts are set to 0 just before and read just after, and
-    checked step by step: each prefill launches flash once an attention
-    layer and RMSNorm :func:`norms_per_pass` times, each decode step
-    RMSNorm as many times and flash never."""
+    tokens each; qwen2-1.5b's: 16, 128-1024, 32, max_len 2048).  The
+    RMSNorm and flash launch counts are set to 0 just before and read just
+    after, and checked step by step: each prefill launches flash
+    :func:`attention_layers` times and RMSNorm :func:`norms_per_pass`
+    times, each decode step RMSNorm ``norms_per_pass(prefill=False)``
+    times and flash never."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.train.server import DONE, Request, Server
-    srv = Server(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    srv = Server(params, cfg, n_slots=LM_SLOTS, max_len=max_len)
     srv.submit(Request(uid=-1, prompt=np.arange(16, dtype=np.int32),
                        max_new_tokens=2))
     srv.run_until_drained()                     # warm-up, not counted
@@ -1088,6 +1223,7 @@ def phase_serve(dev, params, cfg, tag="[serve]", arch=LM_ARCH,
                     .astype(np.int32), max_new_tokens=new)
             for i, n in enumerate(lens)]
     norms, flashes = norms_per_pass(cfg), attention_layers(cfg)
+    step_norms = norms_per_pass(cfg, prefill=False)
     FA.flash_attention.launches = 0   # the serving path starts here
     RN.rmsnorm.launches = 0
     torch.cuda.synchronize()
@@ -1109,7 +1245,8 @@ def phase_serve(dev, params, cfg, tag="[serve]", arch=LM_ARCH,
         check(FA.flash_attention.launches - f0 == flashes * admitted,
               f"flash launched {FA.flash_attention.launches - f0} times for "
               f"{admitted} prefills")
-        check(RN.rmsnorm.launches - r0 == norms * (admitted + decoded),
+        check(RN.rmsnorm.launches - r0
+              == norms * admitted + step_norms * decoded,
               f"rmsnorm launched {RN.rmsnorm.launches - r0} times for "
               f"{admitted} prefills and {decoded} decode steps")
         prefills += admitted
@@ -1128,19 +1265,19 @@ def phase_serve(dev, params, cfg, tag="[serve]", arch=LM_ARCH,
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.output),
           "generated token out of the vocabulary")
     check(launches["flash_attention"] == flashes * prefills
-          and launches["rmsnorm"] == norms * (prefills + decodes),
+          and launches["rmsnorm"] == norms * prefills + step_norms * decodes,
           f"serving launch counts {launches}")
     for name in ("rmsnorm", "flash_attention")[:1 + bool(flashes)]:
         check(launches[name] > 0, f"{tag} launched no {name}")
     tokens = sum(len(r.output) for r in reqs)
-    log(f"{tag} {arch} bf16, {LM_SLOTS} slots, max_len {LM_MAX_LEN}: "
+    log(f"{tag} {arch} bf16, {LM_SLOTS} slots, max_len {max_len}: "
         f"{n_requests}/{n_requests} done, 0 rejected, 0 abandoned; "
         f"{prefills} prefills, {decodes} decode steps; launches {launches}: "
         f"flash {flashes} and rmsnorm {norms} a prefill, rmsnorm "
-        f"{norms} and flash 0 a decode step")
+        f"{step_norms} and flash 0 a decode step")
     bins = {}
     for r in reqs:
-        lo = next(b for b in PREFILL_BINS[::-1] if len(r.prompt) >= b)
+        lo = next((b for b in PREFILL_BINS[::-1] if len(r.prompt) >= b), 1)
         bins.setdefault(lo, []).append(r.prefill_s * 1e3)
     prefill_ms = {f">={lo}": (float(np.mean(v)), len(v))
                   for lo, v in sorted(bins.items())}
@@ -1556,7 +1693,8 @@ def log_row(name, r, launches=None) -> None:
     extra = (f" run={r['run']} {r['tflops']:.2f} TFLOP/s,"
              if "run" in r else "")
     times = "" if launches is None else f" x{launches} launches"
-    log(f"[time] {name} {r['shape']} bf16{times}:{extra} kernel "
+    mask = {True: " causal", False: " non-causal"}.get(r.get("causal"), "")
+    log(f"[time] {name} {r['shape']}{mask} bf16{times}:{extra} kernel "
         f"{r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, plain "
         f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}; the kernel at "
@@ -1608,10 +1746,11 @@ def time_serve_kernels(dev, cfg, serve, seed=SEED + 6,
     """Each LM kernel at a serving run's shapes, bf16: kernel and one
     PyTorch call by device_ms, the plain version by CUDA events, and the
     bound.  A kernel's totals are over the serving run's launches: each
-    shape's times multiplied by its launches there (every prompt length
-    for prefill, (8, d_model) rows for the decode steps' norms).  Returns
-    ([(kernel, totals)] for the kernels the run launched, and the shapes'
-    row functions, ``randn``)."""
+    shape's times multiplied by its launches there (every prefill's
+    length, a vision prefix included, and an encoder's frames: its norms'
+    rows and its non-causal flash; (8, d_model) rows for the decode
+    steps' norms).  Returns ([(kernel, totals)] for the kernels the run
+    launched, and the shapes' row functions, ``randn``)."""
     import collections
     import torch
     import torch.nn.functional as F
@@ -1625,43 +1764,51 @@ def time_serve_kernels(dev, cfg, serve, seed=SEED + 6,
 
     rmsnorm_row = lambda rows: time_rmsnorm(randn, rows, d)
 
-    def flash_row(s) -> dict:
+    def flash_row(s, causal=True) -> dict:
         q, k, v = randn(1, s, hq, hd), randn(1, s, hkv, hd), randn(1, s, hkv,
                                                                    hd)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         geom = FA.legalize(128, 128, s, hd, dt)
-        flops = 2.0 * hq * hd * s * (s + 1)  # 2 GEMMs over S(S+1)/2 pairs
-        row = {"shape": [1, s, hq, hkv, hd],
+        # 2 GEMMs over the S(S+1)/2 causal pairs, or all S^2
+        flops = 2.0 * hq * hd * (s * (s + 1) if causal else 2 * s * s)
+        row = {"shape": [1, s, hq, hkv, hd], "causal": causal,
                "run": [geom.bq, geom.bk, geom.dp],
-               "ms": device_ms(lambda: FA.flash_attention(q, k, v)),
+               "ms": device_ms(lambda: FA.flash_attention(q, k, v, causal)),
                "plain_ms": cuda_ms(lambda: FA.flash_attention_plain(
-                   q, k, v, True, None, hd ** -0.5, geom), reps=1),
+                   q, k, v, causal, None, hd ** -0.5, geom), reps=1),
                "library_ms": device_ms(
                    lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=True, enable_gqa=True)),
+                       qt, kt, vt, is_causal=causal, enable_gqa=True)),
                **bound(flops / BF16_FLOPS * 1e3,
                        2.0 * s * hd * (2 * hq + 2 * hkv)
                        / HBM_BYTES_PER_S * 1e3)}
         row["tflops"] = flops / row["ms"] / 1e9
         return row
 
-    norms, flashes = norms_per_pass(cfg), attention_layers(cfg)
+    # rmsnorm shapes by rows; flash shapes by (S, causal)
+    step_norms = norms_per_pass(cfg, prefill=False)
+    enc_flashes = cfg.n_enc_layers if cfg.enc_dec else 0
     counts = {"rmsnorm": collections.Counter(), "flash_attention":
               collections.Counter()}
     for n in serve["prompt_lens"]:
-        counts["rmsnorm"][n] += norms
-        counts["flash_attention"][n] += flashes
-    counts["rmsnorm"][LM_SLOTS] += norms * serve["decodes"]
+        s = cfg.vision_prefix + n
+        counts["rmsnorm"][s] += step_norms
+        counts["flash_attention"][(s, True)] += (attention_layers(cfg)
+                                                 - enc_flashes)
+        if cfg.enc_dec:
+            counts["rmsnorm"][cfg.enc_seq] += encoder_norms(cfg)
+            counts["flash_attention"][(cfg.enc_seq, False)] += enc_flashes
+    counts["rmsnorm"][LM_SLOTS] += step_norms * serve["decodes"]
     kernels = []
     for name, row_fn in (("rmsnorm", rmsnorm_row),
-                         ("flash_attention", flash_row)):
+                         ("flash_attention", lambda key: flash_row(*key))):
         if not serve["launches"][name]:
             continue
         cnt = counts[name]
         check(sum(cnt.values()) == serve["launches"][name],
               f"{name}: timed shapes cover {sum(cnt.values())} launches, "
               f"the run made {serve['launches'][name]}")
-        rows = {n: row_fn(n) for n in sorted(cnt)}
+        rows = {n: row_fn(n) for n in sorted(cnt) if cnt[n]}
         for n, r in rows.items():
             log_row(name, r, cnt[n])
         tot = {key: sum(rows[n][key] * cnt[n] for n in rows)
@@ -1672,6 +1819,10 @@ def time_serve_kernels(dev, cfg, serve, seed=SEED + 6,
                            else "bytes")
         tot["launches"] = serve["launches"][name]
         tot["shapes"] = [dict(r, launches=cnt[n]) for n, r in rows.items()]
+        if enc_flashes and name == "flash_attention":
+            tot["non_causal"] = {k: sum(rows[n][k] * cnt[n] for n in rows
+                                        if not n[1])
+                                 for k in ("ms", "library_ms", "bound_ms")}
         log(f"[time] {name} over {run}'s {tot['launches']} "
             f"launches: kernel {tot['ms']:.3f} ms, library "
             f"{tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.1f} ms, "
@@ -1748,11 +1899,53 @@ def phase_check_rmsnorm_backward(dev) -> dict:
 
 
 def norm_launches_per_step(cfg, grad_accum: int = 1) -> int:
-    """RMSNorm launches of one training step: 2 a layer and the final norm
-    in the forward, and with remat the layers' 2 again when the backward
-    recomputes each block; per microbatch."""
-    fwd = 2 * cfg.n_layers + 1
-    return grad_accum * (fwd + (2 * cfg.n_layers if cfg.remat else 0))
+    """RMSNorm launches of one training step: the forward's
+    (:func:`norms_per_pass`), and with remat every block's again when the
+    backward recomputes it (all but ``enc_ln`` and the final norm); per
+    microbatch."""
+    fwd = norms_per_pass(cfg)
+    recomputed = fwd - 1 - cfg.enc_dec
+    return grad_accum * (fwd + (recomputed if cfg.remat else 0))
+
+
+def train_steps(tag, step, params, opt, next_batch, per_step: int,
+                n_steps: int) -> tuple:
+    """``n_steps`` training steps (``step(params, opt, next_batch())``),
+    the RMSNorm, flash and GEMM counts set to 0 just before: every step
+    must launch RMSNorm exactly ``per_step`` times and flash and GEMM
+    never; every loss and grad_norm must be finite and the last 3 losses'
+    mean below the first 3's.  Returns (losses, grad norms, step seconds
+    (host clock, each step ended by a synchronize), RMSNorm launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import rmsnorm as RN
+    RN.rmsnorm.launches = FA.flash_attention.launches = G.gemm.launches = 0
+    losses, norms, secs = [], [], []
+    for i in range(n_steps):
+        before = RN.rmsnorm.launches
+        t0 = time.perf_counter()
+        metrics = step(params, opt, next_batch())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        check(RN.rmsnorm.launches - before == per_step,
+              f"{tag} step {i}: {RN.rmsnorm.launches - before} "
+              f"RMSNorm launches, expected {per_step}")
+        check(FA.flash_attention.launches == 0 and G.gemm.launches == 0,
+              f"{tag} step {i}: flash {FA.flash_attention.launches}, "
+              f"gemm {G.gemm.launches} launches (expected 0)")
+        log(f"{tag} step {i}: loss {losses[-1]:.4f} grad_norm "
+            f"{norms[-1]:.4f} {secs[-1]:.3f} s, RMSNorm "
+            f"{RN.rmsnorm.launches - before} launches")
+    check(all(math.isfinite(v) for v in losses + norms),
+          f"{tag} non-finite loss or grad_norm: {losses} {norms}")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(last < first, f"{tag} loss did not fall: first 3 {first:.4f}, "
+          f"last 3 {last:.4f}")
+    return losses, norms, secs, RN.rmsnorm.launches
 
 
 def phase_train(dev) -> dict:
@@ -1768,9 +1961,6 @@ def phase_train(dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import gemm as G
-    from repro_torch.kernels import rmsnorm as RN
     from repro_torch.models import transformer as T
     from repro_torch.train import steps as S
     cfg = lm_config(torch.bfloat16)
@@ -1792,34 +1982,13 @@ def phase_train(dev) -> dict:
         f"{TRAIN_WARMUP}), remat {cfg.remat}; RMSNorm {per_step} launches "
         f"a step expected; setup {setup_s:.1f} s")
     prefetch = Prefetcher(SyntheticLM(dc))
-    RN.rmsnorm.launches = FA.flash_attention.launches = G.gemm.launches = 0
-    losses, norms, secs = [], [], []
     try:
-        for i in range(TRAIN_STEPS):
-            before = RN.rmsnorm.launches
-            t0 = time.perf_counter()
-            metrics = step(params, opt, prefetch.next())
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            losses.append(float(metrics["loss"]))
-            norms.append(float(metrics["grad_norm"]))
-            check(RN.rmsnorm.launches - before == per_step,
-                  f"[train] step {i}: {RN.rmsnorm.launches - before} "
-                  f"RMSNorm launches, expected {per_step}")
-            check(FA.flash_attention.launches == 0 and G.gemm.launches == 0,
-                  f"[train] step {i}: flash {FA.flash_attention.launches}, "
-                  f"gemm {G.gemm.launches} launches (expected 0)")
-            log(f"[train] step {i}: loss {losses[-1]:.4f} grad_norm "
-                f"{norms[-1]:.4f} {secs[-1]:.3f} s, RMSNorm "
-                f"{RN.rmsnorm.launches - before} launches")
+        losses, norms, secs, launches = train_steps(
+            "[train]", step, params, opt, prefetch.next, per_step,
+            TRAIN_STEPS)
     finally:
         prefetch.close()
-    launches = RN.rmsnorm.launches
-    check(all(math.isfinite(v) for v in losses + norms),
-          f"[train] non-finite loss or grad_norm: {losses} {norms}")
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
-    check(last < first, f"[train] loss did not fall: first 3 {first:.4f}, "
-          f"last 3 {last:.4f}")
     peak = torch.cuda.max_memory_allocated(dev)
     steady = secs[1:]
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1855,6 +2024,77 @@ def phase_train(dev) -> dict:
         f"{row['library_ms'] * launches:.3f} ms, bound "
         f"{row['bound_ms'] * launches:.3f} ms ({row['bound_by']})")
     del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_audio(dev) -> dict:
+    """``[train audio]``: whisper-base at full width in bf16 from
+    ``init_params(SEED)``, remat on, AUDIO_TRAIN_STEPS steps through the
+    port's ``train_step_fn``: 8 x 448 tokens a step drawn as ``[train]``
+    draws them (``SyntheticLM``), with 8 x 1500 frames drawn with numpy
+    from the seed (each step's drawn before its clock starts).
+    :func:`train_steps` holds the launch identities (RMSNorm
+    :func:`norm_launches_per_step`: 32 in the forward, 30 recomputed) and
+    the falling loss; prints step seconds and peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as S
+    cfg = get_config(AUDIO_ARCH).with_(dtype=torch.bfloat16,
+                                       param_dtype=torch.bfloat16)
+    seq = FAMILY_SERVE["audio"][4]
+    tc = S.TrainConfig(lr=TRAIN_LR, warmup_steps=2,
+                       total_steps=AUDIO_TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=AUDIO_TRAIN_BATCH,
+                                  structure=64, seed=SEED))
+    rng = np.random.default_rng(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(SEED, cfg, device=dev)
+    opt = S.make_optimizer(tc, params)
+    step = S.train_step_fn(cfg, tc)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    per_step = norm_launches_per_step(cfg, tc.grad_accum)
+    log(f"[train audio] {AUDIO_ARCH} bf16, {T.param_count(params) / 1e6:.3f}"
+        f" M parameters, batch {AUDIO_TRAIN_BATCH} x {seq} tokens and "
+        f"{cfg.enc_seq} frames, {AUDIO_TRAIN_STEPS} steps, lr {TRAIN_LR} "
+        f"(cosine, warmup 2), remat {cfg.remat}; RMSNorm {per_step} "
+        f"launches a step expected; setup {setup_s:.1f} s")
+    batches = []
+    for i in range(AUDIO_TRAIN_STEPS):
+        b = data.batch_at(i)
+        b["frames"] = rng.standard_normal(
+            (AUDIO_TRAIN_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        batches.append(S.to_device(b, dev))
+    losses, norms, secs, launches = train_steps(
+        "[train audio]", step, params, opt, lambda: batches.pop(0),
+        per_step, AUDIO_TRAIN_STEPS)
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = secs[1:]
+    out = {"arch": AUDIO_ARCH, "dtype": "bfloat16",
+           "batch": AUDIO_TRAIN_BATCH, "seq": seq, "frames": cfg.enc_seq,
+           "steps": AUDIO_TRAIN_STEPS, "setup_s": setup_s,
+           "first_step_s": secs[0], "step_s_mean": float(np.mean(steady)),
+           "step_s_min": min(steady), "step_s_max": max(steady),
+           "tokens_per_s": AUDIO_TRAIN_BATCH * seq / float(np.mean(steady)),
+           "peak_mem_bytes": peak, "loss_first3": first, "loss_last3": last,
+           "losses": losses, "grad_norms": norms,
+           "rmsnorm_launches": launches, "rmsnorm_per_step": per_step}
+    log(f"[train audio] {AUDIO_TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (first 3 {first:.4f}, last 3 {last:.4f}); step "
+        f"{out['step_s_mean']:.3f} s mean over steps 2-{AUDIO_TRAIN_STEPS} "
+        f"(min {out['step_s_min']:.3f}, max {out['step_s_max']:.3f}; the "
+        f"first {secs[0]:.3f} s), {out['tokens_per_s']:.0f} text tokens/s, "
+        f"peak memory {peak} bytes ({peak / 2 ** 30:.2f} GiB); RMSNorm "
+        f"{launches} launches ({per_step} a step), flash 0, GEMM 0")
+    del params, opt, batches
     torch.cuda.empty_cache()
     return out
 
@@ -1940,8 +2180,9 @@ def phase_train_faults(dev) -> dict:
 def family_config(kind: str, dtype, gate: bool = False):
     """The served model of a family phase in ``dtype``, or its fp32 gate's
     cut (``gate``): moonshot at its first MOE_GATE_LAYERS layers, xlstm at
-    its first SSM_GATE_LAYERS, jamba's width over HYBRID_GATE_PATTERN.
-    The served jamba is its first HYBRID_LAYERS layers."""
+    its first SSM_GATE_LAYERS, internvl2 at its first VLM_GATE_LAYERS,
+    jamba's width over HYBRID_GATE_PATTERN; whisper's gate is the whole
+    model.  The served jamba is its first HYBRID_LAYERS layers."""
     from repro_torch.configs import get_config
     cfg = get_config(FAMILY_SERVE[kind][0]).with_(dtype=dtype,
                                                   param_dtype=dtype)
@@ -1949,13 +2190,14 @@ def family_config(kind: str, dtype, gate: bool = False):
         pattern = (HYBRID_GATE_PATTERN if gate
                    else cfg.pattern[:HYBRID_LAYERS])
         return cfg.with_(pattern=pattern, n_layers=len(pattern))
-    if gate:
-        return cfg.with_(n_layers={"moe": MOE_GATE_LAYERS,
-                                   "ssm": SSM_GATE_LAYERS}[kind])
+    cut = {"moe": MOE_GATE_LAYERS, "ssm": SSM_GATE_LAYERS,
+           "vlm": VLM_GATE_LAYERS}
+    if gate and kind in cut:
+        return cfg.with_(n_layers=cut[kind])
     return cfg
 
 
-def _noise(params, cfg, prompts, dev, eps: float) -> float:
+def _noise(params, cfg, prompts, dev, eps: float, frontends=None) -> float:
     """The plain path's own logit distance (prefill, then LM_GATE_STEPS
     teacher-forced decode steps, / max |logit|) when the embedding table
     is multiplied by (1 + eps N(0, 1)): how far a rounding-size change of
@@ -1967,11 +2209,10 @@ def _noise(params, cfg, prompts, dev, eps: float) -> float:
     moved = dict(params, embed=emb * (1 + eps * torch.randn(
         emb.shape, generator=gen, device=dev, dtype=emb.dtype)))
     worst = 0.0
-    for toks in prompts:
-        t = torch.as_tensor(toks[None], device=dev)
-        n = t.shape[1] - LM_GATE_STEPS
-        out = [T.prefill(p, {"tokens": t[:, :n]}, cfg, n + LM_GATE_STEPS + 1,
-                         use_kernel=False) for p in (params, moved)]
+    for toks, front in zip(prompts, frontends or [None] * len(prompts)):
+        batch, t, n, max_len = _gate_batch(cfg, toks, front, dev)
+        out = [T.prefill(p, batch, cfg, max_len, use_kernel=False)
+               for p in (params, moved)]
         for i in range(n, n + LM_GATE_STEPS + 1):
             worst = max(worst, rel_err(out[1][0], out[0][0])[1])
             if i == n + LM_GATE_STEPS:
@@ -1981,15 +2222,17 @@ def _noise(params, cfg, prompts, dev, eps: float) -> float:
     return worst
 
 
-def _lockstep(params, cfg, prompts, dev) -> float:
+def _lockstep(params, cfg, prompts, dev, frontends=None) -> float:
     """The kernel path against the plain path block by block: each block
     of the plain path takes the kernel path's input (in a decode step, a
     copy of its cache entry too, and the kernel block's expert sets), and
-    the logits take the kernel path's last hidden state.  Returns the
-    largest distance of a block's output or of the logits / its max
-    |value|, over the prefill and LM_GATE_STEPS teacher-forced decode
-    steps of each prompt: the kernels' rounding with no compounding
-    through the model."""
+    the logits take the kernel path's last hidden state.  An encoder's
+    blocks and ``enc_ln`` are paired the same way, and both paths' cross
+    parts attend to the kernel encoder's output.  Returns the largest
+    distance of a block's output or of the logits / its max |value|, over
+    the prefill and LM_GATE_STEPS teacher-forced decode steps of each
+    prompt: the kernels' rounding with no compounding through the
+    model."""
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
@@ -2014,18 +2257,29 @@ def _lockstep(params, cfg, prompts, dev) -> float:
              for k in (True, False)]
         return rel_err(*(T.logits_last(params, hi, cfg) for hi in h))[1]
 
-    for toks in prompts:
-        t = torch.as_tensor(toks[None], device=dev)
-        n = t.shape[1] - LM_GATE_STEPS
-        x, pos = T.embed_inputs(params, {"tokens": t[:, :n]}, cfg)
-        for p, (mixer, ffn) in zip(params["layers"], kinds):
+    for toks, front in zip(prompts, frontends or [None] * len(prompts)):
+        batch, t, n, max_len = _gate_batch(cfg, toks, front, dev)
+        enc_kv = [None] * len(kinds)
+        if cfg.enc_dec:
+            ecfg = T.encoder_config(cfg)
+            e, epos = T.embed_frames(batch, cfg)
+            for p, (mixer, ffn) in zip(params["enc_layers"],
+                                       ecfg.layer_kinds()):
+                y = [T._apply_block(e, p, ecfg, mixer, ffn, epos, False,
+                                    k)[0] for k in (True, False)]
+                worst, e = max(worst, rel_err(*y)[1]), y[0]
+            y = [L.rmsnorm(e, params["enc_ln"], use_kernel=k)
+                 for k in (True, False)]
+            worst = max(worst, rel_err(*y)[1])
+            enc_kv = [T.cross_kv(p, y[0], cfg) for p in params["layers"]]
+        x, pos = T.embed_inputs(params, batch, cfg)
+        for p, (mixer, ffn), kv in zip(params["layers"], kinds, enc_kv):
             y = pair(*(lambda k=k: T._apply_block(
-                x, p, cfg, mixer, ffn, pos, True, k)[0]
+                x, p, cfg, mixer, ffn, pos, True, k, enc_kv=kv)[0]
                 for k in (True, False)))
             worst, x = max(worst, rel_err(*y)[1]), y[0]
         worst = max(worst, last(x))
-        _, cache = T.prefill(params, {"tokens": t[:, :n]}, cfg,
-                             n + LM_GATE_STEPS + 1)
+        _, cache = T.prefill(params, batch, cfg, max_len)
         for i in range(n, n + LM_GATE_STEPS):
             pos = cache["pos"]
             x = T.embed(params["embed"], t[:, i:i + 1], cfg.dtype)
@@ -2045,11 +2299,13 @@ def _lockstep(params, cfg, prompts, dev) -> float:
 
 
 def phase_serve_family(dev, kind: str) -> dict:
-    """``[serve moe]``, ``[serve ssm]``, ``[serve hybrid]``: a family's
-    model with seeded weights.  First the kernel path against the plain
-    path (:func:`_path_vs_plain`, 2 prompts drawn in the phase's prompt
-    range) in fp32 at the gate's cut (LM_TOL_FP32, the plain path routed by
-    its own router and by the kernel path's expert sets); for xlstm also
+    """``[serve moe]``, ``[serve ssm]``, ``[serve hybrid]``, ``[serve
+    audio]``, ``[serve vlm]``: a family's model with seeded weights.
+    First the kernel path against the plain path (:func:`_path_vs_plain`,
+    2 prompts drawn in the phase's prompt range, behind patches or frames
+    drawn with numpy from the phase's seed) in fp32 at the gate's cut
+    (LM_TOL_FP32, the plain path routed by its own router and by the
+    kernel path's expert sets); for xlstm also
     in fp32 at all 48 layers, ungated, beside the model's own noise
     (:func:`_noise`); then the served model in bf16: LM_TOL_BF16 block by
     block (:func:`_lockstep`) and, for FREE_BF16_GATE, on the free-running
@@ -2065,8 +2321,9 @@ def phase_serve_family(dev, kind: str) -> dict:
     import numpy as np
     import torch
     from repro_torch.models import transformer as T
+    from repro_torch.train.server import stub_frontend
     tag = f"[serve {kind}]"
-    arch, n_requests, prompt, new = FAMILY_SERVE[kind]
+    arch, n_requests, prompt, new, max_len = FAMILY_SERVE[kind]
     seed = SEED + 10 + list(FAMILY_SERVE).index(kind)
     rng = np.random.default_rng(seed)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2081,6 +2338,7 @@ def phase_serve_family(dev, kind: str) -> dict:
         prompts = [rng.integers(0, cfg.vocab, size=int(n) + LM_GATE_STEPS)
                    .astype(np.int64) for n in rng.integers(
                        lo, hi + 1, size=LM_GATE_REQUESTS)]
+        fronts = gate_frontends(cfg, rng, LM_GATE_REQUESTS, dev)
         t0 = time.perf_counter()
         params = T.init_params(SEED, cfg, device=dev)
         torch.cuda.synchronize()
@@ -2092,14 +2350,18 @@ def phase_serve_family(dev, kind: str) -> dict:
             f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, "
             + (f"{cfg.n_experts} experts top-{cfg.moe_top_k} "
                f"({cfg.moe_impl}), " if cfg.n_experts else "")
+            + (f"{cfg.n_enc_layers} encoder layers over {cfg.enc_seq} "
+               f"frames, " if cfg.enc_dec else "")
+            + (f"a {cfg.vision_prefix}-patch prefix, "
+               if cfg.vision_prefix else "")
             + f"vocab {cfg.vocab}: {n_params / 1e9:.3f} B "
             f"parameters, seeded init {init_s:.1f} s")
         free = tol is not None and (gate or kind in FREE_BF16_GATE)
         with torch.no_grad():
-            g = _path_vs_plain(params, cfg, prompts, dev)
+            g = _path_vs_plain(params, cfg, prompts, dev, fronts)
             noise = (None if free else
-                     _noise(params, cfg, prompts, dev, NOISE[name]))
-            step = (_lockstep(params, cfg, prompts, dev)
+                     _noise(params, cfg, prompts, dev, NOISE[name], fronts))
+            step = (_lockstep(params, cfg, prompts, dev, fronts)
                     if dtype == torch.bfloat16 else None)
         gated = max(g["rel"], g["rel_same_routes"]) if gate else \
             g["rel_same_routes"]
@@ -2134,34 +2396,38 @@ def phase_serve_family(dev, kind: str) -> dict:
             del params
             torch.cuda.empty_cache()
     serve = phase_serve(dev, params, cfg, tag, arch, n_requests, prompt, new,
-                        seed)
-    per_tok = [1e3 * t / n for t, n in zip(serve["prefill_s"],
-                                           serve["prompt_lens"])]
+                        seed, max_len)
+    # a prefilled position: a prompt token, or a vision prefix's patch
+    per_tok = [1e3 * t / (cfg.vision_prefix + n)
+               for t, n in zip(serve["prefill_s"], serve["prompt_lens"])]
     # a decode step reads every weight at least once (the dropping MoE
     # runs every expert on its capacity slots)
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in _leaves(params))
     floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"{tag} prefill {float(np.mean(per_tok)):.3f} ms a prompt token "
+    log(f"{tag} prefill {float(np.mean(per_tok)):.3f} ms a prefilled "
+        f"position (vision prefix + prompt tokens) "
         f"(mean over requests; min {min(per_tok):.3f}, max "
         f"{max(per_tok):.3f}); decode step {serve['decode_step_ms']:.3f} ms "
         f"beside its yardstick, the {weight_bytes / 1e9:.1f} GB of weights "
         f"read once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
         f"{floor_ms:.2f} ms")
-    # where a step's time goes: the shortest prompt's prefill, and 4
-    # decode steps of every slot at that depth
-    cache = T.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
-    cache["pos"][:] = prompt[0]
+    # where a step's time goes: the shortest prompt's prefill (behind the
+    # server's zero patches or frames), and 4 decode steps of every slot
+    # at that depth
+    cache = T.init_cache(cfg, LM_SLOTS, max_len, device=dev)
+    cache["pos"][:] = cfg.vision_prefix + prompt[0]
     toks = torch.as_tensor(np.arange(prompt[0]) % cfg.vocab,
                            device=dev)[None]
+    batch = dict(stub_frontend(cfg, dev), tokens=toks)
     last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
     with torch.no_grad():
         profile = profile_runs({
             f"{kind} prefill {prompt[0]}": (1, lambda: T.prefill(
-                params, {"tokens": toks}, cfg, LM_MAX_LEN)),
+                params, batch, cfg, max_len)),
             f"{kind} decode_step": (4, lambda: T.decode_step(
                 params, cache, last, cfg))})
-    del cache
+    del cache, batch
     kernels, _ = time_serve_kernels(dev, cfg, serve, seed + 100, tag)
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"{tag} peak device memory {peak} bytes "
@@ -2248,6 +2514,8 @@ def main() -> int:
         families[kind], family_s[kind] = timed(
             lambda: phase_serve_family(dev, kind))
         log(f"[serve {kind}] phase {family_s[kind]:.1f} s")
+    train_audio, train_audio_s = timed(lambda: phase_train_audio(dev))
+    log(f"[train audio] phase {train_audio_s:.1f} s")
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -2267,8 +2535,10 @@ def main() -> int:
                                 "serve_live": live_s, "train": train_s,
                                 "train_faults": faults_s,
                                 **{f"serve_{k}": v
-                                   for k, v in family_s.items()}},
+                                   for k, v in family_s.items()},
+                                "train_audio": train_audio_s},
                     "train": train, "train_faults": faults,
+                    "train_audio": train_audio,
                     "families": {k: {key: v for key, v in f.items()
                                      if key != "kernels"}
                                  for k, f in families.items()},
@@ -2320,6 +2590,7 @@ def main() -> int:
         **{f"serve_{kind}": f["kernels"][name]
            for kind, f in families.items() if name in f["kernels"]},
         **({"train_launches": train["rmsnorm_launches"],
+            "train_audio_launches": train_audio["rmsnorm_launches"],
             "train": dict(train["rmsnorm_time"], max_abs_err=norm_bwd[
                 "forward_max_abs_err"]),
             "backward_max_abs_err": norm_bwd["backward_max_abs_err"]}

@@ -3,9 +3,8 @@
 Each module defines the exact published CONFIG plus a ``reduced()`` smoke
 variant of the same family (same block pattern, tiny dims), as data: the
 same names and values as the reference's ``repro.configs``, on the port's
-:class:`~repro_torch.models.transformer.ArchConfig` (torch dtypes).  Every
-config resolves; the model raises ``NotImplementedError`` for the families
-the port does not run yet.
+:class:`~repro_torch.models.transformer.ArchConfig` (torch dtypes).  The
+port's model runs every one of them.
 """
 from __future__ import annotations
 

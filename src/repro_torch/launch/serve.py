@@ -19,8 +19,11 @@ geometries on idle decode slots (``--autotune``, see
 drained.  With ``--rate`` the trace replays Poisson arrivals against the
 wall clock (idle gaps fast-forwarded), which is what gives ``--autotune``
 idle windows to measure in.  Weights are random, drawn from ``--seed``.
-Every RMSNorm runs through the RMSNorm kernel and prefill attention through
-the flash kernel.  Without a GPU and without ``--device cpu`` it raises.
+Every ``--arch`` of ``repro_torch.configs`` serves: whisper-base's encoder
+runs over zero frames and internvl2-26b's prompts follow zero patches (the
+frontends are stubs, as in the reference's server).  Every RMSNorm runs
+through the RMSNorm kernel and prefill self attention through the flash
+kernel.  Without a GPU and without ``--device cpu`` it raises.
 
 Throughput excludes warm-up: one throwaway request is served before the
 timed run.  Rejected and abandoned requests are reported loudly and never

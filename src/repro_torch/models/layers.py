@@ -1,9 +1,10 @@
 """Transformer building blocks of the LM serving and training paths.
 
-The dense subset of the reference's ``repro.models.layers``: norms,
-projections, rotary embedding, init helpers, the MLPs, KV-chunked
-attention with its custom backward, the attention block, and decode
-attention against a KV cache (full and ring-buffer).  Parameters are
+The port of the reference's ``repro.models.layers``: norms, projections,
+rotary and sinusoidal positions, init helpers, the MLPs, KV-chunked
+attention with its custom backward, the self and cross attention
+blocks, and decode attention against a KV cache (full and
+ring-buffer).  Parameters are
 plain dicts of tensors, as in the reference; layouts are the reference's
 ((B, S, H, D) attention, (in, out) projection weights).
 
@@ -14,7 +15,11 @@ differentiable) and :func:`attention_block` (prefill attention through
 they run the plain path: ``rmsnorm_plain`` and the reference model's own
 :func:`chunked_attention`.  The training forward (``train=True``) always
 attends through :func:`chunked_attention`, whose backward is written out;
-the flash kernel is forward-only.  Projections and decode attention are
+the flash kernel is forward-only.  Cross attention (queries of the text,
+keys and values of an encoder's longer sequence) also runs through
+:func:`chunked_attention` on every path, as the reference computes it
+outside its Pallas kernel: the flash kernel takes one sequence length
+for q and k.  Projections and decode attention are
 einsums, as they are outside any Pallas kernel in the reference.
 """
 from __future__ import annotations
@@ -60,6 +65,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(s: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """(s, d) sin (even columns) / cos (odd columns) positions, computed
+    in fp32 and cast once to ``dtype``."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((s, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
 
 
 # ------------------------------------------------------------- init helpers
@@ -262,17 +280,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
                              chunk=cfg.attn_chunk)
 
 
+def heads(h: torch.Tensor, p: Params, name: str, n_heads: int,
+          head_dim: int) -> torch.Tensor:
+    """One projection (``w<name>``, with ``b<name>`` where the block has
+    it) of a normed (B, S, D_model) input, as (B, S, n_heads, head_dim)."""
+    b, s, _ = h.shape
+    return dense(h, p["w" + name], p.get("b" + name)).reshape(
+        b, s, n_heads, head_dim)
+
+
 def qkv(h: torch.Tensor, p: Params, cfg) -> Tuple[torch.Tensor, ...]:
     """The three projections of a normed (B, S, D_model) input, as
     (B, S, heads, head_dim)."""
-    b, s, _ = h.shape
-    q = dense(h, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads,
-                                              cfg.head_dim)
-    k = dense(h, p["wk"], p.get("bk")).reshape(b, s, cfg.n_kv_heads,
-                                              cfg.head_dim)
-    v = dense(h, p["wv"], p.get("bv")).reshape(b, s, cfg.n_kv_heads,
-                                              cfg.head_dim)
-    return q, k, v
+    return (heads(h, p, "q", cfg.n_heads, cfg.head_dim),
+            heads(h, p, "k", cfg.n_kv_heads, cfg.head_dim),
+            heads(h, p, "v", cfg.n_kv_heads, cfg.head_dim))
 
 
 def attention_block(x: torch.Tensor, p: Params, cfg,
@@ -293,6 +315,21 @@ def attention_block(x: torch.Tensor, p: Params, cfg,
     out = attention(q, k, v, cfg, causal=causal, window=window,
                     use_kernel=use_kernel, train=train)
     return x + dense(out.reshape(b, s, -1), p["wo"]), k, v
+
+
+def cross_attention_block(x: torch.Tensor, p: Params, cfg,
+                          kv: Tuple[torch.Tensor, torch.Tensor],
+                          use_kernel: bool = True) -> torch.Tensor:
+    """Cross attention block (prefill and training path): q from this
+    block's norm (``use_kernel``: the RMSNorm kernel) and ``wq``, no rope;
+    ``kv``: an encoder's (B, Sk, HKV, D) keys and values.  Non-causal,
+    through :func:`chunked_attention` on every path (Sk is not q's
+    length).  Returns x + the attention output."""
+    b, s, _ = x.shape
+    h = rmsnorm(x, p["ln"], use_kernel=use_kernel)
+    q = heads(h, p, "q", cfg.n_heads, cfg.head_dim)
+    out = chunked_attention(q, *kv, causal=False, chunk=cfg.attn_chunk)
+    return x + dense(out.reshape(b, s, -1), p["wo"])
 
 
 # ------------------------------------------------------------ decode (KV$)

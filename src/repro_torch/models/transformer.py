@@ -1,11 +1,23 @@
 """Block-stack LM: the training and serving paths in PyTorch.
 
-The counterpart of the reference's ``repro.models.transformer`` for the
-decoder-only families.  An architecture is a period pattern of (mixer,
-ffn) pairs: mixers ``attn``/``swa``/``mamba``/``mlstm``/``slstm``/``none``
-and FFNs ``mlp``/``moe``/``gelu``/``none`` (``repro_torch.models.moe`` and
-``repro_torch.models.ssm``).  Encoder-decoder and vision-prefix models
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The counterpart of the reference's ``repro.models.transformer`` for all
+ten architectures.  An architecture is a period pattern of (mixer, ffn)
+pairs: mixers ``attn``/``swa``/``mamba``/``mlstm``/``slstm``/``none`` and
+FFNs ``mlp``/``moe``/``gelu``/``none`` (``repro_torch.models.moe`` and
+``repro_torch.models.ssm``).  Two structures sit around the stack:
+
+  encoder-decoder (``cfg.enc_dec``, whisper): ``batch["frames"]`` (B, F,
+      D) plus sinusoidal positions go through a non-causal, rope-free
+      encoder stack of (attn, gelu) layers (``params["enc_layers"]``) and
+      ``enc_ln``; each decoder layer has a ``cross`` attention part
+      between its mixer and its FFN, whose keys and values are projected
+      from the encoder's output once and kept in the cache as ``xk``/``xv``
+      (B, F, HKV, D).  The decoder itself gets no positional signal
+      beyond what the config's rope gives (whisper's: none), as in the
+      reference;
+  vision prefix (``cfg.vision_prefix`` P, internvl2): ``batch["patches"]``
+      (B, P, D) is put ahead of the token embeddings; positions and the
+      cache run over P + T, and the loss masks the P prefix positions.
 
 Where the reference scans over weights stacked (R, ...) per period
 position, the port loops over layers in Python: ``params["layers"]`` is a
@@ -18,9 +30,11 @@ tree that way).  The decode cache is ``{"pos": (B,) int32, "layers":
 batch on axis 0.  Decode writes it in place (the reference donates it to
 its jitted step instead).
 
-Every RMSNorm goes through the RMSNorm kernel (one a mixer and one an FFN
-that the layer has, + the final norm; differentiable) and prefill
-attention through the flash kernel (1 an attention layer);
+Every RMSNorm goes through the RMSNorm kernel (one a mixer, one a cross
+part and one an FFN that the layer has, the encoder's layers and
+``enc_ln`` too, + the final norm; differentiable) and prefill self
+attention through the flash kernel (1 an attention layer, the encoder's
+non-causal ones included; cross attention is ``L.chunked_attention``);
 ``use_kernel=False`` runs the plain path instead (see
 :mod:`repro_torch.models.layers`).  Three entry points:
   train:   tokens -> chunked-softmax xent loss (:func:`loss_fn`; never
@@ -60,9 +74,8 @@ _FP32_LEAVES = dict(SSM.FP32_LEAVES, moe=MOE.FP32_LEAVES)
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ``ArchConfig`` with torch dtypes.  Fields the port
-    does not read yet (encoder-decoder, vision prefix) are kept so every
-    config module holds the same data as the reference's."""
+    """The reference's ``ArchConfig`` with torch dtypes: every config
+    module holds the same data as the reference's."""
     name: str
     family: str                 # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
@@ -91,8 +104,8 @@ class ArchConfig:
     # structure
     enc_dec: bool = False
     n_enc_layers: int = 0
-    enc_seq: int = 0
-    vision_prefix: int = 0
+    enc_seq: int = 0            # audio frames fed by the frontend stub
+    vision_prefix: int = 0      # VLM patch embeddings fed by the stub
     mlp_variant: str = "swiglu"
     # numerics / memory
     dtype: Any = torch.bfloat16
@@ -126,15 +139,7 @@ class ArchConfig:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP Queue 1, item 15c)")
-    if cfg.vision_prefix:
-        raise NotImplementedError(
-            f"{cfg.name}: vision-prefix models are not ported yet "
-            f"(ROADMAP Queue 1, item 15c)")
+    """Raise ``ValueError`` for a block the port does not know."""
     for mixer, ffn in cfg.pattern:
         if mixer not in _MIXERS or ffn not in _FFNS:
             raise ValueError(f"{cfg.name}: unknown block ({mixer}, {ffn})")
@@ -142,8 +147,14 @@ def check_supported(cfg: ArchConfig) -> None:
 
 # --------------------------------------------------------------------- init
 
+def encoder_config(cfg: ArchConfig) -> ArchConfig:
+    """The encoder stack's config: (attn, gelu) layers, no rope."""
+    return cfg.with_(pattern=(("attn", "gelu"),), use_rope=False,
+                     n_layers=cfg.n_enc_layers)
+
+
 def _init_one_layer(gen: torch.Generator, cfg: ArchConfig, mixer: str,
-                    ffn: str, device) -> Params:
+                    ffn: str, device, cross: bool = False) -> Params:
     p: Params = {}
     dt = cfg.param_dtype
     if mixer in ("attn", "swa"):
@@ -157,6 +168,10 @@ def _init_one_layer(gen: torch.Generator, cfg: ArchConfig, mixer: str,
         p["mix"] = SSM.init_mlstm(gen, cfg.d_model, cfg.n_heads, dt, device)
     elif mixer == "slstm":
         p["mix"] = SSM.init_slstm(gen, cfg.d_model, cfg.n_heads, dt, device)
+    if cross:
+        p["cross"] = L.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.head_dim, False,
+                                      dt, device)
     if ffn == "moe":
         p["ffn"] = MOE.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
                                 dt, device)
@@ -176,22 +191,28 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
     dt = cfg.param_dtype
     scale = 1.0 / math.sqrt(cfg.d_model)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    return {
+    params = {
         "embed": (randn(cfg.vocab, cfg.d_model) * scale).to(dt),
         "final_ln": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         "lm_head": (randn(cfg.d_model, cfg.vocab) * scale).to(dt),
-        "layers": [_init_one_layer(gen, cfg, mixer, ffn, dev)
+        "layers": [_init_one_layer(gen, cfg, mixer, ffn, dev, cfg.enc_dec)
                    for mixer, ffn in cfg.layer_kinds()],
     }
+    if cfg.enc_dec:
+        params["enc_layers"] = [
+            _init_one_layer(gen, cfg, mixer, ffn, dev)
+            for mixer, ffn in encoder_config(cfg).layer_kinds()]
+        params["enc_ln"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
+    return params
 
 
 def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> Params:
     """The reference's ``init_params`` tree (numpy or jax leaves; layers a
     tuple per period position of leaves stacked (R, ...)) as the port's
     params: each stacked leaf is unstacked along axis 0 into layer
-    ``r * period + p``, and cast to ``cfg.param_dtype``, except the leaves
-    the reference keeps in fp32 (see :func:`init_params`), which stay
-    fp32."""
+    ``r * period + p`` (the encoder's ``enc_layers`` alike), and cast to
+    ``cfg.param_dtype``, except the leaves the reference keeps in fp32
+    (see :func:`init_params`), which stay fp32."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -209,12 +230,19 @@ def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> Params:
                          for k, v in leaves.items()}
         return out
 
-    layers = []
-    for i, (mixer, ffn) in enumerate(cfg.layer_kinds()):
-        layers.append(unstack(tree["layers"][i % cfg.period],
-                              i // cfg.period, {"mix": mixer, "ffn": ffn}))
-    return {"embed": conv(tree["embed"]), "final_ln": conv(tree["final_ln"]),
-            "lm_head": conv(tree["lm_head"]), "layers": layers}
+    def stack(stacked, c: ArchConfig) -> List[Params]:
+        return [unstack(stacked[i % c.period], i // c.period,
+                        {"mix": mixer, "ffn": ffn, "cross": "attn"})
+                for i, (mixer, ffn) in enumerate(c.layer_kinds())]
+
+    params = {"embed": conv(tree["embed"]),
+              "final_ln": conv(tree["final_ln"]),
+              "lm_head": conv(tree["lm_head"]),
+              "layers": stack(tree["layers"], cfg)}
+    if cfg.enc_dec:
+        params["enc_layers"] = stack(tree["enc_layers"], encoder_config(cfg))
+        params["enc_ln"] = conv(tree["enc_ln"])
+    return params
 
 
 def param_count(params: Params) -> int:
@@ -242,10 +270,13 @@ def _ffn(x, p, cfg: ArchConfig, ffn: str, use_kernel: bool
 
 
 def _apply_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, positions,
-                 causal: bool, use_kernel: bool, train: bool = False):
+                 causal: bool, use_kernel: bool, train: bool = False,
+                 enc_kv=None):
     """Prefill or training block. Returns (x, aux or None, cache entry):
     an attention layer's roped keys and values, a recurrent mixer's state
-    after the sequence (its fields as keys)."""
+    after the sequence (its fields as keys).  ``enc_kv``: the encoder's
+    (keys, values) for this layer's cross part, which runs between the
+    mixer and the FFN."""
     cache: Dict[str, torch.Tensor] = {}
     if mixer in ("attn", "swa"):
         window = cfg.swa_window if mixer == "swa" else None
@@ -256,14 +287,17 @@ def _apply_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, positions,
         x, st = _RECURRENT[mixer][0](x, p["mix"], cfg,
                                      use_kernel=use_kernel)
         cache = st._asdict()
+    if enc_kv is not None:
+        x = L.cross_attention_block(x, p["cross"], cfg, enc_kv, use_kernel)
     x, aux = _ffn(x, p, cfg, ffn, use_kernel)
     return x, aux, cache
 
 
 def _train_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, positions,
-                 use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    x, aux, _ = _apply_block(x, p, cfg, mixer, ffn, positions, True,
-                             use_kernel, train=True)
+                 causal: bool, use_kernel: bool, enc_kv=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    x, aux, _ = _apply_block(x, p, cfg, mixer, ffn, positions, causal,
+                             use_kernel, train=True, enc_kv=enc_kv)
     return x, (aux if aux is not None
                else torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -285,12 +319,83 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
 
 def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
                  cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embedding (:func:`embed`). Returns (x (B,S,D), positions
-    (B,S))."""
+    """Token embedding (:func:`embed`), behind the vision prefix
+    ``batch["patches"]`` (B, P, D) cast to ``cfg.dtype`` where the config
+    has one. Returns (x (B,S,D), positions (B,S)), S = P + T."""
     x = embed(params["embed"], batch["tokens"], cfg.dtype)
+    if cfg.vision_prefix:
+        x = torch.cat([batch["patches"].to(cfg.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     return x, positions
+
+
+def _run_stack(x, layers: List[Params], cfg: ArchConfig, positions,
+               causal: bool, use_kernel: bool, train: bool,
+               enc_out: Optional[torch.Tensor] = None):
+    """The layer stack. Returns (x, aux summed (fp32), per-layer cache
+    entries; {} in training).  With ``enc_out`` each layer's cross part
+    attends to its keys and values, projected here once a layer and kept
+    in the layer's entry as ``xk``/``xv``.  In training with
+    ``cfg.remat`` each block runs under ``torch.utils.checkpoint``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for p, (mixer, ffn) in zip(layers, cfg.layer_kinds()):
+        enc_kv = (cross_kv(p, enc_out, cfg)
+                  if enc_out is not None and "cross" in p else None)
+        if not train:
+            x, aux_i, cache = _apply_block(x, p, cfg, mixer, ffn, positions,
+                                           causal, use_kernel,
+                                           enc_kv=enc_kv)
+            if aux_i is not None:
+                aux = aux + aux_i
+            if enc_kv is not None:
+                cache["xk"], cache["xv"] = enc_kv
+            caches.append(cache)
+            continue
+        block = functools.partial(_train_block, p=p, cfg=cfg, mixer=mixer,
+                                  ffn=ffn, positions=positions, causal=causal,
+                                  use_kernel=use_kernel, enc_kv=enc_kv)
+        # the block draws no random numbers: no RNG state to keep
+        x, aux_i = (checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False)
+                    if cfg.remat and torch.is_grad_enabled() else block(x))
+        aux = aux + aux_i
+        caches.append({})
+    return x, aux, caches
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ArchConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross keys and values from the encoder's output
+    (B, F, D): its ``cross`` part's ``wk``/``wv``, no bias, no rope; each
+    (B, F, HKV, D)."""
+    b, f, _ = enc_out.shape
+    return tuple(L.dense(enc_out, p["cross"][w]).reshape(
+        b, f, cfg.n_kv_heads, cfg.head_dim) for w in ("wk", "wv"))
+
+
+def embed_frames(batch: Dict[str, torch.Tensor], cfg: ArchConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's input: ``batch["frames"]`` (B, F, D) (the frontend
+    stub's) cast to ``cfg.dtype`` plus sinusoidal positions in that dtype.
+    Returns (x (B,F,D), positions (B,F))."""
+    frames = batch["frames"].to(cfg.dtype)
+    b, f, _ = frames.shape
+    x = frames + L.sinusoidal_positions(f, cfg.d_model, cfg.dtype,
+                                        frames.device)
+    return x, torch.arange(f, device=x.device).expand(b, f)
+
+
+def encode(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+           use_kernel: bool = True, train: bool = False) -> torch.Tensor:
+    """Whisper-style encoder over precomputed frames (:func:`embed_frames`):
+    the non-causal encoder stack (:func:`encoder_config`), then
+    ``enc_ln``. Returns (B, F, D)."""
+    x, pos = embed_frames(batch, cfg)
+    x, _, _ = _run_stack(x, params["enc_layers"], encoder_config(cfg), pos,
+                         False, use_kernel, train)
+    return L.rmsnorm(x, params["enc_ln"], use_kernel=use_kernel)
 
 
 def hidden_states(params: Params, batch: Dict[str, torch.Tensor],
@@ -300,37 +405,23 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor],
                              List[Dict[str, torch.Tensor]]]:
     """Forward to the final normed hidden states. Returns (h, aux: the MoE
     layers' load-balance losses summed (fp32, 0 without MoE), per-layer
-    cache entries (:func:`_apply_block`; {} in training)).
+    cache entries (:func:`_apply_block`, plus ``xk``/``xv`` of an
+    encoder-decoder; {} in training)).
 
     ``train``: the training forward.  Attention goes through
     ``L.chunked_attention`` (the reference's training attention, with its
     custom backward), no cache is kept, and with ``cfg.remat`` each block
-    runs under ``torch.utils.checkpoint`` (non-reentrant): the backward
-    recomputes one block at a time, as the reference's nested remat does
-    (for a period of one block, its outer remat of the period adds
-    nothing).  The final norm is not recomputed."""
+    (the encoder's too) runs under ``torch.utils.checkpoint``
+    (non-reentrant): the backward recomputes one block at a time, as the
+    reference's nested remat does (for a period of one block, its outer
+    remat of the period adds nothing).  ``enc_ln`` and the final norm are
+    not recomputed."""
     check_supported(cfg)
     x, positions = embed_inputs(params, batch, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = []
-    for p, (mixer, ffn) in zip(params["layers"], cfg.layer_kinds()):
-        if not train:
-            x, aux_i, cache = _apply_block(x, p, cfg, mixer, ffn, positions,
-                                           causal=True,
-                                           use_kernel=use_kernel)
-            if aux_i is not None:
-                aux = aux + aux_i
-            caches.append(cache)
-            continue
-        block = functools.partial(_train_block, p=p, cfg=cfg, mixer=mixer,
-                                  ffn=ffn, positions=positions,
-                                  use_kernel=use_kernel)
-        # the block draws no random numbers: no RNG state to keep
-        x, aux_i = (checkpoint(block, x, use_reentrant=False,
-                               preserve_rng_state=False)
-                    if cfg.remat and torch.is_grad_enabled() else block(x))
-        aux = aux + aux_i
-        caches.append({})
+    enc_out = (encode(params, batch, cfg, use_kernel, train)
+               if cfg.enc_dec else None)
+    x, aux, caches = _run_stack(x, params["layers"], cfg, positions, True,
+                                use_kernel, train, enc_out)
     return (L.rmsnorm(x, params["final_ln"], use_kernel=use_kernel), aux,
             caches)
 
@@ -371,17 +462,21 @@ def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor,
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss: mean next-token NLL over the unmasked labels
-    plus the MoE layers' summed load-balance loss, weighted by
-    ``cfg.aux_loss_weight / n_layers`` (0 without MoE).  Returns (total,
-    {"nll", "aux", "tokens"}).
+    (never the vision prefix's positions) plus the MoE layers' summed
+    load-balance loss, weighted by ``cfg.aux_loss_weight / n_layers`` (0
+    without MoE).  Returns (total, {"nll", "aux", "tokens"}).
 
     The reference casts h's cotangent back to h's dtype (``_grad_cast``)
     so that its fp32 loss math does not promote the backward's residual
     stream to fp32; here nothing is needed: the gradient autograd returns
     through ``.to()`` / ``.float()`` is already in the input's dtype."""
     h, aux, _ = hidden_states(params, batch, cfg, train=True)
-    nll, cnt = chunked_xent(h, params["lm_head"], batch["labels"],
-                            cfg.loss_chunk)
+    labels = batch["labels"]
+    if cfg.vision_prefix:   # loss only over the text segment
+        pad = torch.full((labels.shape[0], cfg.vision_prefix), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    nll, cnt = chunked_xent(h, params["lm_head"], labels, cfg.loss_chunk)
     loss = nll / torch.clamp(cnt, min=1.0)
     total = loss + cfg.aux_loss_weight * aux / max(cfg.n_layers, 1)
     return total, {"nll": loss, "aux": aux, "tokens": cnt}
@@ -407,7 +502,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Zero decode cache; per-sequence positions (each batch slot may be
     at a different depth).  A recurrent mixer's entry is its initial
     state (Mamba: zeros, the conv tail in ``cfg.dtype``; mLSTM/sLSTM: the
-    stabilizer m at -1e30, sLSTM's n at 1e-6)."""
+    stabilizer m at -1e30, sLSTM's n at 1e-6).  An encoder-decoder's
+    entries also hold zero ``xk``/``xv`` (B, enc_seq, HKV, D)."""
     check_supported(cfg)
     dev = resolve_device(device)
     layers = []
@@ -427,6 +523,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         elif mixer == "slstm":
             entry = SSM.init_slstm_state(batch, cfg.d_model,
                                          device=dev)._asdict()
+        if cfg.enc_dec:
+            shape = (batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+            entry["xk"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            entry["xv"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
         layers.append(entry)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "layers": layers}
@@ -435,9 +535,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
                   kv_len: int, use_kernel: bool):
     """One-token block. x: (B,1,D).  Writes the cache entry (KV or
-    recurrent state) in place and returns x.  ``kv_len``: an upper bound
-    of every slot's cache length (decode attention reads no further; the
-    mask hides the rest anyway)."""
+    recurrent state) in place and returns x; an encoder-decoder's cross
+    part attends to the entry's ``xk``/``xv`` over all ``enc_seq``.
+    ``kv_len``: an upper bound of every slot's cache length (decode
+    attention reads no further; the mask hides the rest anyway)."""
     if mixer in ("attn", "swa"):
         b = x.shape[0]
         window = cfg.swa_window if mixer == "swa" else None
@@ -463,6 +564,12 @@ def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
                       use_kernel=use_kernel)
         for key, t in st._asdict().items():
             entry[key].copy_(t)
+    if "cross" in p:
+        b = x.shape[0]
+        h = L.rmsnorm(x, p["cross"]["ln"], use_kernel=use_kernel)
+        q = L.heads(h, p["cross"], "q", cfg.n_heads, cfg.head_dim)
+        out = L.decode_attention(q, entry["xk"], entry["xv"], cfg.enc_seq)
+        x = x + L.dense(out.reshape(b, 1, -1), p["cross"]["wo"])
     return _ffn(x, p, cfg, ffn, use_kernel)[0]
 
 
@@ -488,7 +595,9 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             max_len: int, use_kernel: bool = True
             ) -> Tuple[torch.Tensor, Params]:
-    """Prefill: full forward, build a decode cache padded to ``max_len``."""
+    """Prefill: full forward, build a decode cache padded to ``max_len``.
+    Its length and ``pos`` count the vision prefix (P + T); ``xk``/``xv``
+    pass through unpadded."""
     h, _, caches = hidden_states(params, batch, cfg, use_kernel=use_kernel)
     b, s = h.shape[0], h.shape[1]
     layers = []
@@ -501,11 +610,12 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                 kp = torch.zeros(pad, dtype=k.dtype, device=k.device)
                 vp = torch.zeros(pad, dtype=v.dtype, device=v.device)
                 kp[:, :s], vp[:, :s] = k, v
-                entry = {"k": kp, "v": vp}
+                entry = dict(entry, k=kp, v=vp)
             else:  # ring: keep the last c tokens, rotated so that
                    # slot (s % c) is the oldest (next write target)
                 idx = (torch.arange(c, device=k.device) - s % c) % c
-                entry = {"k": k[:, s - c:][:, idx], "v": v[:, s - c:][:, idx]}
+                entry = dict(entry, k=k[:, s - c:][:, idx],
+                             v=v[:, s - c:][:, idx])
         layers.append(entry)
     logits = logits_last(params, h, cfg)
     pos = torch.full((b,), s, dtype=torch.int32, device=h.device)

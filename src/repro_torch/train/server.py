@@ -14,8 +14,14 @@ breakdown per request.  Idle capacity is a first-class resource: a
 only when the queue is empty and at least one decode slot is free.
 
 The cache lives on the device of the weights and is updated in place: a
-prefill's cache is copied into its slot, and each decode step writes one
-token per slot (the reference donates the cache to its jitted step).
+prefill's cache is copied into its slot (every entry with the batch on
+axis 0: KV, recurrent state, an encoder-decoder's cross ``xk``/``xv``),
+and each decode step writes one token per slot (the reference donates the
+cache to its jitted step).  As in the reference, ``max_len`` counts the
+prompt only, never a vision prefix ahead of it (``submit`` and the
+``too_long`` rule): a prefix plus prompt past ``max_len`` keeps the last
+``max_len`` positions in the cache, and decode writes at a position
+clamped into it.
 """
 from __future__ import annotations
 
@@ -58,6 +64,20 @@ class Request:
     @property
     def ok(self) -> bool:
         return self.status == DONE
+
+
+def stub_frontend(cfg: T.ArchConfig, device) -> Dict[str, torch.Tensor]:
+    """One request's frontend inputs, which are stubs as in the
+    reference's server: zero patches (1, P, D) for a vision prefix, zero
+    frames (1, enc_seq, D) for an encoder, in ``cfg.dtype``."""
+    out = {}
+    if cfg.vision_prefix:
+        out["patches"] = torch.zeros((1, cfg.vision_prefix, cfg.d_model),
+                                     dtype=cfg.dtype, device=device)
+    if cfg.enc_dec:
+        out["frames"] = torch.zeros((1, cfg.enc_seq, cfg.d_model),
+                                    dtype=cfg.dtype, device=device)
+    return out
 
 
 def _insert_slot(cache, req_cache, slot: int) -> None:
@@ -120,9 +140,11 @@ class Server:
             slot = self.free.pop()
             req.admit_s = time.perf_counter()
             req.queue_s = req.admit_s - req.submit_s
-            tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None],
-                                     device=self.device)
-            logits, rc = T.prefill(self.params, {"tokens": tokens}, self.cfg,
+            batch = dict(stub_frontend(self.cfg, self.device),
+                         tokens=torch.as_tensor(
+                             np.asarray(req.prompt, np.int64)[None],
+                             device=self.device))
+            logits, rc = T.prefill(self.params, batch, self.cfg,
                                    self.max_len)
             _insert_slot(self.cache, rc, slot)
             first = int(torch.argmax(logits[0]))   # also syncs the prefill

@@ -2,9 +2,12 @@
 (``tests/test_server.py``) on the port's continuous-batching ``Server``
 over the reduced qwen2-1.5b in fp32 on the CPU; the reference ``Server``
 and the port's, started from the same weights, generate the same tokens
-(the reduced qwen2-1.5b, xlstm, jamba, and moonshot with its dropping
-MoE); and the ``repro_torch.launch.serve`` CLI (``--device cpu`` prints
-its report, for qwen2-1.5b and xlstm; no device and no GPU raises)."""
+(the reduced qwen2-1.5b, xlstm, jamba, moonshot with its dropping MoE,
+whisper with its encoder over zero frames and internvl2 behind zero
+patches; and internvl2 where the prefix puts decode past ``max_len``);
+and the ``repro_torch.launch.serve`` CLI (``--device cpu`` prints its
+report, for qwen2-1.5b, xlstm, whisper and internvl2; no device and no
+GPU raises)."""
 import json
 import os
 import subprocess
@@ -143,11 +146,38 @@ def test_abandoned_requests_marked_loudly(setup, srv):
     assert srv.run_until_drained() == [ok] and ok.status == DONE
 
 
+def _server_pair(arch, n_slots, max_len, **kw):
+    """The reference ``Server`` and the port's over the same reduced fp32
+    weights."""
+    jc = jax_get_config(arch, reduced=True).with_(
+        dtype=jnp.float32, param_dtype=jnp.float32, remat=False, **kw)
+    tc = get_config(arch, reduced=True).with_(
+        dtype=torch.float32, param_dtype=torch.float32, **kw)
+    jp = JT.init_params(jax.random.PRNGKey(1), jc)
+    tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
+    return (JS.Server(jp, jc, n_slots=n_slots, max_len=max_len),
+            Server(tp, tc, n_slots=n_slots, max_len=max_len), tc)
+
+
+def _outputs(jsrv, tsrv, requests):
+    """Each server's outputs for ``requests`` ((prompt, max_new) pairs)."""
+    outs = []
+    for srv_ in (jsrv, tsrv):
+        make = JS.Request if srv_ is jsrv else Request
+        reqs = [srv_.submit(make(uid=i, prompt=p, max_new_tokens=n))
+                for i, (p, n) in enumerate(requests)]
+        srv_.run_until_drained()
+        assert all(r.status == "done" for r in reqs)
+        outs.append([r.output for r in reqs])
+    return outs
+
+
 @pytest.mark.parametrize("arch,kw", [
     ("qwen2-1.5b", {}), ("xlstm-1.3b", {}), ("jamba-1.5-large-398b", {}),
-    ("moonshot-v1-16b-a3b", {"moe_impl": "dropping"})],
+    ("moonshot-v1-16b-a3b", {"moe_impl": "dropping"}), ("whisper-base", {}),
+    ("internvl2-26b", {})],
     ids=["qwen2-1.5b", "xlstm-1.3b", "jamba-1.5-large-398b",
-         "moonshot-v1-16b-a3b-dropping"])
+         "moonshot-v1-16b-a3b-dropping", "whisper-base", "internvl2-26b"])
 def test_same_tokens_as_reference_server(arch, kw):
     """Same weights, same requests (more than slots, so slots are reused
     and requests join mid-decode): the reference ``Server`` and the port's
@@ -155,23 +185,27 @@ def test_same_tokens_as_reference_server(arch, kw):
     whole when a request joins; with the dropping MoE every slot's token,
     a free slot's too, competes for an expert's capacity in a decode step,
     so the port feeds free slots what the reference feeds them (the last
-    token they held)."""
-    jc = jax_get_config(arch, reduced=True).with_(
-        dtype=jnp.float32, param_dtype=jnp.float32, remat=False, **kw)
-    tc = get_config(arch, reduced=True).with_(
-        dtype=torch.float32, param_dtype=torch.float32, **kw)
-    jp = JT.init_params(jax.random.PRNGKey(1), jc)
-    tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
-    jsrv = JS.Server(jp, jc, n_slots=2, max_len=48)
-    tsrv = Server(tp, tc, n_slots=2, max_len=48)
-    outs = []
-    for mod, srv_ in ((JS, jsrv), (None, tsrv)):
-        make = JS.Request if mod is JS else Request
-        reqs = [srv_.submit(make(uid=i, prompt=_prompt(tc, 4 + 3 * i, seed=i),
-                                 max_new_tokens=5 + i)) for i in range(4)]
-        srv_.run_until_drained()
-        assert all(r.status == "done" for r in reqs)
-        outs.append([r.output for r in reqs])
+    token they held).  whisper's and internvl2's frontends are the
+    servers' zero frames and patches."""
+    jsrv, tsrv, tc = _server_pair(arch, 2, 48, **kw)
+    outs = _outputs(jsrv, tsrv, [(_prompt(tc, 4 + 3 * i, seed=i), 5 + i)
+                                 for i in range(4)])
+    assert outs[0] == outs[1]
+
+
+def test_vision_prefix_decodes_past_max_len_as_reference():
+    """internvl2 (8 patches) with ``max_len`` 24: prompts of 12 and 10
+    tokens fit (8 + 12 = 20 < 24), and ``max_len`` counts the prompt only
+    (the reference's ``submit`` and ``too_long`` rules), so 10 new tokens
+    run decode to position 28: both servers write at the position clamped
+    into the cache (``dynamic_update_slice``'s rule) and attend to the
+    whole cache, and give the same tokens."""
+    jsrv, tsrv, tc = _server_pair("internvl2-26b", 2, 24)
+    assert tc.vision_prefix == 8
+    reqs = [(_prompt(tc, 12, seed=3), 10), (_prompt(tc, 10, seed=4), 10)]
+    outs = _outputs(jsrv, tsrv, reqs)
+    assert [len(o) for o in outs[1]] == [10, 10]
+    assert tc.vision_prefix + 12 + 10 - 1 > tsrv.max_len
     assert outs[0] == outs[1]
 
 
@@ -185,7 +219,8 @@ def _cli(*args, env_extra=None, arch="qwen2-1.5b"):
         env=env, capture_output=True, text=True, timeout=300)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "xlstm-1.3b", "whisper-base",
+                                  "internvl2-26b"])
 def test_serve_cli_on_cpu_prints_report(tmp_path, arch):
     out = tmp_path / "serve.json"
     res = _cli("--device", "cpu", "--json-out", str(out), arch=arch)

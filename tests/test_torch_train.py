@@ -5,8 +5,8 @@ masked ``chunked_xent``, ``cosine_schedule``, Adam on identical gradients,
 one ``train_step_fn`` step with and without gradient accumulation (the
 reference's step, unjitted), the embedding's NaN fill (``jnp.take``), the
 RMSNorm Function's backward, the training forward's norm count under
-remat, the synthetic data, and the forward-only kernels' refusal of
-autograd inputs."""
+remat (an encoder-decoder's too), the synthetic data, and the
+forward-only kernels' refusal of autograd inputs."""
 import functools
 
 import numpy as np
@@ -124,13 +124,24 @@ def _jax_value_and_grad(jc, batch):
                                       has_aux=True))
 
 
-def _lm_batch(vocab, b, s, seed, masked=0):
-    toks = np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
-        np.int32)
+def _lm_batch(vocab, b, s, seed, masked=0, cfg=None):
+    """Tokens and next-token labels (the first ``masked`` masked); with a
+    ``cfg`` that has them, the stub frontends' patches (B, P, D) or frames
+    (B, F, D), standard normal fp32, as the reference's
+    tests/test_models.py feeds them."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (b, s)).astype(np.int32)
     labels = np.concatenate([toks[:, 1:], np.full((b, 1), -1, np.int32)], 1)
     if masked:
         labels[:, :masked] = -1
-    return {"tokens": toks, "labels": labels}
+    batch = {"tokens": toks, "labels": labels}
+    if cfg is not None and cfg.vision_prefix:
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.vision_prefix, cfg.d_model)).astype(np.float32)
+    if cfg is not None and cfg.enc_dec:
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _grads_close(tc, tgrads, jgrads, tol):
@@ -143,13 +154,18 @@ def _grads_close(tc, tgrads, jgrads, tol):
     return worst
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "smollm-360m"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "smollm-360m",
+                                  "whisper-base", "internvl2-26b"])
 def test_loss_and_every_gradient_match_reference(arch):
     """``loss_fn`` (training forward: chunked attention with its backward,
     the RMSNorm Function, remat, chunked xent over 2 chunks) and every
-    gradient leaf against ``jax.grad(T.loss_fn)``, fp32."""
+    gradient leaf against ``jax.grad(T.loss_fn)``, fp32.  whisper: the
+    encoder over 32 drawn frames, ``enc_ln`` and the cross parts get
+    their gradients through the cross attention's keys and values;
+    internvl2: 8 drawn patches ahead of the tokens, whose positions the
+    loss masks (the token count is the text's)."""
     jc, tc, jp, tp = _models(arch)
-    batch = _lm_batch(jc.vocab, 2, 48, seed=5, masked=3)
+    batch = _lm_batch(jc.vocab, 2, 48, seed=5, masked=3, cfg=jc)
     (jloss, jm), jgrads = _jax_value_and_grad(jc, batch)(jp)
     leaves = TS.trainable(tp)
     tloss, tm = TT.loss_fn(tp, TS.to_device(batch, "cpu"), tc)
@@ -198,11 +214,9 @@ def test_chunked_xent_masks_labels():
     assert abs(float(tn) - float(jn)) <= 1e-5 * abs(float(jn))
 
 
-def test_training_forward_norm_count_under_remat(monkeypatch):
-    """Every norm of the training forward goes through the RMSNorm
-    Function (the kernel's launch on the card), 2 a layer + the final one,
-    and remat recomputes the layers' 2 a layer in the backward: the
-    identity the card's training phase holds at every step."""
+def _count_norms(monkeypatch):
+    """(the RMSNorm Function's forward calls, its ``apply`` calls): both
+    lists grow by one a norm of the training forward."""
     calls = []
     real = TR._forward
     monkeypatch.setattr(TR, "_forward",
@@ -211,6 +225,15 @@ def test_training_forward_norm_count_under_remat(monkeypatch):
     real_apply = TR._RMSNormFunction.apply
     monkeypatch.setattr(TR._RMSNormFunction, "apply",
                         lambda *a: fn_calls.append(1) or real_apply(*a))
+    return calls, fn_calls
+
+
+def test_training_forward_norm_count_under_remat(monkeypatch):
+    """Every norm of the training forward goes through the RMSNorm
+    Function (the kernel's launch on the card), 2 a layer + the final one,
+    and remat recomputes the layers' 2 a layer in the backward: the
+    identity the card's training phase holds at every step."""
+    calls, fn_calls = _count_norms(monkeypatch)
     for remat, want in ((True, 4 * 2 + 1), (False, 2 * 2 + 1)):
         cfg = get_config("qwen2-1.5b", reduced=True).with_(remat=remat)
         params = TT.init_params(0, cfg, device="cpu")
@@ -219,6 +242,27 @@ def test_training_forward_norm_count_under_remat(monkeypatch):
         fn_calls.clear()
         loss, _ = TT.loss_fn(params, TS.to_device(
             _lm_batch(cfg.vocab, 2, 16, seed=8), "cpu"), cfg)
+        torch.autograd.grad(loss, leaves)
+        assert len(calls) == len(fn_calls) == want, (remat, len(calls))
+
+
+def test_encoder_decoder_norm_count_under_remat(monkeypatch):
+    """whisper's training forward: 2 norms an encoder layer, ``enc_ln``,
+    3 a decoder layer (mixer, cross, FFN) and the final one; remat
+    recomputes every block's norms but ``enc_ln`` and the final one (the
+    card's ``[train audio]`` holds 32 + 30 at full depth)."""
+    calls, fn_calls = _count_norms(monkeypatch)
+    cfg0 = get_config("whisper-base", reduced=True)
+    enc, dec = cfg0.n_enc_layers, cfg0.n_layers
+    fwd = 2 * enc + 1 + 3 * dec + 1
+    for remat, want in ((True, fwd + 2 * enc + 3 * dec), (False, fwd)):
+        cfg = cfg0.with_(remat=remat)
+        params = TT.init_params(0, cfg, device="cpu")
+        leaves = TS.trainable(params)
+        calls.clear()
+        fn_calls.clear()
+        loss, _ = TT.loss_fn(params, TS.to_device(
+            _lm_batch(cfg.vocab, 2, 16, seed=8, cfg=cfg), "cpu"), cfg)
         torch.autograd.grad(loss, leaves)
         assert len(calls) == len(fn_calls) == want, (remat, len(calls))
 

@@ -1,13 +1,15 @@
 """Port parity for the LM serving path: the port's transformer, given the
 reference's weights (``params_from_jax``), against
-``repro.models.transformer`` on the reduced qwen2-1.5b and the reduced MoE
+``repro.models.transformer`` on the reduced qwen2-1.5b, the reduced MoE
 and recurrent families (moonshot: MoE; mixtral: MoE with a sliding-window
-ring cache; xlstm: mLSTM + sLSTM; jamba: Mamba + attention + MoE) —
-prefill logits and cache, then teacher-forced decode steps — through both
-the kernel path (on the CPU: the kernels' plain versions) and the plain
-path; a sliding-window variant decoding past its window (ring cache);
-bf16; decode against the port's own prefill; config data; the families
-still unsupported."""
+ring cache; xlstm: mLSTM + sLSTM; jamba: Mamba + attention + MoE), the
+encoder-decoder (whisper: encoder frames, cross attention, ``xk``/``xv``
+in the cache) and the vision prefix (internvl2: patches ahead of the
+tokens) — prefill logits and cache, then teacher-forced decode steps —
+through both the kernel path (on the CPU: the kernels' plain versions)
+and the plain path; a sliding-window variant decoding past its window
+(ring cache); bf16; decode against the port's own prefill; the
+encoder-decoder's parameter layout; config data."""
 import dataclasses
 import functools
 
@@ -24,13 +26,11 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as TT
 
-SUPPORTED = ("qwen2-1.5b", "qwen1.5-4b", "minitron-4b", "smollm-360m",
-             "moonshot-v1-16b-a3b", "mixtral-8x22b", "xlstm-1.3b",
-             "jamba-1.5-large-398b")
-UNSUPPORTED = tuple(a for a in ARCH_NAMES if a not in SUPPORTED)
-# the MoE and recurrent families, held end to end against the reference
+SUPPORTED = tuple(ARCH_NAMES)
+# the MoE and recurrent families, the encoder-decoder and the vision
+# prefix, held end to end against the reference
 NEW_FAMILIES = ("moonshot-v1-16b-a3b", "mixtral-8x22b", "xlstm-1.3b",
-                "jamba-1.5-large-398b")
+                "jamba-1.5-large-398b", "whisper-base", "internvl2-26b")
 LOGIT_TOL = 1e-4          # x max |logit|, fp32
 BF16_LOGIT_TOL = 5e-2     # x max |logit|: see test_bf16_prefill_and_decode
 
@@ -84,6 +84,28 @@ def _tokens(vocab, b, s, seed):
         0, vocab, size=(b, s)).astype(np.int32)
 
 
+def _frontend(cfg, b, seed):
+    """The stub frontends' inputs as numpy fp32, drawn from ``seed``: a
+    vision prefix's patches (B, P, D), an encoder's frames (B, F, D);
+    as the reference's tests/test_models.py builds them."""
+    rng = np.random.default_rng(seed + 100)
+    out = {}
+    if cfg.vision_prefix:
+        out["patches"] = rng.standard_normal(
+            (b, cfg.vision_prefix, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        out["frames"] = rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _batches(cfg, tokens, seed):
+    """The same batch for both packages: (jax, torch)."""
+    batch = dict(_frontend(cfg, tokens.shape[0], seed), tokens=tokens)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
 def _rel(got: torch.Tensor, want) -> float:
     want = np.asarray(want, np.float32)
     return float(np.abs(got.float().numpy() - want).max()
@@ -125,9 +147,9 @@ def _prefill_then_decode(models, s0, max_len, steps, use_kernel, tol,
                          seed=0, check_cache=True):
     jc, tc, jp, tp, jdecode, jprefill = models
     toks = _tokens(jc.vocab, 2, s0 + steps, seed)
-    jl, jcache = jprefill(jp, {"tokens": jnp.asarray(toks[:, :s0])}, max_len)
-    tl, tcache = TT.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s0])},
-                            tc, max_len, use_kernel=use_kernel)
+    jb, tb = _batches(tc, toks[:, :s0], seed)
+    jl, jcache = jprefill(jp, jb, max_len)
+    tl, tcache = TT.prefill(tp, tb, tc, max_len, use_kernel=use_kernel)
     assert tl.shape == (2, tc.vocab) and tl.dtype == torch.float32
     assert _rel(tl, jl) <= tol
     if check_cache:
@@ -151,7 +173,9 @@ def _prefill_then_decode(models, s0, max_len, steps, use_kernel, tol,
 def test_prefill_and_decode_match_reference(family_models, arch, use_kernel):
     """Prompts of 13 tokens, 8 decode steps, cache of 32: mixtral's window
     of 16 makes its cache a ring that decode wraps; xlstm's and jamba's
-    chunks of 8 end the prefill in a padded chunk."""
+    chunks of 8 end the prefill in a padded chunk; whisper's encoder runs
+    over 32 drawn frames (its cache's ``xk``/``xv`` held at 1e-5);
+    internvl2's 8 drawn patches put the prompt at positions 8-20."""
     _prefill_then_decode(family_models(arch), s0=13, max_len=32, steps=8,
                          use_kernel=use_kernel, tol=LOGIT_TOL)
 
@@ -184,13 +208,15 @@ def test_decode_reproduces_own_prefill(family_models, arch):
     """Teacher-forced decode must reproduce the port's own prefill logits
     (the reference's test_decode_matches_prefill_fp32)."""
     tc, tp = family_models(arch)[1], family_models(arch)[3]
-    toks = torch.from_numpy(_tokens(tc.vocab, 1, 13, seed=2))
-    _, cache = TT.prefill(tp, {"tokens": toks[:, :-1]}, tc, max_len=32)
-    ld, cache = TT.decode_step(tp, cache, toks[:, -1:], tc)
-    lfull, _ = TT.prefill(tp, {"tokens": toks}, tc, max_len=32)
+    toks = _tokens(tc.vocab, 1, 13, seed=2)
+    _, short = _batches(tc, toks[:, :-1], seed=2)
+    _, full = _batches(tc, toks, seed=2)
+    _, cache = TT.prefill(tp, short, tc, max_len=32)
+    ld, cache = TT.decode_step(tp, cache, full["tokens"][:, -1:], tc)
+    lfull, _ = TT.prefill(tp, full, tc, max_len=32)
     np.testing.assert_allclose(ld.numpy(), lfull.numpy(), rtol=1e-3,
                                atol=1e-4)
-    assert int(cache["pos"][0]) == 13
+    assert int(cache["pos"][0]) == 13 + tc.vision_prefix
 
 
 def test_params_from_jax_layout(fp32_models):
@@ -210,6 +236,39 @@ def test_params_from_jax_layout(fp32_models):
         np.asarray(jp["layers"][0]["mix"]["wq"][1]))
 
 
+def test_params_from_jax_encoder_decoder_layout(family_models):
+    """whisper: the encoder's stacked layers unstack into ``enc_layers``
+    (attn + gelu), ``enc_ln`` is carried, every decoder layer has a
+    ``cross`` part without biases; the shapes are the port's own init's
+    and the values the reference's."""
+    jc, tc, jp, tp = family_models("whisper-base")[:4]
+    own = TT.init_params(0, tc, device="cpu")
+    shapes = lambda tree: {k: tuple(v.shape) for k, v in tree.items()}
+    assert set(tp) == set(own) == set(jp) == {
+        "embed", "final_ln", "lm_head", "layers", "enc_layers", "enc_ln"}
+    assert len(tp["enc_layers"]) == len(own["enc_layers"]) == \
+        tc.n_enc_layers
+    for mine, theirs in zip(own["enc_layers"], tp["enc_layers"]):
+        assert set(theirs) == {"mix", "ffn"}
+        for part in ("mix", "ffn"):
+            assert shapes(mine[part]) == shapes(theirs[part])
+        assert "w_in" in theirs["ffn"] and "bq" not in theirs["mix"]
+    for mine, theirs in zip(own["layers"], tp["layers"]):
+        assert set(theirs) == {"mix", "cross", "ffn"}
+        assert shapes(mine["cross"]) == shapes(theirs["cross"])
+        assert set(theirs["cross"]) == {"ln", "wq", "wk", "wv", "wo"}
+    np.testing.assert_array_equal(
+        tp["enc_layers"][1]["mix"]["wk"].numpy(),
+        np.asarray(jp["enc_layers"][0]["mix"]["wk"][1]))
+    np.testing.assert_array_equal(
+        tp["layers"][1]["cross"]["wv"].numpy(),
+        np.asarray(jp["layers"][0]["cross"]["wv"][1]))
+    np.testing.assert_array_equal(tp["enc_ln"].numpy(),
+                                  np.asarray(jp["enc_ln"]))
+    assert TT.param_count(tp) == TT.param_count(own) == sum(
+        int(np.size(x)) for x in jax.tree.leaves(jp))
+
+
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_configs_hold_the_reference_data(arch):
     for reduced in (False, True):
@@ -226,22 +285,14 @@ def test_supported_archs_serve_reduced(arch):
     cfg = get_config(arch, reduced=True).with_(dtype=torch.float32,
                                                param_dtype=torch.float32)
     params = TT.init_params(0, cfg, device="cpu")
-    toks = torch.from_numpy(_tokens(cfg.vocab, 2, 9, seed=3))
-    logits, cache = TT.prefill(params, {"tokens": toks}, cfg, max_len=16)
+    _, batch = _batches(cfg, _tokens(cfg.vocab, 2, 9, seed=3), seed=3)
+    logits, cache = TT.prefill(params, batch, cfg,
+                               max_len=16 + cfg.vision_prefix)
     logits2, cache2 = TT.decode_step(params, cache, logits.argmax(-1)[:, None],
                                      cfg)
     assert logits2.shape == (2, cfg.vocab)
     assert bool(torch.isfinite(logits2).all())
-    assert bool((cache2["pos"] == 10).all())
-
-
-@pytest.mark.parametrize("arch", UNSUPPORTED)
-def test_unsupported_families_raise(arch):
-    cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_cache(cfg, 1, 8, device="cpu")
+    assert bool((cache2["pos"] == 10 + cfg.vision_prefix).all())
 
 
 def test_entry_points_raise_without_cuda():
