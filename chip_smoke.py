@@ -7,10 +7,14 @@ Drives the port's paths on ``cuda:0``: the paper's own loop at full
 ResNet-18 width, its baselines and its network co-optimization with the
 co-optimized chip's mappings deployed, the LM server at qwen2-1.5b's full
 width and depth, training at that width and depth, the MoE and
-recurrent families served at full width (moonshot-v1-16b-a3b and
-xlstm-1.3b whole, jamba-1.5-large-398b cut to 5 layers), and the
+recurrent families served at full width (moonshot-v1-16b-a3b whole,
+xlstm-1.3b cut to 16 of its 48 layers, jamba-1.5-large-398b to 5), and the
 encoder-decoder and vision-prefix families served whole at full width
-(whisper-base, internvl2-26b), whisper-base also trained.
+(whisper-base, internvl2-26b), whisper-base also trained, the MoE and
+xLSTM families trained at full width (moonshot-v1-16b-a3b cut to 2
+layers, xlstm-1.3b to one period), and the pod-level shard-space tuner
+(``tune --arch --oracle compile``) with its estimator held against a real
+training step.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
@@ -34,14 +38,16 @@ encoder-decoder and vision-prefix families served whole at full width
    over 8, 200 and 512-1024 rows, flash at 16/16 heads over S 128, 517,
    1024 and 64/8 heads over S 128, 300, 512; whisper's and internvl2's:
    RMSNorm at d 512 over 8, 223 and 1500 rows and the training step's
-   3584 and 12000, at d 6144 over 8, 200 and 1536 rows, flash non-causal
+   3584 and 12000, at d 6144 over 8, 200 and 1536 rows, at d 2048 over the
+   family training steps' 4096 and 1024 rows, flash non-causal
    at (1, 1500, 8/8 heads, d 64), causal at 8/8 heads d 64 over S 4, 100,
    223 and at 48/8 heads d 128 over S 1088, 1300, 1536); there the
    bf16 flash kernel is also held against the plain version with P kept
    in fp32 (the reference kernel's arithmetic), within 2^-7 x max |v|;
    ``[check] rmsnorm backward``: the RMSNorm autograd Function's (dx, dw)
    against autograd through the plain version at the training shape
-   (8192, 1536) and (8, 1536), fp32 and bf16, one launch a forward;
+   (8192, 1536) and (8, 1536) and the family training shapes (4096, 2048)
+   and (1024, 2048), fp32 and bf16, one launch a forward;
 4. tunes the 8 ResNet-18 conv tasks (batch 8) with the port's ``Session``;
 5. deploys: runs ResNet-18 at 224x224, batch 8, fp32, seeded weights, each
    conv layer through the GEMM with its tuned geometry, and compares the
@@ -111,12 +117,14 @@ encoder-decoder and vision-prefix families served whole at full width
 16. ``[serve moe]``, ``[serve ssm]``, ``[serve hybrid]``, each freeing the
    model before it and printing its peak device memory: moonshot-v1-16b-a3b
    (48 layers of attention + a dropping MoE of 64 experts top-6, 28.0 B
-   parameters), xlstm-1.3b (42 mLSTM + 6 sLSTM layers) and the first 5
+   parameters), xlstm-1.3b's first 16 layers (14 mLSTM + 2 sLSTM; the
+   whole 48's host-bound prefill, fp32 twin included, pushed the run past
+   half its time limit) and the first 5
    layers of jamba-1.5-large-398b at its full width (Mamba, MLP, MoE of
    16 experts top-2, one attention layer; 24.0 B parameters).  Each: the
    kernel path against the plain path in fp32 at a cut (moonshot's first
    2 layers, xlstm's first 8, a jamba-width mamba+mlp / attn+mlp pair;
-   gate 1e-4; xlstm's 48 also, ungated, beside the plain path's own
+   gate 1e-4; xlstm's 16 also, ungated, beside the plain path's own
    distance under a 1e-7 relative change of the embedding) and in bf16 at
    the served depth (gate 5e-2 with the plain path routed by the kernel
    path's expert sets), with the tokens whose expert sets differ between
@@ -124,7 +132,7 @@ encoder-decoder and vision-prefix families served whole at full width
    requests (prompts 128-1024, 64-256, 128-512; 32, 32, 16 new tokens)
    through ``Server(n_slots=8, max_len=2048)`` in bf16 with the launch
    identities checked at every step (moonshot: flash 48 and RMSNorm 97 a
-   prefill; xlstm: RMSNorm 49, flash 0; jamba: flash 1 and RMSNorm 11),
+   prefill; xlstm: RMSNorm 17, flash 0; jamba: flash 1 and RMSNorm 11),
    tokens/s, prefill ms by length and a prompt token, the decode step
    beside the time to read every weight once, and each kernel timed at
    the run's shapes over its launches;
@@ -146,6 +154,25 @@ encoder-decoder and vision-prefix families served whole at full width
    steps of 8 x 448 synthetic tokens with 1500 frames a sequence drawn
    with numpy from the seed: RMSNorm 62 launches a step (32 in the
    forward, 30 recomputed), flash and GEMM none, the loss falling;
+19. ``[train moe]`` and ``[train ssm]``: moonshot-v1-16b-a3b (2 layers at
+   full width: 64 experts top-6, the dropping dispatch, the aux loss in
+   the loss; 1.81 B parameters) on 4 x 1024 tokens for 8 steps, and
+   xlstm-1.3b (its first period: 7 mLSTM + 1 sLSTM at full width) on 8 x
+   128 tokens for 6 steps at lr 1e-3, bf16, remat on: RMSNorm 9 and 17
+   launches a
+   step, flash and GEMM none, finite losses and grad norms, the loss
+   falling; step seconds, tokens/s, each step's peak memory; xlstm then
+   one step with the recurrences' chunk checkpoint off, its peak beside
+   the checkpointed steps'; the RMSNorm kernel timed at each step's norm
+   shape;
+20. ``[autotune]``: ``python -m repro_torch.compiler.cli tune --arch
+   qwen2-1.5b --shape train_4k --oracle compile --budget 8`` in process
+   at 256 placeholder devices (the agents and the GBT on the card): every
+   measurement row finite with ``SettingsOracle._RESULT_KEYS``, the best
+   setting feasible, the report written under ``build/``; then the
+   dry-run estimator's dot FLOPs at ``[train]``'s shape equal to
+   ``FlopCounterMode``'s around one real training step on the card
+   (within 1e-6), its memory estimate printed beside that step's peak;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
 times).
@@ -233,7 +260,10 @@ RMSNORM_CHECKS = [((4, 64), False, True), ((2, 100, 96), False, True),
                   ((8, 512), True, True), ((223, 512), True, True),
                   ((1500, 512), True, True), ((3584, 512), True, True),
                   ((12000, 512), True, True), ((8, 6144), True, True),
-                  ((200, 6144), True, True), ((1536, 6144), True, True)]
+                  ((200, 6144), True, True), ((1536, 6144), True, True),
+                  # [train moe]'s 4 x 1024 rows and [train ssm]'s 8 x 128
+                  # at d 2048
+                  ((4096, 2048), True, True), ((1024, 2048), True, True)]
 # ((B, S, HQ, HKV, D, causal, window, block_q, block_k), on the path)
 FLASH_CHECKS = (
     [((2, 100, hq, hkv, 16, causal, window, 32, 32), False)
@@ -287,13 +317,19 @@ MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("moonshot-v1-16b-a3b", "xlstm-1.3b",
                                    "jamba-1.5-large-398b")
 MOE_GATE_LAYERS = 2       # the fp32 gate's moonshot: its first 2 layers
 SSM_GATE_LAYERS = 8       # the fp32 gate's xlstm: its first period (7
-                          # mLSTM + 1 sLSTM); all 48 are measured beside
-                          # the model's own noise, ungated
+                          # mLSTM + 1 sLSTM); the served 16 are measured
+                          # beside the model's own noise, ungated
+# the served xlstm: its first 2 periods.  Whole (48 layers) its prefill,
+# one Python step a token and layer, with its fp32 twin took [serve ssm]
+# to 150 s and the run past half its time limit (32 layers: 114 s); the
+# 8-slot decode step (phase_serve) needs all 8 requests, so the depth is
+# what is cut
+SSM_SERVE_LAYERS = 16
 # the embedding's relative perturbation that measures a model's own noise:
 # the size of one rounding in each dtype
 NOISE = {"float32": 1e-7, "bfloat16": 2 ** -8}
 # the families whose bf16 gate also holds the free-running paths (with the
-# same expert sets); xlstm's own noise at 48 layers exceeds the gate (its
+# same expert sets); xlstm's own noise at depth exceeds the gate (its
 # logits move by O(1) under one bf16 rounding of the input: PERF.md), so
 # its bf16 gate is block by block only (:func:`_lockstep`)
 FREE_BF16_GATE = ("moe", "hybrid", "audio", "vlm")
@@ -314,6 +350,23 @@ FAMILY_SERVE = {"moe": (MOE_ARCH, 16, (128, 1024), 32, LM_MAX_LEN),
 # [train audio]: whisper-base bf16 training steps, 8 x 448 text tokens
 # and 8 x 1500 frames a step
 AUDIO_TRAIN_BATCH, AUDIO_TRAIN_STEPS = 8, 10
+# [train moe], [train ssm]: the MoE and recurrent families trained in bf16
+# at full width, cut in depth (moonshot whole with Adam is 28 B: 2 layers
+# are 1.8 B with its 163,840-token vocabulary; xlstm one period of its
+# pattern, 7 mLSTM + 1 sLSTM); xlstm's 128 tokens are 2 recurrence chunks,
+# so its chunk checkpoint keeps one chunk's steps where autograd alone
+# keeps both, and its 8 sequences make those steps' (8, 4, 512, 512) fp32
+# states outweigh Adam's temporaries, which set a 2-sequence step's peak
+# (PERF.md); its gradient norm starts near 100 and is clipped to 1,
+# and at lr 3e-4 its loss moved 0.07 in 6 steps: it takes 1e-3.
+# (arch, layers, batch, seq, steps, lr)
+FAMILY_TRAIN = {"moe": (MOE_ARCH, 2, 4, 1024, 8, TRAIN_LR),
+                "ssm": (SSM_ARCH, 8, 8, 128, 6, 1e-3)}
+# [autotune]: the CLI's pod-level tune at 256 placeholder devices (the
+# reference's default budget 14 cut to 8); records and report under build/
+AUTOTUNE_ARCH, AUTOTUNE_SHAPE, AUTOTUNE_BUDGET = "qwen2-1.5b", "train_4k", 8
+AUTOTUNE_DEVICES = 256
+FLOP_RTOL = 1e-6          # the estimator's dot FLOPs vs FlopCounterMode
 # the gates' prompt lengths, where not the served ones: xlstm's prefill is
 # one Python step a token and layer (~20 ms a token), and its gates run 11
 # prefills a prompt
@@ -431,8 +484,9 @@ def phase_build() -> float:
 def lm_rmsnorm_layouts() -> dict:
     """The RMSNorm layouts the LM paths run at each served model's d_model
     (bf16 serving, the fp32 gates) for 1 row to its longest prefill's (a
-    vision prefix + its longest prompt, or an encoder's frames): (d,
-    dtype, 16-byte copies, warps a row, slots a lane, rows a block) ->
+    vision prefix + its longest prompt, or an encoder's frames) or the
+    family training phases' step (forward and the backward's recompute):
+    (d, dtype, 16-byte copies, warps a row, slots a lane, rows a block) ->
     the rows that run it."""
     import torch
     from repro_torch.configs import get_config
@@ -442,6 +496,9 @@ def lm_rmsnorm_layouts() -> dict:
         cfg = get_config(arch)
         rows = max(cfg.vision_prefix + prompt[1], cfg.enc_seq)
         widths[cfg.d_model] = max(widths.get(cfg.d_model, 0), rows)
+    for arch, _, batch, seq, _, _ in FAMILY_TRAIN.values():
+        d = get_config(arch).d_model     # a training step's rows
+        widths[d] = max(widths.get(d, 0), batch * seq)
     out = {}
     for d, max_rows in widths.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -1845,8 +1902,9 @@ def phase_time_lm_kernels(dev, cfg, serve) -> tuple:
 
 
 def phase_check_rmsnorm_backward(dev) -> dict:
-    """The RMSNorm autograd Function on the card, at the training shape
-    and a serve shape: its forward launches the kernel once (counted) and
+    """The RMSNorm autograd Function on the card, at the training shape,
+    a serve shape and the family training phases' shapes (d 2048): its
+    forward launches the kernel once (counted) and
     its output is held against ``rmsnorm_plain`` on the same inputs, its
     (dx, dw) against autograd through ``rmsnorm_plain``; fp32 within
     FP32_TOL and bf16 within BF16_TOL of max |plain|.  In bf16 the plain
@@ -1859,7 +1917,10 @@ def phase_check_rmsnorm_backward(dev) -> dict:
     from repro_torch.kernels import rmsnorm as RN
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     worst = {"forward_max_abs_err": 0.0, "backward_max_abs_err": 0.0}
-    for shape in (TRAIN_NORM_SHAPE, (LM_SLOTS, TRAIN_NORM_SHAPE[1])):
+    from repro_torch.configs import get_config
+    family = [(batch * seq, get_config(arch).d_model)
+              for arch, _, batch, seq, _, _ in FAMILY_TRAIN.values()]
+    for shape in [TRAIN_NORM_SHAPE, (LM_SLOTS, TRAIN_NORM_SHAPE[1])] + family:
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             x0, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -2099,6 +2160,294 @@ def phase_train_audio(dev) -> dict:
     return out
 
 
+def phase_train_family(dev, kind: str) -> dict:
+    """``[train moe]``, ``[train ssm]``: a family's model at full width in
+    bf16 from ``init_params(SEED)``, cut to FAMILY_TRAIN's depth, remat
+    on, trained through the port's ``train_step_fn`` (``loss_fn``: the
+    dropping MoE's aux loss in the total; the recurrences' chunks under
+    their checkpoint) on ``SyntheticLM`` batches drawn before the clock.
+    :func:`train_steps` holds the launch identities (RMSNorm
+    :func:`norm_launches_per_step`, flash and GEMM none), finite metrics
+    and the falling loss; each step's peak memory is read.  ``[train
+    ssm]`` then takes one more step with the chunk checkpoint off (the
+    same launches held), whose peak is printed beside the checkpointed
+    steps': the repair's effect on the card.  The kernel is timed at the
+    step's norm shape over the phase's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as S
+    tag = f"[train {kind}]"
+    arch, layers, batch, seq, n_steps, lr = FAMILY_TRAIN[kind]
+    cfg = get_config(arch).with_(n_layers=layers, dtype=torch.bfloat16,
+                                 param_dtype=torch.bfloat16)
+    tc = S.TrainConfig(lr=lr, warmup_steps=2, total_steps=n_steps)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, structure=64,
+                                  seed=SEED))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(SEED, cfg, device=dev)
+    opt = S.make_optimizer(tc, params)
+    step = S.train_step_fn(cfg, tc)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    per_step = norm_launches_per_step(cfg, tc.grad_accum)
+    log(f"{tag} {arch} bf16 cut to {layers} layers "
+        f"{[f'{m}+{f}' for m, f in cfg.pattern[:layers]]} at full width "
+        f"(d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"d_ff {cfg.d_ff}, {cfg.n_experts} experts top-{cfg.moe_top_k}, "
+        f"vocab {cfg.vocab}), {T.param_count(params) / 1e9:.3f} B "
+        f"parameters; batch {batch} x {seq} tokens, {n_steps} steps, lr "
+        f"{lr} (cosine, warmup 2), remat {cfg.remat}, MoE "
+        f"{cfg.moe_impl}, recurrence chunk {cfg.ssm_chunk}; RMSNorm "
+        f"{per_step} launches a step expected; setup {setup_s:.1f} s")
+    batches = [S.to_device(data.batch_at(i), dev) for i in range(n_steps + 1)]
+    peaks, nll, aux = [], [], []
+
+    def peaked(params, opt, b):
+        torch.cuda.reset_peak_memory_stats(dev)
+        metrics = step(params, opt, b)
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        nll.append(metrics["nll"])
+        aux.append(metrics.get("aux"))
+        return metrics
+
+    losses, norms, secs, launches = train_steps(
+        tag, peaked, params, opt, lambda: batches.pop(0), per_step, n_steps)
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    steady = secs[1:]
+    tokens = batch * seq
+    out = {"arch": arch, "layers": layers, "dtype": "bfloat16",
+           "batch": batch, "seq": seq, "steps": n_steps,
+           "params": T.param_count(params), "setup_s": setup_s,
+           "first_step_s": secs[0], "step_s_mean": float(np.mean(steady)),
+           "step_s_min": min(steady), "step_s_max": max(steady),
+           "tokens_per_s": tokens / float(np.mean(steady)),
+           "peak_mem_bytes": max(peaks), "loss_first3": first,
+           "loss_last3": last, "losses": losses, "grad_norms": norms,
+           "nll": [float(v) for v in nll],
+           "rmsnorm_launches": launches, "rmsnorm_per_step": per_step}
+    if kind == "moe":
+        out["aux"] = [float(v) for v in aux]
+    log(f"{tag} {n_steps} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(first 3 {first:.4f}, last 3 {last:.4f}; nll {out['nll'][0]:.4f}"
+        f" -> {out['nll'][-1]:.4f}"
+        + (f", aux {out['aux'][0]:.4f} -> {out['aux'][-1]:.4f}"
+           if kind == "moe" else "")
+        + f"); step {out['step_s_mean']:.3f} s mean over steps 2-{n_steps} "
+        f"(min {out['step_s_min']:.3f}, max {out['step_s_max']:.3f}; the "
+        f"first {secs[0]:.3f} s), {out['tokens_per_s']:.0f} tokens/s, peak "
+        f"{out['peak_mem_bytes']} bytes ({out['peak_mem_bytes'] / 2 ** 30:.2f}"
+        f" GiB); RMSNorm {launches} launches ({per_step} a step), flash 0, "
+        f"GEMM 0")
+    if kind == "ssm":
+        # one step more with the recurrences' chunk checkpoint off
+        before = RN.rmsnorm.launches
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with SSM.chunk_checkpoint(False):
+            metrics = step(params, opt, batches.pop(0))
+            peak_off = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.synchronize()
+        off_s = time.perf_counter() - t0
+        check(RN.rmsnorm.launches - before == per_step
+              and FA.flash_attention.launches == 0 and G.gemm.launches == 0,
+              f"{tag} step without the chunk checkpoint: RMSNorm "
+              f"{RN.rmsnorm.launches - before}, flash "
+              f"{FA.flash_attention.launches}, gemm {G.gemm.launches}")
+        check(math.isfinite(float(metrics["loss"])),
+              f"{tag} step without the chunk checkpoint: loss "
+              f"{float(metrics['loss'])}")
+        launches = RN.rmsnorm.launches
+        out.update(peak_no_ckpt_bytes=peak_off, step_no_ckpt_s=off_s,
+                   rmsnorm_launches=launches,
+                   chunks=-(-seq // cfg.ssm_chunk))
+        log(f"{tag} the recurrences' chunk checkpoint ({out['chunks']} "
+            f"chunks of {cfg.ssm_chunk} steps a layer): a step's peak "
+            f"{out['peak_mem_bytes']} bytes with it, {peak_off} bytes "
+            f"without ({peak_off / out['peak_mem_bytes']:.2f}x; "
+            f"{(peak_off - out['peak_mem_bytes']) / 2 ** 30:.2f} GiB more); "
+            f"the step without it {off_s:.3f} s, loss "
+            f"{float(metrics['loss']):.4f}, RMSNorm {per_step} launches")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    row = time_rmsnorm(lambda *shape: torch.randn(
+        shape, generator=gen, device=dev).to(torch.bfloat16),
+        tokens, cfg.d_model)
+    log_row("rmsnorm", row, launches)
+    out["rmsnorm_time"] = dict(row, launches=launches, **{
+        f"total_{k}": row[k] * launches
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    log(f"[time] rmsnorm over {tag}'s {launches} launches: kernel "
+        f"{row['ms'] * launches:.3f} ms, library "
+        f"{row['library_ms'] * launches:.3f} ms, bound "
+        f"{row['bound_ms'] * launches:.3f} ms ({row['bound_by']})")
+    del params, opt, batches, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_autotune(dev, train_peak: int) -> dict:
+    """``[autotune]``: the CLI's ``tune --arch qwen2-1.5b --shape train_4k
+    --oracle compile`` in process at AUTOTUNE_DEVICES placeholder devices
+    and budget AUTOTUNE_BUDGET, the agents and the GBT on the card, its
+    records and report under ``build/`` (its stdout there too).  Gates:
+    every measurement row finite, carrying ``SettingsOracle._RESULT_KEYS``;
+    the best setting ``feasible``; the report written.  Then the
+    estimator against the card: at ``[train]``'s shape (qwen2-1.5b bf16,
+    TRAIN_BATCH x TRAIN_SEQ, remat, a 1-device mesh) the dry-run's
+    ``weighted_dot_flops`` must equal ``FlopCounterMode``'s count around
+    one real training step on the card within FLOP_RTOL; the estimator's
+    memory (``hbm_residency``, the TPU model, and the dry-run's argument
+    and temp bytes) is printed beside that step's measured peak and
+    ``[train]``'s (``train_peak``), ungated.
+    The launch counts are set to 0 just before."""
+    import contextlib
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.compiler import cli
+    from repro_torch.compiler.oracle import SettingsOracle
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.hw import roofline as RL
+    from repro_torch.hw import step_analysis as SA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as S
+    RN.rmsnorm.launches = FA.flash_attention.launches = G.gemm.launches = 0
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    records = os.path.join(build, "autotune_records.jsonl")
+    report = os.path.join(build, "autotune_report.json")
+    for f in (records, report):
+        if os.path.exists(f):
+            os.remove(f)
+    argv = ["tune", "--arch", AUTOTUNE_ARCH, "--shape", AUTOTUNE_SHAPE,
+            "--oracle", "compile", "--budget", str(AUTOTUNE_BUDGET),
+            "--device", "cuda", "--records", records, "--out", report]
+    pinned = os.environ.get("REPRO_DRYRUN_DEVICES")
+    os.environ["REPRO_DRYRUN_DEVICES"] = str(AUTOTUNE_DEVICES)
+    t0 = time.perf_counter()
+    try:
+        with open(os.path.join(build, "autotune_stdout.txt"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            rc = cli.main(argv)
+    finally:
+        if pinned is None:
+            del os.environ["REPRO_DRYRUN_DEVICES"]
+        else:
+            os.environ["REPRO_DRYRUN_DEVICES"] = pinned
+    tune_s = time.perf_counter() - t0
+    check(rc == 0, f"[autotune] tune exited {rc}")
+    check(os.path.exists(report), f"[autotune] no report at {report}")
+    with open(report) as f:
+        rep = json.load(f)["reports"][f"{AUTOTUNE_ARCH}/{AUTOTUNE_SHAPE}"]
+    with open(records) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    check(len(rows) == rep["n_measurements"] == AUTOTUNE_BUDGET,
+          f"[autotune] {len(rows)} records, {rep['n_measurements']} "
+          f"measurements, budget {AUTOTUNE_BUDGET}")
+    for row in rows:
+        res = row.get("result", {})
+        check(set(SettingsOracle._RESULT_KEYS) <= set(res)
+              and math.isfinite(row["latency"])
+              and all(math.isfinite(float(res[k])) for k in
+                      ("step_s", "compile_s", "hbm_residency_gib")),
+              f"[autotune] a measurement row lacks a result key or is not "
+              f"finite: {row}")
+        log(f"[autotune] measured {row['settings']}: step "
+            f"{res['step_s']:.4f} s (model), penalized "
+            f"{row['latency']:.4f}, residency "
+            f"{res['hbm_residency_gib']:.2f} GiB, feasible "
+            f"{res['feasible']}, dominant {res['dominant']}, analysis "
+            f"{res['compile_s']:.2f} s")
+    best = [r for r in rows if r["settings"] == rep["best_settings"]]
+    check(best and best[0]["result"]["feasible"],
+          f"[autotune] the best setting {rep['best_settings']} is not "
+          f"feasible")
+    log(f"[autotune] tune --arch {AUTOTUNE_ARCH} --shape {AUTOTUNE_SHAPE} "
+        f"--oracle compile at {AUTOTUNE_DEVICES} placeholder devices, "
+        f"budget {AUTOTUNE_BUDGET}: {tune_s:.1f} s, best "
+        f"{rep['best_settings']} at {rep['best_latency']:.4f} s a step "
+        f"(TPU v5e roofline model, not a time of the card), feasible; "
+        f"every row carries {SettingsOracle._RESULT_KEYS}; report "
+        f"{os.path.relpath(report, ROOT)}")
+    # the estimator against one real step on the card
+    cfg = lm_config(torch.bfloat16)
+    cell = ShapeCell("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    mesh = {"data": 1, "model": 1}
+    t0 = time.perf_counter()
+    est = SA.analyze(cfg, cell, mesh, ShardingRules(),
+                     {"grad_accum": 1, "moment_dtype": "bfloat16"})
+    mem = DR.memory_estimate(cfg, cell, mesh, ShardingRules(), TRAIN_BATCH)
+    est_s = time.perf_counter() - t0
+    residency = RL.hbm_residency(cfg, "train", TRAIN_SEQ, TRAIN_BATCH, mesh,
+                                 fsdp=False, moment_dtype="bfloat16",
+                                 remat=cfg.remat)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tc = S.TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS)
+    params = T.init_params(SEED, cfg, device=dev)
+    opt = S.make_optimizer(tc, params)
+    step = S.train_step_fn(cfg, tc)
+    batch = S.to_device(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        structure=64, seed=SEED)).batch_at(0), dev)
+    with FlopCounterMode(display=False) as fc:
+        metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    card = float(fc.get_total_flops())
+    rel = abs(est["weighted_dot_flops"] - card) / card
+    check(math.isfinite(float(metrics["loss"])) and rel <= FLOP_RTOL,
+          f"[autotune] estimator dot FLOPs {est['weighted_dot_flops']:.6e} "
+          f"vs FlopCounterMode on the card {card:.6e}: rel {rel:.3g}")
+    launches = {"rmsnorm": RN.rmsnorm.launches,
+                "flash_attention": FA.flash_attention.launches,
+                "gemm": G.gemm.launches}
+    log(f"[autotune] dot FLOPs of one {LM_ARCH} training step "
+        f"({TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat, 1-device mesh): "
+        f"estimator (meta device, counted at layers "
+        f"{est['counted_layers']} and carried to {cfg.n_layers}; {est_s:.1f}"
+        f" s) {est['weighted_dot_flops']:.0f}, FlopCounterMode around the "
+        f"real step on the card {card:.0f}: rel {rel:.3g} (gate "
+        f"{FLOP_RTOL}); launches {launches}")
+    log(f"[autotune] memory of that step: measured peak {peak} bytes on the "
+        f"card ([train]'s: {train_peak}); the dry-run's "
+        f"argument {mem['argument_size_in_bytes']} + temp "
+        f"{int(est['temp_bytes'])} = "
+        f"{mem['argument_size_in_bytes'] + int(est['temp_bytes'])} bytes; "
+        f"the roofline's hbm_residency (TPU v5e model) {residency:.0f} "
+        f"bytes (printed, not gated)")
+    out = {"arch": AUTOTUNE_ARCH, "shape": AUTOTUNE_SHAPE,
+           "devices": AUTOTUNE_DEVICES, "budget": AUTOTUNE_BUDGET,
+           "tune_s": tune_s, "best_settings": rep["best_settings"],
+           "best_step_s_model": rep["best_latency"],
+           "rows": [dict(r["result"], settings=r["settings"],
+                         latency=r["latency"]) for r in rows],
+           "flops_estimator": est["weighted_dot_flops"],
+           "flops_card": card, "flops_rel": rel, "estimator_s": est_s,
+           "peak_mem_bytes": peak, "hbm_residency_bytes": residency,
+           "argument_size_in_bytes": mem["argument_size_in_bytes"],
+           "temp_size_in_bytes": int(est["temp_bytes"]),
+           "launches": launches}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_faults(dev) -> dict:
     """``[train faults]``: the port's ``Trainer`` on the card at the
     reference trainer test's setup (reduced smollm-360m, 40 steps,
@@ -2182,7 +2531,8 @@ def family_config(kind: str, dtype, gate: bool = False):
     cut (``gate``): moonshot at its first MOE_GATE_LAYERS layers, xlstm at
     its first SSM_GATE_LAYERS, internvl2 at its first VLM_GATE_LAYERS,
     jamba's width over HYBRID_GATE_PATTERN; whisper's gate is the whole
-    model.  The served jamba is its first HYBRID_LAYERS layers."""
+    model.  The served jamba is its first HYBRID_LAYERS layers, the
+    served xlstm its first SSM_SERVE_LAYERS."""
     from repro_torch.configs import get_config
     cfg = get_config(FAMILY_SERVE[kind][0]).with_(dtype=dtype,
                                                   param_dtype=dtype)
@@ -2194,6 +2544,8 @@ def family_config(kind: str, dtype, gate: bool = False):
            "vlm": VLM_GATE_LAYERS}
     if gate and kind in cut:
         return cfg.with_(n_layers=cut[kind])
+    if kind == "ssm":
+        return cfg.with_(n_layers=SSM_SERVE_LAYERS)
     return cfg
 
 
@@ -2329,7 +2681,7 @@ def phase_serve_family(dev, kind: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     gates = {}
     runs = [(torch.float32, True, LM_TOL_FP32)]
-    if kind == "ssm":     # xlstm whole fits in fp32: measured, not gated
+    if kind == "ssm":     # the served xlstm in fp32: measured, not gated
         runs.append((torch.float32, False, None))
     runs.append((torch.bfloat16, False, LM_TOL_BF16))
     for dtype, gate, tol in runs:
@@ -2516,6 +2868,14 @@ def main() -> int:
         log(f"[serve {kind}] phase {family_s[kind]:.1f} s")
     train_audio, train_audio_s = timed(lambda: phase_train_audio(dev))
     log(f"[train audio] phase {train_audio_s:.1f} s")
+    train_fam, train_fam_s = {}, {}
+    for kind in FAMILY_TRAIN:
+        train_fam[kind], train_fam_s[kind] = timed(
+            lambda: phase_train_family(dev, kind))
+        log(f"[train {kind}] phase {train_fam_s[kind]:.1f} s")
+    autotune, autotune_s = timed(
+        lambda: phase_autotune(dev, train["peak_mem_bytes"]))
+    log(f"[autotune] phase {autotune_s:.1f} s")
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -2536,9 +2896,16 @@ def main() -> int:
                                 "train_faults": faults_s,
                                 **{f"serve_{k}": v
                                    for k, v in family_s.items()},
-                                "train_audio": train_audio_s},
+                                "train_audio": train_audio_s,
+                                **{f"train_{k}": v
+                                   for k, v in train_fam_s.items()},
+                                "autotune": autotune_s},
                     "train": train, "train_faults": faults,
                     "train_audio": train_audio,
+                    "train_families": {k: {key: v for key, v in f.items()
+                                           if key != "rmsnorm_time"}
+                                       for k, f in train_fam.items()},
+                    "autotune": autotune,
                     "families": {k: {key: v for key, v in f.items()
                                      if key != "kernels"}
                                  for k, f in families.items()},
@@ -2593,8 +2960,13 @@ def main() -> int:
             "train_audio_launches": train_audio["rmsnorm_launches"],
             "train": dict(train["rmsnorm_time"], max_abs_err=norm_bwd[
                 "forward_max_abs_err"]),
-            "backward_max_abs_err": norm_bwd["backward_max_abs_err"]}
+            "backward_max_abs_err": norm_bwd["backward_max_abs_err"],
+            **{f"train_{k}_launches": f["rmsnorm_launches"]
+               for k, f in train_fam.items()},
+            **{f"train_{k}": f["rmsnorm_time"]
+               for k, f in train_fam.items()}}
            if name == "rmsnorm" else {}),
+        "autotune_launches": autotune["launches"][name],
     } for name, tot in lm_kernels]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,13 @@ Two subcommands (a bare flag list still means ``tune``):
         --matmul 512x512x512 --algo autotvm --budget 64 \\
         --records artifacts/gemm.jsonl
 
+    # pod-level compile oracle (the cell's dry-run estimate + roofline at
+    # 256 placeholder devices, REPRO_DRYRUN_DEVICES to change), fanned
+    # across 4 crash-isolated measurement workers with a 300 s timeout
+    PYTHONPATH=src python -m repro_torch.compiler.cli tune \
+        --arch qwen2-1.5b --shape train_4k --oracle compile --budget 8 \
+        --workers 4 --timeout-s 300
+
     # live /metrics + /status on an ephemeral port, and a span trace of
     # the run (Chrome-trace JSON); --workers/--remote fan executor-backed
     # measurements out (analytical tasks are batched in-process)
@@ -41,6 +48,7 @@ import json
 import sys
 from typing import List
 
+from repro_torch import resolve_device
 from repro_torch.compiler.executor import (add_worker_args,
                                            validate_worker_args)
 from repro_torch.compiler.session import ALGOS, Session
@@ -74,6 +82,24 @@ def _network_tasks(args) -> List[TuningTask]:
             tasks.append(TuningTask.matmul(m, n, k))
         return tasks
     return tasks[:args.max_tasks] if args.max_tasks else tasks
+
+
+def _tasks_from_args(args) -> List[TuningTask]:
+    """tune's tasks: a network's conv/GEMM tasks (analytical oracle) or an
+    LM arch's pod-level cells (compile oracle)."""
+    picked = [bool(args.model), bool(args.matmul), bool(args.arch),
+              bool(args.network)]
+    if sum(picked) != 1:
+        raise SystemExit("pick exactly one of --model / --matmul / "
+                         "--network / --arch")
+    if args.oracle == "compile" and not args.arch:
+        raise SystemExit("--oracle compile requires --arch/--shape "
+                         "(conv/GEMM tasks are measured analytically)")
+    if not args.arch:
+        return _network_tasks(args)
+    if args.oracle != "compile":
+        raise SystemExit("--arch/--shape needs --oracle compile")
+    return [TuningTask.cell(args.arch, s) for s in args.shape]
 
 
 def _add_task_args(ap) -> None:
@@ -110,7 +136,10 @@ def _compact(store) -> None:
 
 
 def _run_tune(args) -> int:
-    tasks = _network_tasks(args)
+    resolve_device(args.device)     # no CUDA and no --device cpu: raise
+    if args.arch and not args.shape:
+        args.shape = ["train_4k"]
+    tasks = _tasks_from_args(args)
     if args.independent and (args.warm_from or args.save_surrogates):
         # reject before store_from_args touches the filesystem
         raise SystemExit("--warm-from/--save-surrogates need the shared "
@@ -175,13 +204,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.compiler.cli",
         description="Tuning sessions (tune) and network-scope HW/SW "
-                    "co-optimization (netopt) over conv/GEMM analytical "
-                    "tasks.")
+                    "co-optimization (netopt).")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    tune = sub.add_parser("tune", help="tuning session over conv/GEMM "
-                                       "analytical tasks")
+    tune = sub.add_parser(
+        "tune", help="tuning session over conv/GEMM analytical tasks or "
+                     "pod-level compile cells")
     _add_task_args(tune)
+    tune.add_argument("--arch", help="LM arch for the compile oracle")
+    tune.add_argument("--shape", action="append", default=[],
+                      help="cell shape(s) for --arch (default train_4k)")
+    tune.add_argument("--oracle", choices=("analytical", "compile"),
+                      default="analytical")
     tune.add_argument("--algo", choices=ALGOS, default="arco")
     tune.add_argument("--budget", type=int, default=None,
                       help="measurements per task")

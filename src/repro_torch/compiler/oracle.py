@@ -17,16 +17,21 @@ MAPPO updates with measurements.  Results always land back in this
 parent-process oracle, so memo/records/resume semantics are identical no
 matter who executed the measurement.
 
-Two concrete oracles (the reference's ``CompileOracle`` is XLA-bound and
-waits for ROADMAP item 16):
+Three concrete oracles:
 
 * :class:`AnalyticalOracle` — the batched analytical TPU v5e model
   (``DesignSpace.measure``) on ``device`` (default ``cuda``).
 * :class:`SettingsOracle` — one python measure function per decoded knob
   *settings* dict, run through an executor, with the failure penalty.
+* :class:`CompileOracle` — the pod-level compile oracle: one dry-run
+  estimate + roofline of an LM cell per measurement
+  (``launch.autotune.compile_and_analyze``: the port's step counted on the
+  ``meta`` device where the reference compiles it); ``workers=N`` fans its
+  measurements across a crash-isolated subprocess pool.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -326,3 +331,84 @@ class SettingsOracle(Oracle):
     def close(self) -> None:
         if self._own_executor:
             self.executor.close()
+
+
+def default_devices() -> int:
+    """The pod's placeholder device count: ``REPRO_DRYRUN_DEVICES``, else
+    256 (the reference reads jax's device count, pinned the same way)."""
+    return int(os.environ.get("REPRO_DRYRUN_DEVICES", "256"))
+
+
+def _compile_measure_factory(arch: str, shape: str, verbose: bool = False,
+                             n_devices: Optional[int] = None
+                             ) -> Callable[[Dict[str, object]], Dict]:
+    """WorkerSpec factory for :class:`CompileOracle` workers: the measure
+    function over one cell, imported inside the worker."""
+    from repro_torch.launch.autotune import compile_and_analyze
+
+    def fn(settings: Dict[str, object]) -> Dict[str, object]:
+        return compile_and_analyze(arch, shape, settings, verbose=verbose,
+                                   n_devices=n_devices)
+
+    return fn
+
+
+def _pinned_xla_flags(n_devices: int) -> str:
+    """Current XLA_FLAGS with the placeholder device count forced to
+    ``n_devices``: the wire's ``device_count_pin`` routes on it, the
+    contract shared with the reference's worker daemons."""
+    kept = [f for f in os.environ.get("XLA_FLAGS", "").split()
+            if not f.startswith("--xla_force_host_platform_device_count")]
+    kept.append(f"--xla_force_host_platform_device_count={n_devices}")
+    return " ".join(kept)
+
+
+class CompileOracle(SettingsOracle):
+    """Pod-level compile oracle: one dry-run estimate + roofline of one LM
+    cell per measurement, over ``n_devices`` placeholder devices (default
+    :func:`default_devices`).
+
+    ``workers=0`` (default) measures in-process, one at a time.
+    ``workers=N`` fans measurements across N spawned worker processes,
+    each building its measure function from this oracle's ``WorkerSpec``
+    (``_compile_measure_factory`` with the cell and the device count), with
+    ``timeout_s`` per-measurement timeouts and crash isolation.  A
+    multi-task session passes one shared ``executor=`` instead (jobs carry
+    this oracle's spec; the pool then belongs to the session).  The spec's
+    env pins the device count in ``XLA_FLAGS``, as the reference's does, so
+    remote daemons route these jobs as they route the reference's."""
+
+    def __init__(self, arch: str, shape: str, n_devices: Optional[int] = None,
+                 task: str = "", records: Optional[RecordLog] = None,
+                 verbose: bool = True,
+                 space: Optional[DesignSpace] = None,
+                 workers: int = 0, timeout_s: Optional[float] = None,
+                 executor: Optional[Executor] = None):
+        n_devices = n_devices or default_devices()
+        if space is None:
+            from repro_torch.core.shard_space import ShardSpace
+            space = ShardSpace.for_cell(arch, shape, measure_fn=None,
+                                        n_devices=n_devices)
+        self.arch, self.shape = arch, shape
+        self.n_devices = n_devices
+        self.workers = int(workers)
+        self.timeout_s = timeout_s
+
+        spec = WorkerSpec(
+            factory="repro_torch.compiler.oracle:_compile_measure_factory",
+            kwargs={"arch": arch, "shape": shape, "verbose": verbose,
+                    "n_devices": n_devices},
+            env={"XLA_FLAGS": _pinned_xla_flags(n_devices)})
+        own = executor is None
+        if executor is None and self.workers > 0:
+            from repro_torch.compiler.executor import SubprocessExecutor
+            executor = SubprocessExecutor(spec, workers=self.workers,
+                                          timeout_s=timeout_s)
+
+        # same wiring in-process and in workers: one factory, two homes
+        fn = _compile_measure_factory(arch, shape, verbose=verbose,
+                                      n_devices=n_devices)
+        super().__init__(space, fn, task=task or f"{arch}/{shape}",
+                         records=records, verbose=verbose,
+                         executor=executor, own_executor=own,
+                         worker_spec=spec)

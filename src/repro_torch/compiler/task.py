@@ -3,9 +3,11 @@
 A task's design space appends its workload descriptor to every config's
 GBT features, which is what makes cross-task cost-model transfer work: a
 shared surrogate sees ``[config features ++ workload descriptor]`` rows
-from every task it serves.  Pod-level compile cells (``TuningTask.cell``
-in the reference) wait for ROADMAP item 16; the zoo's pod networks build
-their shard-space tasks with ``from_space`` over an analytical proxy.
+from every task it serves.  Conv/GEMM tasks measure through the analytical
+oracle; pod-level (arch x shape) cells (:meth:`TuningTask.cell`) through
+the :class:`~repro_torch.compiler.oracle.CompileOracle`; the zoo's pod
+networks build their shard-space tasks with ``from_space`` over an
+analytical proxy.
 """
 from __future__ import annotations
 
@@ -89,3 +91,32 @@ class TuningTask:
         return [TuningTask(name=t.name, space=t.space,
                            multiplicity=t.multiplicity)
                 for t in conv_tasks(model, batch=batch)]
+
+    @staticmethod
+    def cell(arch: str, shape: str, n_devices: Optional[int] = None,
+             verbose: bool = True) -> "TuningTask":
+        """Pod-level (arch x shape) cell measured by the compile oracle over
+        ``n_devices`` placeholder devices (default ``REPRO_DRYRUN_DEVICES``,
+        else 256)."""
+        from repro_torch.compiler.oracle import CompileOracle, default_devices
+        from repro_torch.core.shard_space import ShardSpace
+        n_devices = n_devices or default_devices()
+        space = ShardSpace.for_cell(arch, shape, measure_fn=None,
+                                    n_devices=n_devices)
+        if not space.choices[0]:
+            raise ValueError(
+                f"no model-axis choice fits {n_devices} device(s); the "
+                "smallest is 4 (REPRO_DRYRUN_DEVICES or n_devices)")
+
+        def factory(task: "TuningTask", records: Optional[RecordLog],
+                    workers: int = 0, timeout_s: Optional[float] = None,
+                    executor=None) -> Oracle:
+            # the session loop and the oracle share one space object
+            return CompileOracle(arch, shape, n_devices=n_devices,
+                                 task=task.name, records=records,
+                                 verbose=verbose, space=task.space,
+                                 workers=workers, timeout_s=timeout_s,
+                                 executor=executor)
+
+        return TuningTask(name=f"{arch}/{shape}", space=space,
+                          oracle_factory=factory)

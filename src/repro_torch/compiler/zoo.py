@@ -17,8 +17,8 @@ CLI: ``python -m repro_torch.compiler.cli netopt --network mobilenet-dw``.
 
 The pod-cell network measures through a deterministic *analytical proxy*
 (roofline-style step-time model over the sharding knobs) so the zoo stays
-cheap enough for tests and smoke runs (compile-measured cells wait for
-ROADMAP item 16).
+cheap enough for tests and smoke runs; swap ``TuningTask.cell`` in for
+cells measured by the compile oracle.
 """
 from __future__ import annotations
 

@@ -7,17 +7,24 @@ Every architecture is paired with four shapes:
     decode_32k   seq 32,768  global_batch 128   (one decode token, KV at 32k)
     long_500k    seq 524,288 global_batch 1     (long-context decode)
 
-``long_500k`` requires sub-quadratic attention and is skipped (with reason)
-for pure full-attention archs.  The reference's ``input_specs`` (abstract
-``jax.ShapeDtypeStruct`` inputs for the dry-run) has no counterpart yet: it
-comes with the meta-device estimator (ROADMAP Queue 1, item 16).
+``decode_*``/``long_*`` run ``decode_step`` (one token against a cache of
+``seq`` tokens), not a training step.  ``long_500k`` requires sub-quadratic
+attention and is skipped (with reason) for pure full-attention archs.
+
+``input_specs`` returns tensors on the ``meta`` device, the port's
+counterpart of the reference's ``jax.ShapeDtypeStruct`` stand-ins: shapes
+and dtypes, never storage, so the dry-run allocates nothing.  Modality
+frontends are stubs: the VLM entry takes precomputed patch embeddings, the
+audio entry precomputed frames.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.models.transformer import ArchConfig
+import torch
+
+from repro_torch.models.transformer import ArchConfig, init_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +54,28 @@ def cell_supported(cfg: ArchConfig, shape: ShapeCell) -> Tuple[bool, str]:
     return True, ""
 
 
-def input_specs(cfg: ArchConfig, shape: ShapeCell, batch_override=None):
-    raise NotImplementedError(
-        "configs.shapes.input_specs is not ported yet: it comes with the "
-        "meta-device dry-run estimator (ROADMAP Queue 1, item 16)")
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeCell,
+                batch_override: Optional[int] = None) -> Dict[str, Any]:
+    """``meta`` tensors standing in for every model input of this cell: a
+    batch's tokens (and labels, patches, frames), or for decode one token a
+    sequence and the zero cache of ``seq`` positions."""
+    b = batch_override or shape.global_batch
+    s = shape.seq
+    if shape.kind in ("train", "prefill"):
+        text = s - cfg.vision_prefix if cfg.vision_prefix else s
+        spec: Dict[str, Any] = {"tokens": _meta((b, text), torch.int32)}
+        if shape.kind == "train":
+            spec["labels"] = _meta((b, text), torch.int32)
+        if cfg.vision_prefix:
+            spec["patches"] = _meta((b, cfg.vision_prefix, cfg.d_model),
+                                    cfg.dtype)
+        if cfg.enc_dec:
+            spec["frames"] = _meta((b, cfg.enc_seq, cfg.d_model), cfg.dtype)
+        return spec
+    # decode: one new token against a cache of `s` tokens
+    return {"tokens": _meta((b, 1), torch.int32),
+            "cache": init_cache(cfg, b, s, device="meta")}

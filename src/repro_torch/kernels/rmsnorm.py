@@ -129,11 +129,14 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
                   block_rows: int = 128) -> torch.Tensor:
     """The kernel's function in PyTorch, one (block_rows, d) tile of rows
-    at a time, as the reference's grid walks them."""
+    at a time, as the reference's grid walks them (on the ``meta`` device,
+    which holds no values, all rows at once)."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     rows = x2.shape[0]
     step = max(1, min(int(block_rows), rows))
+    if x.device.type == "meta":
+        step = max(rows, 1)
     out = torch.empty_like(x2)
     for i in range(0, rows, step):
         out[i:i + step] = ref.rmsnorm_ref(x2[i:i + step], w, eps)

@@ -15,6 +15,15 @@ state unchanged; decode is a single-step state update (O(1) a token).
 * mLSTM and sLSTM: stepwise, as in the reference (their gates are
   recurrent by construction); one Python step a token.
 
+Where autograd records (grad mode on, and x or a parameter requires
+grad) each chunk runs as one function under non-reentrant
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+chunk scan's body: the backward keeps the states at chunk boundaries and
+recomputes one chunk's steps at a time, so the bytes it saves grow with
+the chunks, not the steps.  Prefill and decode never record and run the
+same operations as before; :func:`chunk_checkpoint` turns the checkpoint
+off (for measuring what it saves).
+
 Each mixer's norm goes through the RMSNorm kernel (``use_kernel``); the
 projections and the recurrences are plain PyTorch, as they are outside
 any Pallas kernel in the reference.  The states are NamedTuples of
@@ -23,11 +32,14 @@ the entry's keys (``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import Params, _winit, dense, rmsnorm
 
@@ -36,6 +48,31 @@ D_CONV = 4        # Mamba's conv width
 # leaves kept in fp32 whatever the model's param dtype (the reference's)
 FP32_LEAVES = {"mamba": ("A_log", "D"), "mlstm": ("wi", "wf"),
                "slstm": ("bi", "bf", "bz", "bo")}
+_CHUNK_CHECKPOINT = [True]
+
+
+@contextlib.contextmanager
+def chunk_checkpoint(enabled: bool) -> Iterator[None]:
+    """Within the block, the mixers checkpoint their chunks iff
+    ``enabled`` (default on)."""
+    saved, _CHUNK_CHECKPOINT[0] = _CHUNK_CHECKPOINT[0], enabled
+    try:
+        yield
+    finally:
+        _CHUNK_CHECKPOINT[0] = saved
+
+
+def _chunk_runner(x: torch.Tensor, p: Params):
+    """How a mixer runs one chunk function: under a non-reentrant
+    checkpoint where autograd records this call (grad mode on, x or a
+    parameter requiring grad), else directly.  The chunks draw no random
+    numbers: no RNG state to keep."""
+    if (_CHUNK_CHECKPOINT[0] and torch.is_grad_enabled()
+            and (x.requires_grad or any(t.requires_grad
+                                        for t in p.values()))):
+        return functools.partial(checkpoint, use_reentrant=False,
+                                 preserve_rng_state=False)
+    return lambda fn, *args: fn(*args)
 
 
 # ==========================================================================
@@ -117,7 +154,8 @@ def _mamba_chunk(h0, delta, bmat, cmat, x, A):
     a_cum, b_cum = _scan(dA, dBx)
     h_all = a_cum * h0[:, None] + b_cum                          # (B,C,di,N)
     y = torch.einsum("bcdn,bcn->bcd", h_all, cmat.float())
-    return h_all[:, -1], y
+    # a copy, not a view: the next chunk keeps h, never this chunk's h_all
+    return h_all[:, -1].clone(), y
 
 
 class MambaState(NamedTuple):
@@ -153,11 +191,12 @@ def mamba_mix(x: torch.Tensor, p: Params, chunk: int = 64,
     delta, bmat, cmat, xs_p = (padt(t) for t in (delta, bmat, cmat, xs))
     h = (state.h if state is not None
          else torch.zeros((b, di, n), dtype=torch.float32, device=x.device))
+    run = _chunk_runner(x, p)
     ys = []
     for ci in range(n_chunks):
         cs = slice(ci * chunk, (ci + 1) * chunk)
-        h, y = _mamba_chunk(h, delta[:, cs], bmat[:, cs], cmat[:, cs],
-                            xs_p[:, cs], A)
+        h, y = run(_mamba_chunk, h, delta[:, cs], bmat[:, cs], cmat[:, cs],
+                   xs_p[:, cs], A)
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s]
     y = y.to(x.dtype) + xs * p["D"].to(x.dtype)
@@ -255,11 +294,22 @@ def _mlstm_step(st: LstmState, q, k, v, i_pre, f_pre):
     return LstmState(c, n, m_new), h
 
 
-def _padded_steps(s: int, chunk: int) -> int:
-    """Steps the reference runs for s tokens: whole chunks of
-    ``min(chunk, s)``."""
+def _mlstm_chunk(c, n, m, q, k, v, i_pre, f_pre):
+    """The steps of one chunk from the state (c, n, m); q/k/v (B,C,H,dh),
+    i/f (B,C,H).  Returns (c, n, m, h (B,C,H,dh))."""
+    st, hs = LstmState(c, n, m), []
+    for t in range(q.shape[1]):
+        st, h = _mlstm_step(st, q[:, t], k[:, t], v[:, t], i_pre[:, t],
+                            f_pre[:, t])
+        hs.append(h)
+    return (*st, torch.stack(hs, dim=1))
+
+
+def _chunks(s: int, chunk: int) -> Tuple[int, int]:
+    """(chunk, padded steps) the reference runs for s tokens: whole chunks
+    of ``min(chunk, s)``."""
     chunk = min(chunk, s)
-    return -(-s // chunk) * chunk
+    return chunk, -(-s // chunk) * chunk
 
 
 def mlstm_mix(x: torch.Tensor, p: Params, n_heads: int, chunk: int = 64,
@@ -275,7 +325,8 @@ def mlstm_mix(x: torch.Tensor, p: Params, n_heads: int, chunk: int = 64,
     f_pre = torch.einsum("bsd,dh->bsh", x.float(), p["wf"].float())
     z = dense(x, p["wz"])
 
-    pad = _padded_steps(s, chunk) - s
+    chunk, steps = _chunks(s, chunk)
+    pad = steps - s
     if pad:
         # state-identity padding: i-gate -> -inf (no write), f-gate -> keep
         i_pre = F.pad(i_pre, (0, 0, 0, pad), value=NEG_INF)
@@ -283,12 +334,15 @@ def mlstm_mix(x: torch.Tensor, p: Params, n_heads: int, chunk: int = 64,
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
     st = (state if state is not None
           else init_mlstm_state(b, n_heads, dh, device=x.device))
+    run = _chunk_runner(x, p)
     hs = []
-    for t in range(s + pad):
-        st, h = _mlstm_step(st, q[:, t], k[:, t], v[:, t], i_pre[:, t],
-                            f_pre[:, t])
+    for t0 in range(0, steps, chunk):
+        cs = slice(t0, t0 + chunk)
+        *st, h = run(_mlstm_chunk, *st, q[:, cs], k[:, cs], v[:, cs],
+                     i_pre[:, cs], f_pre[:, cs])
         hs.append(h)
-    h = torch.stack(hs[:s], dim=1).reshape(b, s, d)
+    st = LstmState(*st)
+    h = torch.cat(hs, dim=1)[:, :s].reshape(b, s, d)
     out = dense(h.to(x.dtype) * F.silu(z), p["wo"])
     return out, st
 
@@ -349,6 +403,18 @@ def _slstm_step(p: Params, n_heads: int, st: SlstmState, x_t):
     return new, h
 
 
+def _slstm_chunk(p: Params, n_heads: int, c, n, m, h, *gates):
+    """The steps of one chunk from the state (c, n, m, h); ``gates`` the
+    chunk's i, f, z, o inputs (B,C,D) and valid flag (B,C,1).  Returns
+    (c, n, m, h, h of every step (B,C,D))."""
+    st, hs = SlstmState(c, n, m, h), []
+    for t in range(gates[0].shape[1]):
+        st, h = _slstm_step(p, n_heads, st,
+                            {g: x[:, t] for g, x in zip("ifzov", gates)})
+        hs.append(h)
+    return (*st, torch.stack(hs, dim=1))
+
+
 def slstm_mix(x: torch.Tensor, p: Params, n_heads: int, chunk: int = 64,
               state: Optional[SlstmState] = None
               ) -> Tuple[torch.Tensor, SlstmState]:
@@ -356,7 +422,8 @@ def slstm_mix(x: torch.Tensor, p: Params, n_heads: int, chunk: int = 64,
     xg = {g: torch.einsum("bsd,df->bsf", x, p[f"w{g}"]).float()
           for g in "ifzo"}
     xg["v"] = torch.ones((b, s, 1), dtype=torch.float32, device=x.device)
-    pad = _padded_steps(s, chunk) - s
+    chunk, steps = _chunks(s, chunk)
+    pad = steps - s
     if pad:
         xg = {g: F.pad(t, (0, 0, 0, pad)) for g, t in xg.items()}
     # the recurrent weights in fp32 once (the step casts them: the same
@@ -364,12 +431,14 @@ def slstm_mix(x: torch.Tensor, p: Params, n_heads: int, chunk: int = 64,
     pf = dict(p, **{f"r{g}": p[f"r{g}"].float() for g in "ifzo"})
     st = (state if state is not None
           else init_slstm_state(b, d, device=x.device))
+    run, body = _chunk_runner(x, p), functools.partial(_slstm_chunk, pf,
+                                                       n_heads)
     hs = []
-    for t in range(s + pad):
-        st, h = _slstm_step(pf, n_heads, st,
-                            {g: xg[g][:, t] for g in "ifzov"})
+    for t0 in range(0, steps, chunk):
+        *st, h = run(body, *st, *(xg[g][:, t0:t0 + chunk] for g in "ifzov"))
         hs.append(h)
-    h = torch.stack(hs[:s], dim=1)
+    st = SlstmState(*st)
+    h = torch.cat(hs, dim=1)[:, :s]
     return dense(h.to(x.dtype), p["wo_out"]), st
 
 

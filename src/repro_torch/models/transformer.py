@@ -187,7 +187,9 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
     ``D``, mLSTM's ``wi``/``wf``, sLSTM's ``b*``) are fp32 here too."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # meta tensors draw nothing: any generator will do
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
     dt = cfg.param_dtype
     scale = 1.0 / math.sqrt(cfg.d_model)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
@@ -204,6 +206,12 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
             for mixer, ffn in encoder_config(cfg).layer_kinds()]
         params["enc_ln"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
     return params
+
+
+def abstract_params(cfg: ArchConfig) -> Params:
+    """The parameter tree on the ``meta`` device: every leaf's shape and
+    dtype, no storage (the reference's ``abstract_params``)."""
+    return init_params(0, cfg, device="meta")
 
 
 def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> Params:
@@ -459,7 +467,8 @@ def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor,
     return nll, cnt
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            use_kernel: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss: mean next-token NLL over the unmasked labels
     (never the vision prefix's positions) plus the MoE layers' summed
@@ -469,8 +478,11 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
     The reference casts h's cotangent back to h's dtype (``_grad_cast``)
     so that its fp32 loss math does not promote the backward's residual
     stream to fp32; here nothing is needed: the gradient autograd returns
-    through ``.to()`` / ``.float()`` is already in the input's dtype."""
-    h, aux, _ = hidden_states(params, batch, cfg, train=True)
+    through ``.to()`` / ``.float()`` is already in the input's dtype.
+    ``use_kernel=False`` runs the norms' plain path (the estimator's on
+    the ``meta`` device)."""
+    h, aux, _ = hidden_states(params, batch, cfg, use_kernel=use_kernel,
+                              train=True)
     labels = batch["labels"]
     if cfg.vision_prefix:   # loss only over the text segment
         pad = torch.full((labels.shape[0], cfg.vision_prefix), -1,
@@ -574,15 +586,19 @@ def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
 
 
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
-                cfg: ArchConfig, use_kernel: bool = True
+                cfg: ArchConfig, use_kernel: bool = True,
+                kv_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step. tokens: (B, 1) -> (logits (B, V), cache).  The
     cache's layers are updated in place; the returned cache holds them and
-    ``pos + 1``."""
+    ``pos + 1``.  ``kv_len``: the cache positions attention reads (default
+    the furthest slot's, one host sync a step; a caller without values,
+    as on the ``meta`` device, passes the cache's length)."""
     check_supported(cfg)
     pos = cache["pos"]
     x = embed(params["embed"], tokens, cfg.dtype)
-    kv_len = int(pos.max()) + 1       # one host sync a step
+    if kv_len is None:
+        kv_len = int(pos.max()) + 1
     for p, (mixer, ffn), entry in zip(params["layers"], cfg.layer_kinds(),
                                       cache["layers"]):
         x = _decode_block(x, p, cfg, mixer, ffn, entry, pos, kv_len,

@@ -58,16 +58,18 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def _value_and_grad(params: T.Params, leaves: List[torch.Tensor],
-                    batch: Dict[str, torch.Tensor], cfg: T.ArchConfig
+                    batch: Dict[str, torch.Tensor], cfg: T.ArchConfig,
+                    use_kernel: bool = True
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                                Tuple[torch.Tensor, ...]]:
-    loss, metrics = T.loss_fn(params, batch, cfg)
+    loss, metrics = T.loss_fn(params, batch, cfg, use_kernel)
     grads = torch.autograd.grad(loss, leaves)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 
 
-def train_step_fn(cfg: T.ArchConfig, tc: TrainConfig
+def train_step_fn(cfg: T.ArchConfig, tc: TrainConfig,
+                  use_kernel: bool = True
                   ) -> Callable[[T.Params, Adam, Dict[str, Any]],
                                 Dict[str, torch.Tensor]]:
     """Returns f(params, opt, batch) -> metrics {loss, nll, grad_norm, ...}
@@ -79,7 +81,8 @@ def train_step_fn(cfg: T.ArchConfig, tc: TrainConfig
     its first axis and sums their gradients into fp32 buffers, as the
     reference's scan sums into fp32 zeros, then divides by ``grad_accum``;
     the loss is the microbatches' mean and ``nll`` equals it.
-    ``grad_norm`` is the global norm of the unclipped gradients."""
+    ``grad_norm`` is the global norm of the unclipped gradients.
+    ``use_kernel=False`` runs the norms' plain path."""
 
     def step(params: T.Params, opt: Adam,
              batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -93,7 +96,8 @@ def train_step_fn(cfg: T.ArchConfig, tc: TrainConfig
                                 device=leaves[0].device)
             for i in range(tc.grad_accum):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                loss, _, grads = _value_and_grad(params, leaves, mb, cfg)
+                loss, _, grads = _value_and_grad(params, leaves, mb, cfg,
+                                                 use_kernel)
                 for a, g in zip(acc, grads):
                     a.add_(g)
                 total = total + loss
@@ -103,7 +107,7 @@ def train_step_fn(cfg: T.ArchConfig, tc: TrainConfig
             metrics = {"nll": loss}
         else:
             loss, metrics, grads = _value_and_grad(params, leaves, batch,
-                                                   cfg)
+                                                   cfg, use_kernel)
         grad_norm = global_norm(grads)
         opt.step(list(grads))
         return dict(metrics, loss=loss, grad_norm=grad_norm)

@@ -26,7 +26,8 @@ print(json.dumps({"names": names, "bad": bad}))
 
 # the modules of the later slices (baselines, netopt, surrogate store and
 # zoo; the measurement fabric; LM training; MoE and the recurrent
-# mixers): each must be among the modules imported above
+# mixers; placement, roofline and the dry-run): each must be among the
+# modules imported above
 SLICE_MODULES = (
     "repro_torch.core.baselines", "repro_torch.core.shard_space",
     "repro_torch.configs.shapes", "repro_torch.compiler.surrogate_store",
@@ -47,7 +48,13 @@ SLICE_MODULES = (
     "repro_torch.train.steps", "repro_torch.train.checkpoint",
     "repro_torch.train.trainer", "repro_torch.launch.train",
     # the MoE FFN and the recurrent mixers
-    "repro_torch.models.moe", "repro_torch.models.ssm")
+    "repro_torch.models.moe", "repro_torch.models.ssm",
+    # the single-card half of the XLA-bound layer: placement rules, mesh
+    # shapes, roofline, the meta-device estimator, dry-run and autotune
+    "repro_torch.dist", "repro_torch.dist.sharding",
+    "repro_torch.launch.mesh", "repro_torch.hw.roofline",
+    "repro_torch.hw.step_analysis", "repro_torch.launch.dryrun",
+    "repro_torch.launch.autotune")
 
 # the fabric's modules: a spawned measurement worker or a worker daemon
 # loads them and must not pay a torch (or numpy) import

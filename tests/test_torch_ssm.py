@@ -8,7 +8,15 @@ equal the mix over the longer sequence; mLSTM and sLSTM the same.
 Tolerance: 1e-5 of max |ref| (fp32; sums and the scan's products in other
 orders).  The stepwise mLSTM/sLSTM prefill and the one-step decode compute
 the same cell with the same operations, so decode after a prefill agrees
-with the longer mix as closely."""
+with the longer mix as closely.
+
+The chunk checkpoint: each mixer's gradients (input and every parameter)
+against ``jax.grad`` of the reference's (its scan body under
+``jax.checkpoint``) at 1e-4 of max |ref| (fp32; the backward sums in
+other orders); outputs and gradients bit-equal with the checkpoint on and
+off; and the bytes a backward saves (the storages packed by
+``saved_tensors_hooks``, each once) grow by the states at the chunk
+boundaries a chunk, not by a state a step."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -207,3 +215,123 @@ def test_initial_states(mamba):
         for g, w in zip(got, want):
             assert g.dtype == torch.float32 and g.shape == w.shape
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ------------------------------------------------------- chunk checkpoint
+
+GRAD_TOL = 1e-4   # x max |ref grad|, fp32
+_MIXERS = ("mamba", "mlstm", "slstm")
+
+
+def _mix_fns(kind):
+    """(reference mix, port mix), each f(x, params, chunk) -> y."""
+    if kind == "mamba":
+        return (lambda x, p, c: JS.mamba_mix(x, p, c)[0],
+                lambda x, p, c: TS.mamba_mix(x, p, c)[0])
+    jmix, tmix = _MIX[kind]
+    return (lambda x, p, c: jmix(x, p, H, c)[0],
+            lambda x, p, c: tmix(x, p, H, c)[0])
+
+
+def _port_value_and_grads(kind, tp, x, chunk, cot):
+    """The port's output and (dx, {name: dparam}) of <y, cot>."""
+    _, tmix = _mix_fns(kind)
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in tp.items()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = tmix(xt, p, chunk)
+    grads = torch.autograd.grad((y * torch.from_numpy(cot)).sum(),
+                                [xt, *p.values()], allow_unused=True)
+    # the block's norm weight is not the mix's: its gradient is zero
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip([xt, *p.values()], grads)]
+    return y.detach(), grads[0], dict(zip(p, grads[1:]))
+
+
+@pytest.mark.parametrize("kind", _MIXERS)
+def test_mix_gradients_match_reference(kind, mamba, mlstm, slstm):
+    """S = 19 over chunks of 8 (3 chunks, the last padded): the gradients
+    of <mix(x), cot> with respect to x and every parameter against
+    ``jax.grad`` of the reference's mix."""
+    jp, tp = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}[kind]
+    jmix, _ = _mix_fns(kind)
+    x, cot = _x((2, 19, D), 11), _x((2, 19, D), 12)
+    jdx, jdp = jax.grad(
+        lambda xx, pp: jnp.sum(jmix(xx, pp, CHUNK) * cot), argnums=(0, 1))(
+            jnp.asarray(x), jp)
+    _, dx, dp = _port_value_and_grads(kind, tp, x, CHUNK, cot)
+    assert _rel(dx, jdx) <= GRAD_TOL
+    # a leaf whose exact gradient is 0 (the block's norm weight; sLSTM's
+    # i-gate bias, whose first step cancels in i - m) gets rounding noise
+    # in both packages: it is held below 1e-6 of the largest gradient
+    noise = 1e-6 * max(float(np.abs(np.asarray(g)).max())
+                       for g in jdp.values())
+    for name, g in dp.items():
+        want = np.asarray(jdp[name])
+        if float(np.abs(want).max()) <= noise:
+            assert float(g.abs().max()) <= noise, name
+            continue
+        assert _rel(g, want) <= GRAD_TOL, name
+
+
+@pytest.mark.parametrize("kind", _MIXERS)
+def test_chunk_checkpoint_keeps_values_bit_equal(kind, mamba, mlstm, slstm):
+    """The checkpointed backward recomputes each chunk with the same
+    operations: outputs and every gradient are bit-equal to autograd
+    through the chunks without it."""
+    _, tp = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}[kind]
+    x, cot = _x((2, 19, D), 13), _x((2, 19, D), 14)
+    y1, dx1, dp1 = _port_value_and_grads(kind, tp, x, CHUNK, cot)
+    with TS.chunk_checkpoint(False):
+        y0, dx0, dp0 = _port_value_and_grads(kind, tp, x, CHUNK, cot)
+    assert torch.equal(y1, y0) and torch.equal(dx1, dx0)
+    for name in dp0:
+        assert torch.equal(dp1[name], dp0[name]), name
+
+
+def _saved_bytes(kind, tp, s, chunk, enabled=True) -> int:
+    """Bytes of the distinct storages autograd saves for a backward
+    through the mix of a (1, s, D) input in chunks of ``chunk``."""
+    _, tmix = _mix_fns(kind)
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in tp.items()}
+    x = torch.from_numpy(_x((1, s, D), 15)).requires_grad_(True)
+    storages = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+        return t
+
+    with TS.chunk_checkpoint(enabled), \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        tmix(x, p, chunk)
+    return sum(storages.values())
+
+
+def _state_bytes(kind) -> int:
+    st = {"mamba": lambda: TS.init_mamba_state(1, 2 * D, N, torch.float32),
+          "mlstm": lambda: TS.init_mlstm_state(1, H, D // H),
+          "slstm": lambda: TS.init_slstm_state(1, D)}[kind]()
+    # Mamba's conv tail is not carried between chunks
+    fields = st[:1] if kind == "mamba" else st
+    return sum(t.nbytes for t in fields)
+
+
+@pytest.mark.parametrize("kind", _MIXERS)
+def test_backward_saves_bytes_by_chunk_not_by_step(kind, mamba, mlstm,
+                                                   slstm):
+    """At 2 chunks, S 8 -> 32 (24 more steps): the checkpointed mix saves
+    at least a state a step less than the mix without the checkpoint (its
+    growth is the sequence's projections).  At S 32, chunks 2 -> 4 -> 8:
+    each added chunk saves exactly one more state (its boundary state).
+    (Mamba's chunk returns a copy of its last state: a view of the chunk's
+    (B, C, di, N) states would keep all of them.)"""
+    _, tp = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}[kind]
+    state = _state_bytes(kind)
+    grow_on = _saved_bytes(kind, tp, 32, 16) - _saved_bytes(kind, tp, 8, 4)
+    grow_off = (_saved_bytes(kind, tp, 32, 16, enabled=False)
+                - _saved_bytes(kind, tp, 8, 4, enabled=False))
+    assert grow_off - grow_on >= 24 * state, (grow_on, grow_off, state)
+    by_chunks = [_saved_bytes(kind, tp, 32, c) for c in (16, 8, 4)]
+    per_chunk = [(by_chunks[1] - by_chunks[0]) / 2,
+                 (by_chunks[2] - by_chunks[1]) / 4]
+    assert per_chunk == [state, state], (per_chunk, state)

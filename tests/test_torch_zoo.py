@@ -88,8 +88,27 @@ def test_shapes_and_shard_space_match_reference():
             assert TSH.cell_supported(get_config(arch), TSH.SHAPES[name]) \
                 == JSH.cell_supported(jax_get_config(arch),
                                       JSH.SHAPES[name])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TSH.input_specs(get_config("qwen2-1.5b"), TSH.SHAPES["train_4k"])
+    # input_specs: meta tensors of the reference's ShapeDtypeStructs'
+    # shapes and dtypes; a decode cache of the same elements in all (the
+    # reference stacks each period position's layers)
+    import jax
+    for arch in ("qwen2-1.5b", "whisper-base", "internvl2-26b",
+                 "xlstm-1.3b"):
+        for name in TSH.SHAPE_NAMES:
+            got = TSH.input_specs(get_config(arch), TSH.SHAPES[name], 4)
+            want = JSH.input_specs(jax_get_config(arch), JSH.SHAPES[name], 4)
+            assert set(got) == set(want), (arch, name)
+            for k in set(got) - {"cache"}:
+                assert got[k].device.type == "meta"
+                assert tuple(got[k].shape) == tuple(want[k].shape)
+                assert str(got[k].dtype).split(".")[-1] == \
+                    str(want[k].dtype), (arch, name, k)
+            if "cache" in got:
+                n_got = sum(t.numel() for t in jax.tree.leaves(
+                    got["cache"]))
+                n_want = sum(int(np.prod(t.shape)) for t in jax.tree.leaves(
+                    want["cache"]))
+                assert n_got == n_want, (arch, name)
     from repro.core import shard_space as JSS
     for arch, shape, n in (("qwen2-1.5b", "train_4k", 256),
                            ("qwen1.5-4b", "decode_32k", 16)):
