@@ -6,9 +6,12 @@
 Drives the port's paths on ``cuda:0``: the paper's own loop at full
 ResNet-18 width, its baselines and its network co-optimization with the
 co-optimized chip's mappings deployed, the LM server at qwen2-1.5b's full
-width and depth, training at that width and depth, the MoE and
-recurrent families served at full width (moonshot-v1-16b-a3b whole,
-xlstm-1.3b cut to 16 of its 48 layers, jamba-1.5-large-398b to 5), and the
+width and depth, training at that width and depth, the same model trained
+and served through the mesh step builders (DTensors over a one-card
+NCCL mesh) and trained with the int8 error-feedback all-reduce, the MoE
+and recurrent families served at full width (moonshot-v1-16b-a3b cut to
+16 of its 48 layers, xlstm-1.3b to 16 of 48, jamba-1.5-large-398b to 5),
+and the
 encoder-decoder and vision-prefix families served whole at full width
 (whisper-base, internvl2-26b), whisper-base also trained, the MoE and
 xLSTM families trained at full width (moonshot-v1-16b-a3b cut to 2
@@ -108,6 +111,24 @@ training step.
    and grad norms finite, the last 3 losses below the first 3; step
    seconds, tokens/s, peak memory, one profiled step, and the RMSNorm
    kernel timed at the step's (8192, 1536);
+    then, in one process group (NCCL at world size 1, a ``FileStore``
+   under a temporary directory, a (data 1, model 1) ``DeviceMesh``):
+   ``[train sharded]``: ``build_sharded_train_step``, qwen2-1.5b bf16
+   from ``init_params(SEED)`` as DTensors placed by the sharding rules,
+   3 steps on ``[train]``'s first batches: losses and grad norms equal to
+   ``[train]``'s first 3 within 1e-6 relative, RMSNorm 113 a step, flash
+   and GEMM 0, the step time and peak memory beside ``[train]``'s;
+   ``[train int8]``: ``make_ddp_compressed_step`` for 3 steps on the
+   parameters and moments that phase leaves (their local tensors):
+   finite losses and error state, the same launch identities, then one
+   gradient through ``compressed_psum_mean`` timed by CUDA events, its
+   synced gradient equal to ``q * scale`` exactly, and the bytes one
+   all-reduce puts on the wire; ``[serve sharded]``:
+   ``build_sharded_prefill`` on 8 prompts of 1,024 tokens and 16
+   ``build_sharded_serve_step`` decode steps, logits within 1e-6 relative
+   of the unsharded ``prefill`` / ``decode_step``, flash 28 + RMSNorm 57 a
+   prefill, RMSNorm 57 a decode step, the decode step's ms beside the
+   unsharded one's;
 15. ``[train faults]``: the ``Trainer`` on the card at the reference
    trainer test's setup (reduced smollm-360m, 40 steps, checkpoints every
    10, a crash at step 17 and a NaN batch at 26: both roll back, the loss
@@ -115,9 +136,9 @@ training step.
    repro_torch.launch.train --arch qwen2-1.5b --reduced --steps 20`` as a
    subprocess on the card;
 16. ``[serve moe]``, ``[serve ssm]``, ``[serve hybrid]``, each freeing the
-   model before it and printing its peak device memory: moonshot-v1-16b-a3b
-   (48 layers of attention + a dropping MoE of 64 experts top-6, 28.0 B
-   parameters), xlstm-1.3b's first 16 layers (14 mLSTM + 2 sLSTM; the
+   model before it and printing its peak device memory: moonshot-v1-16b-a3b's
+   first 16 layers (attention + a dropping MoE of 64 experts top-6; whole,
+   its 48 took 45 s), xlstm-1.3b's first 16 layers (14 mLSTM + 2 sLSTM; the
    whole 48's host-bound prefill, fp32 twin included, pushed the run past
    half its time limit) and the first 5
    layers of jamba-1.5-large-398b at its full width (Mamba, MLP, MoE of
@@ -131,7 +152,7 @@ training step.
    the paths counted; then 16, 8 and 8
    requests (prompts 128-1024, 64-256, 128-512; 32, 32, 16 new tokens)
    through ``Server(n_slots=8, max_len=2048)`` in bf16 with the launch
-   identities checked at every step (moonshot: flash 48 and RMSNorm 97 a
+   identities checked at every step (moonshot: flash 16 and RMSNorm 33 a
    prefill; xlstm: RMSNorm 17, flash 0; jamba: flash 1 and RMSNorm 11),
    tokens/s, prefill ms by length and a prompt token, the decode step
    beside the time to read every weight once, and each kernel timed at
@@ -158,7 +179,7 @@ training step.
    full width: 64 experts top-6, the dropping dispatch, the aux loss in
    the loss; 1.81 B parameters) on 4 x 1024 tokens for 8 steps, and
    xlstm-1.3b (its first period: 7 mLSTM + 1 sLSTM at full width) on 8 x
-   128 tokens for 6 steps at lr 1e-3, bf16, remat on: RMSNorm 9 and 17
+   128 tokens for 4 steps at lr 1e-3, bf16, remat on: RMSNorm 9 and 17
    launches a
    step, flash and GEMM none, finite losses and grad norms, the loss
    falling; step seconds, tokens/s, each step's peak memory; xlstm then
@@ -175,7 +196,7 @@ training step.
    (within 1e-6), its memory estimate printed beside that step's peak;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
-times).
+times; every kernel's with the mesh phases' launches).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, so the script exits non-zero and prints no result; without a GPU,
@@ -186,6 +207,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -309,6 +331,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 4
 TRAIN_NORM_SHAPE = (TRAIN_BATCH * TRAIN_SEQ, 1536)
 LAUNCH_TIMEOUT_S = 300    # the launcher subprocess of [train faults]
+# [train sharded], [serve sharded], [train int8]: the mesh paths at world
+# size 1 (one card), a (data 1, model 1) DeviceMesh over NCCL; every op
+# runs on the whole tensor, so the values equal the unsharded path's
+MESH_STEPS = 3            # [train sharded] and [train int8] steps
+MESH_TOL = 1e-6           # relative, against the unsharded path
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_STEPS = 8, 1024, 16
 # [serve moe], [serve ssm], [serve hybrid], [serve audio], [serve vlm]: the
 # MoE and recurrent families, the encoder-decoder and the vision prefix,
 # each served in bf16 at its full width (the hybrid's depth cut), after an
@@ -319,6 +347,10 @@ MOE_GATE_LAYERS = 2       # the fp32 gate's moonshot: its first 2 layers
 SSM_GATE_LAYERS = 8       # the fp32 gate's xlstm: its first period (7
                           # mLSTM + 1 sLSTM); the served 16 are measured
                           # beside the model's own noise, ungated
+# the served moonshot: its first 16 of 48 layers (whole, its 28 B
+# parameters' seeded init, fp32 and bf16 gates and 16 requests took [serve
+# moe] to 45 s; the mesh phases needed the seconds back)
+MOE_SERVE_LAYERS = 16
 # the served xlstm: its first 2 periods.  Whole (48 layers) its prefill,
 # one Python step a token and layer, with its fp32 twin took [serve ssm]
 # to 150 s and the run past half its time limit (32 layers: 114 s); the
@@ -361,7 +393,7 @@ AUDIO_TRAIN_BATCH, AUDIO_TRAIN_STEPS = 8, 10
 # and at lr 3e-4 its loss moved 0.07 in 6 steps: it takes 1e-3.
 # (arch, layers, batch, seq, steps, lr)
 FAMILY_TRAIN = {"moe": (MOE_ARCH, 2, 4, 1024, 8, TRAIN_LR),
-                "ssm": (SSM_ARCH, 8, 8, 128, 6, 1e-3)}
+                "ssm": (SSM_ARCH, 8, 8, 128, 4, 1e-3)}
 # [autotune]: the CLI's pod-level tune at 256 placeholder devices (the
 # reference's default budget 14 cut to 8); records and report under build/
 AUTOTUNE_ARCH, AUTOTUNE_SHAPE, AUTOTUNE_BUDGET = "qwen2-1.5b", "train_4k", 8
@@ -1959,6 +1991,22 @@ def phase_check_rmsnorm_backward(dev) -> dict:
     return worst
 
 
+def launch_counts() -> dict:
+    """The three kernels' launch counts."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import rmsnorm as RN
+    return {"gemm": G.gemm.launches, "rmsnorm": RN.rmsnorm.launches,
+            "flash_attention": FA.flash_attention.launches}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import rmsnorm as RN
+    RN.rmsnorm.launches = FA.flash_attention.launches = G.gemm.launches = 0
+
+
 def norm_launches_per_step(cfg, grad_accum: int = 1) -> int:
     """RMSNorm launches of one training step: the forward's
     (:func:`norms_per_pass`), and with remat every block's again when the
@@ -1970,19 +2018,20 @@ def norm_launches_per_step(cfg, grad_accum: int = 1) -> int:
 
 
 def train_steps(tag, step, params, opt, next_batch, per_step: int,
-                n_steps: int) -> tuple:
+                n_steps: int, falls: bool = True) -> tuple:
     """``n_steps`` training steps (``step(params, opt, next_batch())``),
     the RMSNorm, flash and GEMM counts set to 0 just before: every step
     must launch RMSNorm exactly ``per_step`` times and flash and GEMM
-    never; every loss and grad_norm must be finite and the last 3 losses'
-    mean below the first 3's.  Returns (losses, grad norms, step seconds
-    (host clock, each step ended by a synchronize), RMSNorm launches)."""
+    never; every loss and grad_norm must be finite and (``falls``) the
+    last 3 losses' mean below the first 3's.  Returns (losses, grad
+    norms, step seconds (host clock, each step ended by a synchronize),
+    RMSNorm launches)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import rmsnorm as RN
-    RN.rmsnorm.launches = FA.flash_attention.launches = G.gemm.launches = 0
+    zero_counts()
     losses, norms, secs = [], [], []
     for i in range(n_steps):
         before = RN.rmsnorm.launches
@@ -2004,8 +2053,8 @@ def train_steps(tag, step, params, opt, next_batch, per_step: int,
     check(all(math.isfinite(v) for v in losses + norms),
           f"{tag} non-finite loss or grad_norm: {losses} {norms}")
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
-    check(last < first, f"{tag} loss did not fall: first 3 {first:.4f}, "
-          f"last 3 {last:.4f}")
+    check(not falls or last < first, f"{tag} loss did not fall: first 3 "
+          f"{first:.4f}, last 3 {last:.4f}")
     return losses, norms, secs, RN.rmsnorm.launches
 
 
@@ -2448,6 +2497,264 @@ def phase_autotune(dev, train_peak: int) -> dict:
     return out
 
 
+def mesh_group():
+    """The mesh phases' process group: NCCL at world size 1, rendezvous
+    through a ``FileStore`` under a temporary directory of the run; and
+    the (data 1, model 1) ``DeviceMesh`` over it.  Returns (mesh, the
+    store's directory)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import backend_for, make_device_mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    store = dist.FileStore(os.path.join(tmp, "store"), 1)
+    dist.init_process_group(backend_for("cuda"), store=store, rank=0,
+                            world_size=1)
+    return make_device_mesh({"data": 1, "model": 1}, "cuda"), tmp
+
+
+def _rel_gap(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_train_sharded(dev, mesh, train: dict) -> tuple:
+    """``[train sharded]``: ``build_sharded_train_step`` over the (1, 1)
+    mesh, full-width qwen2-1.5b in bf16 from ``init_params(SEED)`` placed
+    by ``param_shardings`` (DTensors), MESH_STEPS steps on ``[train]``'s
+    first batches (the same ``SyntheticLM`` steps) at ``[train]``'s
+    ``TrainConfig``.  :func:`train_steps` holds the launch identities
+    (RMSNorm :func:`norm_launches_per_step` a step, flash and GEMM 0); the
+    losses and grad norms must equal ``[train]``'s first MESH_STEPS within
+    MESH_TOL relative (every op runs on the whole tensor).  Prints the
+    step time and peak memory beside ``[train]``'s.  Returns (the phase's
+    numbers, then the params, the optimizer, the config, the train config
+    and the dataset, which ``[train int8]`` continues from)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as S
+    cfg = lm_config(torch.bfloat16)
+    tc = S.TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, structure=64, seed=SEED)
+    ds = SyntheticLM(dc)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    make, sh = S.build_sharded_train_step(cfg, tc, mesh)
+    params = SH.distribute_tree(T.init_params(SEED, cfg, device=dev),
+                                sh["params"], mesh)
+    opt = S.make_optimizer(tc, params)
+    step = make(ds.batch_at(0))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    per_step = norm_launches_per_step(cfg, tc.grad_accum)
+    log(f"[train sharded] {LM_ARCH} bf16 on the mesh "
+        f"{SH.mesh_shape(mesh)} over NCCL (world size 1), parameters as "
+        f"DTensors ({len(opt.params)} leaves), {MESH_STEPS} steps of "
+        f"[train]'s batches; setup {setup_s:.1f} s")
+    batches = iter([ds.batch_at(i) for i in range(MESH_STEPS)])
+    losses, norms, secs, launches = train_steps(
+        "[train sharded]", step, params, opt, lambda: next(batches),
+        per_step, MESH_STEPS, falls=False)
+    peak = torch.cuda.max_memory_allocated(dev)
+    gap = max(_rel_gap(losses, train["losses"][:MESH_STEPS]),
+              _rel_gap(norms, train["grad_norms"][:MESH_STEPS]))
+    log(f"[train sharded] losses {losses} against [train]'s "
+        f"{train['losses'][:MESH_STEPS]}, grad norms {norms} against "
+        f"{train['grad_norms'][:MESH_STEPS]}: largest relative gap "
+        f"{gap:.3g} (gate {MESH_TOL})")
+    check(gap <= MESH_TOL, f"[train sharded] differs from [train] by "
+          f"{gap:.3g} > {MESH_TOL}")
+    steady = float(np.mean(secs[1:]))
+    log(f"[train sharded] step {steady:.3f} s (steps 2-{MESH_STEPS}; the "
+        f"first {secs[0]:.3f} s) beside [train]'s "
+        f"{train['step_s_mean']:.3f} s: DTensor's host dispatch "
+        f"{steady - train['step_s_mean']:+.3f} s a step; peak memory "
+        f"{peak} bytes beside [train]'s {train['peak_mem_bytes']}; RMSNorm "
+        f"{launches} launches ({per_step} a step), flash 0, GEMM 0")
+    out = {"mesh": SH.mesh_shape(mesh), "steps": MESH_STEPS,
+           "setup_s": setup_s, "losses": losses, "grad_norms": norms,
+           "rel_gap": gap, "first_step_s": secs[0], "step_s_mean": steady,
+           "train_step_s_mean": train["step_s_mean"],
+           "peak_mem_bytes": peak,
+           "train_peak_mem_bytes": train["peak_mem_bytes"],
+           "launches": launch_counts()}
+    return out, params, opt, cfg, tc, ds
+
+
+def phase_train_int8(dev, mesh, params, opt, cfg, tc, ds) -> dict:
+    """``[train int8]``: ``make_ddp_compressed_step`` over the mesh's data
+    axis (world size 1) for MESH_STEPS steps on the parameters and
+    optimizer ``[train sharded]`` leaves: their local tensors (at world
+    size 1 a DTensor's local tensor is all of it; the same storage) are
+    the replicated plain tensors the step takes.  Gates: every loss and
+    error state finite; RMSNorm :func:`norm_launches_per_step` a step,
+    flash and GEMM 0 (counts set to 0 just before); then one more
+    gradient through ``compressed_psum_mean`` directly, timed by CUDA
+    events, whose synced gradient must equal ``q * scale`` exactly (the
+    sum over one rank).  Prints the bytes one all-reduce puts on the
+    wire: int32, as the reference's ``psum`` sends them."""
+    import copy
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import compression as C
+    from repro_torch.train import checkpoint as CKPT
+    local = CKPT.tree_map(lambda p: p.to_local().detach().requires_grad_(),
+                          params)
+    lopt = copy.copy(opt)
+    lopt.params = [p for _, p in CKPT.flatten(local)]
+    lopt.mu = [m.to_local() for m in opt.mu]
+    lopt.nu = [v.to_local() for v in opt.nu]
+
+    def loss_fn(p, b):
+        return T.loss_fn(p, b, cfg)
+
+    step = C.make_ddp_compressed_step(loss_fn, lopt, mesh)
+    err = C.init_error_state(local)
+    per_step = norm_launches_per_step(cfg, tc.grad_accum)
+    zero_counts()
+    losses, secs = [], []
+    for i in range(MESH_STEPS):
+        before = launch_counts()["rmsnorm"]
+        t0 = time.perf_counter()
+        err, loss = step(local, lopt, err, ds.batch_at(MESH_STEPS + i))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        n = launch_counts()
+        check(n["rmsnorm"] - before == per_step and n["gemm"] == 0
+              and n["flash_attention"] == 0,
+              f"[train int8] step {i}: launches {n}, RMSNorm "
+              f"{n['rmsnorm'] - before} (expected {per_step})")
+        log(f"[train int8] step {i}: loss {losses[-1]:.4f} "
+            f"{secs[-1]:.3f} s, RMSNorm {n['rmsnorm'] - before} launches")
+    launches = launch_counts()
+    check(all(math.isfinite(v) for v in losses) and all(
+        bool(torch.isfinite(e).all()) for _, e in CKPT.flatten(err)),
+        f"[train int8] non-finite loss or error state: {losses}")
+    # one more gradient, compressed here: the pass's time and q * scale
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in ds.batch_at(2 * MESH_STEPS).items()}
+    loss, _ = loss_fn(local, batch)
+    grads = list(torch.autograd.grad(loss, lopt.params))
+    del loss
+    e_leaves = [e for _, e in CKPT.flatten(err)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    synced, _ = C.compressed_psum_mean(grads, e_leaves,
+                                       mesh.get_group("data"))
+    end.record()
+    end.synchronize()
+    pass_ms = start.elapsed_time(end)
+    exact = True
+    for g, e, got in zip(grads, e_leaves, synced):
+        g = g.float() + e
+        scale = torch.clamp(g.abs().max(), min=1e-12) * (1.0 / 127.0)
+        q = torch.clamp(torch.round(g / scale), -127, 127)
+        exact &= bool(torch.isfinite(got).all()) and torch.equal(
+            got, q * scale)
+    check(exact, "[train int8] a synced gradient is not q * scale at "
+                 "world size 1")
+    # one all-reduce's wire: each leaf's int32 sum and its fp32 scale
+    values = sum(p.numel() for p in lopt.params)
+    wire = {"int32": 4 * values + 4 * len(lopt.params),
+            "int8": values + 4 * len(lopt.params)}
+    log(f"[train int8] {MESH_STEPS} steps: losses {losses}, step "
+        f"{sum(secs[1:]) / max(len(secs) - 1, 1):.3f} s; the compression "
+        f"pass {pass_ms:.3f} ms a step (CUDA events, {len(grads)} "
+        f"leaves); synced gradients == q * scale exactly; one all-reduce "
+        f"puts {wire['int32']} bytes on the wire (int32 sums and fp32 "
+        f"scales, as the reference's psum; int8 values would be "
+        f"{wire['int8']})")
+    return {"steps": MESH_STEPS, "losses": losses, "step_s": secs,
+            "compress_ms": pass_ms, "wire_bytes": wire, "exact": exact,
+            "launches": launches}
+
+
+def phase_serve_sharded(dev, mesh) -> dict:
+    """``[serve sharded]``: ``build_sharded_prefill`` and
+    ``build_sharded_serve_step`` over the (1, 1) mesh, full-width
+    qwen2-1.5b in bf16 from ``init_params(SEED)`` placed by
+    ``param_shardings``: a batch of MESH_SERVE_BATCH prompts of
+    MESH_SERVE_PROMPT tokens drawn from the seed, then MESH_SERVE_STEPS
+    decode steps fed the unsharded path's greedy tokens, each beside the
+    unsharded ``prefill`` / ``decode_step`` on the same weights: logits
+    within MESH_TOL relative; flash :func:`attention_layers` and RMSNorm
+    :func:`norms_per_pass` a prefill, RMSNorm a decode step, GEMM never
+    (counts set to 0 before each sharded call).  Prints the decode step's
+    ms beside the unsharded step's."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as S
+    cfg = lm_config(torch.bfloat16)
+    params = T.init_params(SEED, cfg, device=dev)
+    make, sh = S.build_sharded_prefill(cfg, mesh, LM_MAX_LEN)
+    sparams = SH.distribute_tree(params, sh["params"], mesh)
+    serve, _ = S.build_sharded_serve_step(cfg, mesh, batch=MESH_SERVE_BATCH,
+                                          max_len=LM_MAX_LEN)
+    rng = np.random.default_rng(SEED + 30)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, size=(MESH_SERVE_BATCH, MESH_SERVE_PROMPT)),
+        device=dev)}
+    flashes, norms = attention_layers(cfg), norms_per_pass(cfg)
+    step_norms = norms_per_pass(cfg, prefill=False)
+    zero_counts()
+    logits_s, cache_s = make(batch)(sparams, batch)
+    n = launch_counts()
+    check(n == {"gemm": 0, "rmsnorm": norms, "flash_attention": flashes},
+          f"[serve sharded] prefill launches {n}, expected flash "
+          f"{flashes}, RMSNorm {norms}")
+    totals = dict(n)
+    with torch.no_grad():
+        logits_u, cache_u = T.prefill(params, batch, cfg, LM_MAX_LEN)
+    gaps = [rel_err(logits_s, logits_u)[1]]
+    ms_s, ms_u = [], []
+    tok = logits_u.argmax(-1, keepdim=True)
+    for i in range(MESH_SERVE_STEPS):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, cache_s = serve(sparams, cache_s, tok)
+        torch.cuda.synchronize()
+        ms_s.append(1e3 * (time.perf_counter() - t0))
+        n = launch_counts()
+        check(n == {"gemm": 0, "rmsnorm": step_norms, "flash_attention": 0},
+              f"[serve sharded] decode step {i} launches {n}, expected "
+              f"RMSNorm {step_norms}")
+        totals = {k: totals[k] + v for k, v in n.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want, cache_u = T.decode_step(params, cache_u, tok, cfg)
+        torch.cuda.synchronize()
+        ms_u.append(1e3 * (time.perf_counter() - t0))
+        gaps.append(rel_err(got, want)[1])
+        tok = want.argmax(-1, keepdim=True)
+    gap = max(gaps)
+    log(f"[serve sharded] {LM_ARCH} bf16 on the mesh {SH.mesh_shape(mesh)}: "
+        f"a prefill of {MESH_SERVE_BATCH} x {MESH_SERVE_PROMPT} tokens, then "
+        f"{MESH_SERVE_STEPS} decode steps: largest max |logit diff| / max "
+        f"|logit| against the unsharded path {gap:.3g} (gate {MESH_TOL}); "
+        f"a prefill flash {flashes} + RMSNorm {norms}, a decode step "
+        f"RMSNorm {step_norms}; decode step {float(np.mean(ms_s[1:])):.3f} "
+        f"ms beside the unsharded {float(np.mean(ms_u[1:])):.3f} ms (steps "
+        f"2-{MESH_SERVE_STEPS}, host clock ending in a synchronize)")
+    check(gap <= MESH_TOL, f"[serve sharded] logits differ from the "
+          f"unsharded path by {gap:.3g} > {MESH_TOL}")
+    del params, sparams, cache_s, cache_u
+    torch.cuda.empty_cache()
+    return {"batch": MESH_SERVE_BATCH, "prompt": MESH_SERVE_PROMPT,
+            "decode_steps": MESH_SERVE_STEPS, "rel_gap": gap,
+            "decode_step_ms": float(np.mean(ms_s[1:])),
+            "unsharded_decode_step_ms": float(np.mean(ms_u[1:])),
+            "launches": totals}
+
+
 def phase_train_faults(dev) -> dict:
     """``[train faults]``: the port's ``Trainer`` on the card at the
     reference trainer test's setup (reduced smollm-360m, 40 steps,
@@ -2532,7 +2839,8 @@ def family_config(kind: str, dtype, gate: bool = False):
     its first SSM_GATE_LAYERS, internvl2 at its first VLM_GATE_LAYERS,
     jamba's width over HYBRID_GATE_PATTERN; whisper's gate is the whole
     model.  The served jamba is its first HYBRID_LAYERS layers, the
-    served xlstm its first SSM_SERVE_LAYERS."""
+    served xlstm its first SSM_SERVE_LAYERS, the served moonshot its first
+    MOE_SERVE_LAYERS."""
     from repro_torch.configs import get_config
     cfg = get_config(FAMILY_SERVE[kind][0]).with_(dtype=dtype,
                                                   param_dtype=dtype)
@@ -2546,6 +2854,8 @@ def family_config(kind: str, dtype, gate: bool = False):
         return cfg.with_(n_layers=cut[kind])
     if kind == "ssm":
         return cfg.with_(n_layers=SSM_SERVE_LAYERS)
+    if kind == "moe":
+        return cfg.with_(n_layers=MOE_SERVE_LAYERS)
     return cfg
 
 
@@ -2859,6 +3169,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     train, train_s = timed(lambda: phase_train(dev))
     log(f"[train] phase {train_s:.1f} s")
+    import torch.distributed as dist
+    mesh, mesh_tmp = mesh_group()
+    try:
+        (sharded, *state), sharded_s = timed(
+            lambda: phase_train_sharded(dev, mesh, train))
+        log(f"[train sharded] phase {sharded_s:.1f} s")
+        int8, int8_s = timed(lambda: phase_train_int8(dev, mesh, *state))
+        log(f"[train int8] phase {int8_s:.1f} s")
+        del state
+        torch.cuda.empty_cache()
+        serve_sh, serve_sh_s = timed(lambda: phase_serve_sharded(dev, mesh))
+        log(f"[serve sharded] phase {serve_sh_s:.1f} s")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(mesh_tmp, ignore_errors=True)
+    mesh_phases = {"train_sharded": sharded, "train_int8": int8,
+                   "serve_sharded": serve_sh}
     faults, faults_s = timed(lambda: phase_train_faults(dev))
     log(f"[train faults] phase {faults_s:.1f} s")
     families, family_s = {}, {}
@@ -2893,6 +3220,9 @@ def main() -> int:
                     "phase_s": {"baselines": base_s, "netopt": net_s,
                                 "netopt_deploy": dep_s, "fabric": fab_s,
                                 "serve_live": live_s, "train": train_s,
+                                "train_sharded": sharded_s,
+                                "train_int8": int8_s,
+                                "serve_sharded": serve_sh_s,
                                 "train_faults": faults_s,
                                 **{f"serve_{k}": v
                                    for k, v in family_s.items()},
@@ -2901,6 +3231,9 @@ def main() -> int:
                                    for k, v in train_fam_s.items()},
                                 "autotune": autotune_s},
                     "train": train, "train_faults": faults,
+                    **{k: {key: v for key, v in ph.items()
+                           if key != "launches"}
+                       for k, ph in mesh_phases.items()},
                     "train_audio": train_audio,
                     "train_families": {k: {key: v for key, v in f.items()
                                            if key != "rmsnorm_time"}
@@ -2939,6 +3272,8 @@ def main() -> int:
         "device_ms": total("device_ms"),
         "library_device_ms": total("library_device_ms"),
         "netopt_deploy_launches": netopt_deploy["launches"],
+        **{f"{k}_launches": ph["launches"]["gemm"]
+           for k, ph in mesh_phases.items()},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2967,6 +3302,8 @@ def main() -> int:
                for k, f in train_fam.items()}}
            if name == "rmsnorm" else {}),
         "autotune_launches": autotune["launches"][name],
+        **{f"{k}_launches": ph["launches"][name]
+           for k, ph in mesh_phases.items()},
     } for name, tot in lm_kernels]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ hand-write a spec.
 
 A mesh is data: an ordered mapping from axis name to size
 (``{"data": 16, "model": 16}``; ``repro_torch.launch.mesh`` makes them).
-Nothing here builds a ``DeviceMesh``.  A spec is a tuple with one entry a
+A spec is a tuple with one entry a
 dim, each ``None``, an axis name or a tuple of names; a
 :class:`NamedSharding` pairs it with its mesh.  The trees walked are the
 port's own: params ``{"embed", "final_ln", "lm_head", "layers":
@@ -44,6 +44,13 @@ Layout policy (Megatron-style TP + optional ZeRO-3 + expert parallelism):
 Every rule is guarded by a divisibility check (``fit_axes``): a dim that
 does not divide the mesh axis is simply left unsharded (e.g. smollm's 15
 heads on a 16-way model axis) — the layout degrades, it never errors.
+
+On real devices a placement tree becomes DTensor placements over a
+``torch.distributed`` ``DeviceMesh`` whose dim names are the mesh's axes
+(:func:`to_placements`, :func:`distribute_tree`; the step builders of
+``repro_torch.train.steps``): the counterpart of the reference's
+``jax.jit(in_shardings=...)``.  torch is imported there only, so the
+rules and the estimator stay importable without it.
 """
 from __future__ import annotations
 
@@ -212,6 +219,16 @@ def _shape(leaf) -> Tuple[int, ...]:
 def _itemsize(leaf) -> int:
     dt = leaf.dtype
     return dt.itemsize if hasattr(dt, "itemsize") else np.dtype(dt).itemsize
+
+
+def tree_map_with(fn: Callable, tree, other) -> Any:
+    """``fn(leaf, other_leaf)`` over two trees of one structure."""
+    flat = tree_leaves(other)
+    it = iter(flat)
+    out = _map_with_path(lambda path, leaf: fn(leaf, next(it)), tree)
+    if next(it, None) is not None:
+        raise ValueError("tree mismatch: more placements than leaves")
+    return out
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -429,3 +446,91 @@ def param_bytes_per_device(abstract: Any, shardings: Any) -> int:
         n = int(np.prod(_shape(leaf))) if _shape(leaf) else 1
         total += (n // max(shard_factor(sh), 1)) * _itemsize(leaf)
     return total
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def mesh_shape(device_mesh) -> Mesh:
+    """A ``DeviceMesh``'s shape as the mesh these rules read: its dim names
+    in order, each with its size."""
+    names = device_mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("the DeviceMesh needs mesh_dim_names (the axes)")
+    return {n: int(device_mesh.size(i)) for i, n in enumerate(names)}
+
+
+def to_placements(named_sharding: NamedSharding, device_mesh) -> tuple:
+    """One DTensor placement a mesh dim: ``Shard(d)`` where tensor dim d
+    names that axis, ``Replicate()`` elsewhere.  A dim over an axis tuple
+    (``("pod", "data")``) takes ``Shard(d)`` on each named mesh dim; the
+    tuple must list them in mesh order, JAX's major-to-minor, which is
+    DTensor's order of nested shards."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(device_mesh.mesh_dim_names or ())
+    shape = mesh_shape(device_mesh)
+    for a, n in named_sharding.mesh.items():
+        if shape.get(a) != int(n):
+            raise ValueError(f"the sharding's mesh {named_sharding.mesh} is "
+                             f"not the device mesh's {shape}")
+    out = [Replicate()] * len(names)
+    for d, axes in enumerate(named_sharding.spec):
+        if axes is None:
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"dim {d} shards over {axes}, not in the mesh's "
+                             f"order {tuple(names)}")
+        for i in dims:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def distribute_tree(tree: Any, shardings: Any, device_mesh) -> Any:
+    """Every tensor leaf of ``tree`` as a DTensor on ``device_mesh`` placed
+    by the matching :class:`NamedSharding` of ``shardings``.  Each rank
+    holds the whole tree (the same values: a seeded init, a global batch,
+    a checkpoint) and keeps its own shards, moved to the mesh's device;
+    a leaf that requires grad stays a leaf that requires grad."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    dev = torch.device(device_mesh.device_type, torch.cuda.current_device()
+                       if device_mesh.device_type == "cuda" else None)
+
+    def one(leaf, sh):
+        if isinstance(leaf, DTensor):
+            raise TypeError("distribute_tree takes whole tensors; "
+                            "redistribute a DTensor instead")
+        t = torch.as_tensor(leaf).detach().to(dev)
+        out = distribute_tensor(t, device_mesh,
+                                to_placements(sh, device_mesh),
+                                src_data_rank=None)
+        return out.requires_grad_(True) if getattr(
+            leaf, "requires_grad", False) else out
+
+    return tree_map_with(one, tree, shardings)
+
+
+def whole(t):
+    """A DTensor's global value, the same on every rank (a collective: a
+    pending partial sum is reduced, shards gathered); a plain tensor as
+    it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def copy_whole(dst, src) -> None:
+    """Copy the whole tensor ``src`` (any device, cast to ``dst``'s dtype)
+    into ``dst`` in place: a plain tensor, or a DTensor's own shards (each
+    rank holds all of ``src``, so no collective runs)."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    with torch.no_grad():
+        if isinstance(dst, DTensor):
+            src = distribute_tensor(
+                src.detach().to(dst.device), dst.device_mesh,
+                dst.placements, src_data_rank=None).to_local()
+            dst = dst.to_local()
+        dst.copy_(src)

@@ -21,6 +21,23 @@ keys and values of an encoder's longer sequence) also runs through
 outside its Pallas kernel: the flash kernel takes one sequence length
 for q and k.  Projections and decode attention are
 einsums, as they are outside any Pallas kernel in the reference.
+
+Under a device mesh (``repro_torch.train.steps.build_sharded_*``) the
+parameters, batch and cache are DTensors placed by
+``repro_torch.dist.sharding``, and ops dispatch through DTensor, as GSPMD
+partitions the reference's jitted step.  Three things are done by hand
+(GSPMD does them silently):
+
+  * the activation constraint: :func:`set_batch_axes` names the batch
+    axes (and the sequence axis under sequence parallelism), and
+    :func:`constrain_batch` redistributes the residual stream to that
+    placement where the reference calls ``with_sharding_constraint``;
+  * :func:`heads` replicates a projection over the model axis before
+    splitting it into heads wherever the head count does not divide
+    that axis (DTensor cannot unflatten a dim sharded mid-head);
+  * the kernels see local tensors: the norm takes each rank's whole rows
+    (:func:`rmsnorm`), attention each rank's batch rows and heads, every
+    q head beside the kv heads it reads (:func:`local_heads`).
 """
 from __future__ import annotations
 
@@ -29,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as _rmsnorm
@@ -37,12 +55,104 @@ Params = Dict[str, Any]
 NEG_INF = -1e30
 
 
+# ---------------------------------------------------- activation placement
+
+_BATCH_AXES: Optional[Tuple[str, ...]] = None
+_SEQ_AXIS: Optional[str] = None
+_SEQ_DIVISOR: int = 1
+_TP_AXIS: str = "model"
+
+
+def set_batch_axes(axes, seq_axis: Optional[str] = None,
+                   seq_divisor: int = 1, tp_axis: str = "model") -> None:
+    """The mesh axes of the activations' batch dim (the reference's
+    ``set_batch_axes``), the residual stream's sequence axis under sequence
+    parallelism (Megatron-SP), and the tensor-parallel axis whose heads
+    :func:`local_heads` splits.  Without DTensors nothing reads them."""
+    global _BATCH_AXES, _SEQ_AXIS, _SEQ_DIVISOR, _TP_AXIS
+    _BATCH_AXES = axes
+    _SEQ_AXIS = seq_axis
+    _SEQ_DIVISOR = max(seq_divisor, 1)
+    _TP_AXIS = tp_axis
+
+
+def _axes(axes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _placements(mesh, dims: Dict[int, Any]) -> list:
+    """DTensor placements of ``{tensor dim: mesh axes}``: ``Shard(d)`` on
+    each named mesh dim, ``Replicate()`` on the others."""
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * mesh.ndim
+    for d, axes in dims.items():
+        for a in _axes(axes):
+            if a in names:
+                out[names.index(a)] = Shard(d)
+    return out
+
+
+def constrain_batch(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` on the residual stream:
+    a DTensor x redistributed to its batch dim over the batch axes (and
+    its sequence dim over the sequence axis, where it divides), every
+    other mesh axis replicated, a pending partial sum reduced.  Plain
+    tensors, and no axes set, pass through."""
+    if not isinstance(x, DTensor) or (_BATCH_AXES is None
+                                      and _SEQ_AXIS is None):
+        return x
+    dims = {0: _BATCH_AXES}
+    if (_SEQ_AXIS is not None and x.ndim == 3
+            and x.shape[1] % _SEQ_DIVISOR == 0 and x.shape[1] > 1):
+        dims[1] = _SEQ_AXIS
+    return x.redistribute(x.device_mesh, _placements(x.device_mesh, dims))
+
+
+def whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor x with each rank's rows whole: a pending partial sum
+    reduced and a sharded last dim gathered, the other dims left where
+    they are.  Plain tensors pass through."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = [Replicate() if p.is_partial() or (p.is_shard()
+                                            and p.dim == x.ndim - 1)
+          else p for p in x.placements]
+    return x.redistribute(x.device_mesh, pl)
+
+
+def _tp_index(mesh, n_heads: int) -> Optional[int]:
+    """The tensor-parallel axis's mesh dim where ``n_heads`` divides it;
+    None where it does not, or the mesh has no such axis."""
+    names = list(mesh.mesh_dim_names)
+    if _TP_AXIS not in names:
+        return None
+    i = names.index(_TP_AXIS)
+    return i if n_heads % mesh.size(i) == 0 else None
+
+
 # ---------------------------------------------------------------- basic ops
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
             use_kernel: bool = True) -> torch.Tensor:
-    """The RMSNorm kernel's function (fp32 math, one cast to x's dtype)."""
-    return _rmsnorm.rmsnorm(x.contiguous(), w, eps, use_kernel=use_kernel)
+    """The RMSNorm kernel's function (fp32 math, one cast to x's dtype).
+
+    A DTensor x keeps its rows where they are; a pending partial sum is
+    reduced and a sharded last dim gathered first, and the kernel runs on
+    each rank's local rows with the whole weight.  The weight's gradient
+    is a partial sum over the mesh dims that split the rows."""
+    if not isinstance(x, DTensor):
+        return _rmsnorm.rmsnorm(x.contiguous(), w, eps, use_kernel=use_kernel)
+    x = whole_rows(x)
+    mesh, pl = x.device_mesh, x.placements
+    if isinstance(w, DTensor):
+        w = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=[Partial() if p.is_shard() else Replicate()
+                             for p in pl])
+    out = _rmsnorm.rmsnorm(x.to_local().contiguous(), w, eps,
+                           use_kernel=use_kernel)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
@@ -273,6 +383,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     reference model's chunked attention (the plain path).  ``train``: the
     training forward's attention, always :func:`chunked_attention` (the
     flash kernel has no backward)."""
+    if isinstance(q, DTensor):
+        return local_heads(lambda ql, kl, vl: attention(
+            ql, kl, vl, cfg, causal, window, use_kernel, train),
+            q, (k, v), cfg.n_heads, cfg.n_kv_heads)
     if use_kernel and not train:
         return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal, window=window)
@@ -280,13 +394,82 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
                              chunk=cfg.attn_chunk)
 
 
+def head_placements(mesh, n_heads: int) -> list:
+    """Where a (B, S, H, D) attention operand lives for the kernels: its
+    batch over the batch axes, its heads over the tensor-parallel axis
+    where ``n_heads`` divides it, every other mesh axis replicated."""
+    dims: Dict[int, Any] = {0: _BATCH_AXES}
+    if _tp_index(mesh, n_heads) is not None:
+        dims[2] = _TP_AXIS
+    return _placements(mesh, dims)
+
+
+def local_heads(fn, q: DTensor, kvs, n_heads: int, n_kv_heads: int,
+                caches=(), extra=()) -> DTensor:
+    """``fn(q, *kvs, *caches, *extra)`` on each rank's local tensors, its
+    output (B, S, HQ, D) placed as q.
+
+    q and the kv operands are redistributed to :func:`head_placements`
+    (their own head counts).  Where q's heads are split over the model
+    axis and the kv heads are not (qwen2's 12/2 heads on a 4-way axis),
+    each rank takes the kv heads its q heads read, and the kv gradients
+    are partial sums over that axis.  ``caches`` (decode caches, written
+    in place) must already lie at the kv placement; ``extra`` (DTensors of
+    one value a row, such as positions) is cut to the rank's batch rows."""
+    mesh = q.device_mesh
+    qp, kp = head_placements(mesh, n_heads), head_placements(mesh,
+                                                             n_kv_heads)
+    q = q.redistribute(mesh, qp)
+    kvs = [t.redistribute(mesh, kp) for t in kvs]
+    tp = _tp_index(mesh, n_heads)
+    split = tp is not None and _tp_index(mesh, n_kv_heads) is None
+    kgrad = [Partial() if split and i == tp else p for i, p in enumerate(kp)]
+    ql = q.to_local()
+    kls = [t.to_local(grad_placements=kgrad) for t in kvs]
+    cls = []
+    for c in caches:
+        if tuple(c.placements) != tuple(kp):
+            raise ValueError(f"a cache at {c.placements} where the kv "
+                             f"heads live at {tuple(kp)}")
+        cls.append(c.to_local())
+    rows = _placements(mesh, {0: _BATCH_AXES})
+    xls = [t.redistribute(mesh, rows).to_local() for t in extra]
+    if split:
+        h = ql.shape[2]
+        first = mesh.get_local_rank(tp) * h
+        idx = (first + torch.arange(h)) // (n_heads // n_kv_heads)
+        kls = [_kv_heads(t, idx) for t in kls]
+        cls = [_kv_heads(t, idx) for t in cls]
+    return DTensor.from_local(fn(ql, *kls, *cls, *xls), mesh, qp,
+                              run_check=False)
+
+
+def _kv_heads(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The kv heads ``idx`` (one a local q head, ascending) of t (dim 2):
+    a slice where each of a run of heads is read by equally many q heads,
+    so the rank keeps grouped-query attention; else one a q head."""
+    lo, n = int(idx[0]), int(idx[-1]) - int(idx[0]) + 1
+    if len(idx) % n == 0 and torch.equal(
+            idx, lo + torch.arange(len(idx)) // (len(idx) // n)):
+        return t[:, :, lo:lo + n]
+    return t.index_select(2, idx.to(t.device))
+
+
 def heads(h: torch.Tensor, p: Params, name: str, n_heads: int,
           head_dim: int) -> torch.Tensor:
     """One projection (``w<name>``, with ``b<name>`` where the block has
-    it) of a normed (B, S, D_model) input, as (B, S, n_heads, head_dim)."""
+    it) of a normed (B, S, D_model) input, as (B, S, n_heads, head_dim).
+    A DTensor projection is replicated over the model axis first wherever
+    ``n_heads`` does not divide it (its columns may be split mid-head)."""
     b, s, _ = h.shape
-    return dense(h, p["w" + name], p.get("b" + name)).reshape(
-        b, s, n_heads, head_dim)
+    out = dense(h, p["w" + name], p.get("b" + name))
+    mesh = out.device_mesh if isinstance(out, DTensor) else None
+    if mesh is not None and _TP_AXIS in mesh.mesh_dim_names and _tp_index(
+            mesh, n_heads) is None:
+        i = list(mesh.mesh_dim_names).index(_TP_AXIS)
+        out = out.redistribute(mesh, [Replicate() if j == i else pl
+                                      for j, pl in enumerate(out.placements)])
+    return out.reshape(b, s, n_heads, head_dim)
 
 
 def qkv(h: torch.Tensor, p: Params, cfg) -> Tuple[torch.Tensor, ...]:
@@ -382,6 +565,41 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_cache[rows, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[rows, pos] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, pos,
+                     kv_len: int, cfg, ring: bool = False,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """A decode step's self attention: this token's k and v (B, 1, HKV, D)
+    written at ``pos`` into the caches (in place, :func:`update_kv_cache`),
+    then q (B, 1, HQ, D) attending to the first ``kv_len`` cache positions
+    (:func:`decode_attention`, or the ring's).  DTensor operands write each
+    rank's own cache rows and heads, then attend through
+    :func:`local_heads`."""
+    if isinstance(q, DTensor):
+        mesh = q.device_mesh
+        kp = head_placements(mesh, cfg.n_kv_heads)
+        rows = _placements(mesh, {0: _BATCH_AXES})
+        update_kv_cache(k_cache.to_local(), v_cache.to_local(),
+                        k.redistribute(mesh, kp).to_local(),
+                        v.redistribute(mesh, kp).to_local(),
+                        pos.redistribute(mesh, rows).to_local(), ring=ring)
+        return local_heads(
+            lambda ql, kc, vc, pl: _attend_cache(ql, kc, vc, pl, kv_len, cfg,
+                                                 ring, window),
+            q, (), cfg.n_heads, cfg.n_kv_heads, caches=(k_cache, v_cache),
+            extra=(pos,))
+    update_kv_cache(k_cache, v_cache, k, v, pos, ring=ring)
+    return _attend_cache(q, k_cache, v_cache, pos, kv_len, cfg, ring, window)
+
+
+def _attend_cache(q, k_cache, v_cache, pos, kv_len, cfg, ring, window):
+    if ring:
+        return decode_attention_ring(q, k_cache, v_cache, pos,
+                                     cfg.swa_window)
+    return decode_attention(q, k_cache[:, :kv_len], v_cache[:, :kv_len],
+                            pos + 1, window=window)
 
 
 def decode_attention_ring(q, k_cache, v_cache, position,

@@ -53,14 +53,24 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
+
+# The activation constraint (the reference's ``set_batch_axes`` /
+# ``constrain_batch``): the step builders name the batch mesh axes, and the
+# stack redistributes a DTensor residual stream at every block boundary so
+# the batch stays sharded; plain tensors pass through.
+set_batch_axes = L.set_batch_axes
+constrain_batch = L.constrain_batch
 
 _MIXERS = ("attn", "swa", "mamba", "mlstm", "slstm", "none")
 _FFNS = ("mlp", "moe", "gelu", "none")
@@ -317,12 +327,21 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
     from the end), any other id gives a row of NaN.  The index is clamped
     before the gather, so an out-of-range id never reaches the device (on
     CUDA it would be a device-side assert that leaves the context
-    unusable); the NaN rows are what lets a trainer see the bad batch."""
+    unusable); the NaN rows are what lets a trainer see the bad batch.
+    The rows are taken by ``F.embedding``, which DTensor carries on a
+    vocab-sharded table; a table also sharded along its rows' width
+    (FSDP) is gathered to its vocab sharding first, as FSDP gathers a
+    weight before its use."""
     vocab = table.shape[0]
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh, [
+            p if p.is_shard() and p.dim == 0 else L.Replicate()
+            for p in table.placements])
     idx = tokens.long()
     valid = (idx >= -vocab) & (idx < vocab)
     idx = torch.where(idx < 0, idx + vocab, idx).clamp(0, vocab - 1)
-    return table[idx].to(dtype).masked_fill(~valid[..., None], float("nan"))
+    return F.embedding(idx, table).to(dtype).masked_fill(~valid[..., None],
+                                                         float("nan"))
 
 
 def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
@@ -333,6 +352,7 @@ def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
     x = embed(params["embed"], batch["tokens"], cfg.dtype)
     if cfg.vision_prefix:
         x = torch.cat([batch["patches"].to(cfg.dtype), x], dim=1)
+    x = constrain_batch(x)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     return x, positions
@@ -351,10 +371,12 @@ def _run_stack(x, layers: List[Params], cfg: ArchConfig, positions,
     for p, (mixer, ffn) in zip(layers, cfg.layer_kinds()):
         enc_kv = (cross_kv(p, enc_out, cfg)
                   if enc_out is not None and "cross" in p else None)
+        x = constrain_batch(x)
         if not train:
             x, aux_i, cache = _apply_block(x, p, cfg, mixer, ffn, positions,
                                            causal, use_kernel,
                                            enc_kv=enc_kv)
+            x = constrain_batch(x)
             if aux_i is not None:
                 aux = aux + aux_i
             if enc_kv is not None:
@@ -368,6 +390,7 @@ def _run_stack(x, layers: List[Params], cfg: ArchConfig, positions,
         x, aux_i = (checkpoint(block, x, use_reentrant=False,
                                preserve_rng_state=False)
                     if cfg.remat and torch.is_grad_enabled() else block(x))
+        x = constrain_batch(x)
         aux = aux + aux_i
         caches.append({})
     return x, aux, caches
@@ -436,7 +459,8 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor],
 
 def _xent_chunk(h: torch.Tensor, lm_head: torch.Tensor,
                 labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    logits = torch.matmul(h, lm_head.to(h.dtype)).float()
+    # a vocab-sharded DTensor's logits gathered: each rank's rows whole
+    logits = L.whole_rows(torch.matmul(h, lm_head.to(h.dtype)).float())
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long().clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
@@ -459,7 +483,8 @@ def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor,
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, chunk):
-        args = (h[:, i:i + chunk], lm_head, labels[:, i:i + chunk])
+        args = (constrain_batch(h[:, i:i + chunk]), lm_head,
+                labels[:, i:i + chunk])
         n, c = (checkpoint(_xent_chunk, *args, use_reentrant=False,
                            preserve_rng_state=False)
                 if torch.is_grad_enabled() else _xent_chunk(*args))
@@ -562,13 +587,8 @@ def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
             pp = pos.reshape(-1, 1).expand(b, 1)
             q = L.rope(q, pp, cfg.rope_theta)
             k = L.rope(k, pp, cfg.rope_theta)
-        kc, vc = L.update_kv_cache(entry["k"], entry["v"], k, v, pos,
-                                   ring=ring)
-        if ring:
-            out = L.decode_attention_ring(q, kc, vc, pos, cfg.swa_window)
-        else:
-            out = L.decode_attention(q, kc[:, :kv_len], vc[:, :kv_len],
-                                     pos + 1, window=window)
+        out = L.cached_attention(q, k, v, entry["k"], entry["v"], pos,
+                                 kv_len, cfg, ring=ring, window=window)
         x = x + L.dense(out.reshape(b, 1, -1), p["mix"]["wo"])
     elif mixer in _RECURRENT:
         block, state = _RECURRENT[mixer]
@@ -598,7 +618,7 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     pos = cache["pos"]
     x = embed(params["embed"], tokens, cfg.dtype)
     if kv_len is None:
-        kv_len = int(pos.max()) + 1
+        kv_len = int(SH.whole(pos).max()) + 1
     for p, (mixer, ffn), entry in zip(params["layers"], cfg.layer_kinds(),
                                       cache["layers"]):
         x = _decode_block(x, p, cfg, mixer, ffn, entry, pos, kv_len,
@@ -621,12 +641,9 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         if mixer in ("attn", "swa"):
             c = _cache_seq_len(cfg, mixer, max_len)
             k, v = entry["k"], entry["v"]                 # (B, S, KV, Dh)
-            if c >= s:
-                pad = (b, c, cfg.n_kv_heads, cfg.head_dim)
-                kp = torch.zeros(pad, dtype=k.dtype, device=k.device)
-                vp = torch.zeros(pad, dtype=v.dtype, device=v.device)
-                kp[:, :s], vp[:, :s] = k, v
-                entry = dict(entry, k=kp, v=vp)
+            if c >= s:   # zeros after the prompt, up to max_len
+                entry = dict(entry, k=F.pad(k, (0, 0, 0, 0, 0, c - s)),
+                             v=F.pad(v, (0, 0, 0, 0, 0, c - s)))
             else:  # ring: keep the last c tokens, rotated so that
                    # slot (s % c) is the oldest (next write target)
                 idx = (torch.arange(c, device=k.device) - s % c) % c

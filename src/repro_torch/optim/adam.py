@@ -21,6 +21,14 @@ returns new pytrees; in place saves a copy a step) and never reads a
 value back to the host, so a loop of steps on the card does not
 synchronize.  In fp32, which is all the MARL nets use, every line is the
 update the port had before the fp32 step and the schedule came in.
+
+Under a device mesh the parameters are DTensors: the moments take their
+parameter's placement (``zeros_like``), each gradient is redistributed to
+its parameter's placement before the update (autograd returns a
+row-parallel weight's gradient as a pending partial sum, a vocab-sharded
+embedding's as partial over every axis), :func:`global_norm` sums the
+squares over all shards, so the clip is the unsharded step's, and the
+elementwise update then runs on each rank's local shards.
 """
 from __future__ import annotations
 
@@ -30,11 +38,24 @@ import math
 from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist.sharding import copy_whole, whole
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+    """The fp32 2-norm of all the tensors together; over DTensors the
+    squares of every shard, the same plain scalar on every rank."""
+    return torch.sqrt(sum(whole(torch.sum(torch.square(t.float())))
                           for t in tensors))
+
+
+def placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Gradient ``g`` at parameter ``p``'s placement (a DTensor ``p``);
+    plain tensors as they are."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,6 +123,7 @@ class Adam:
     def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
         """One update from ``grads`` (default: each parameter's ``.grad``)."""
         grads = [p.grad for p in self.params] if grads is None else grads
+        grads = [placed_like(g, p) for g, p in zip(grads, self.params)]
         self.step_count += 1
         scale = None
         if self.grad_clip_norm is not None:
@@ -116,6 +138,10 @@ class Adam:
         if isinstance(lr, torch.Tensor):
             lr = lr.to(self.params[0].device)
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+            if isinstance(p, DTensor):
+                # elementwise from here on, and g, m, v lie at p's
+                # placement: each rank updates its own shards in place
+                p, g, m, v = (t.to_local() for t in (p, g, m, v))
             if scale is not None:
                 g = g.float() * scale
             c1, c2 = _weak(b1, m.dtype), _weak(b2, v.dtype)
@@ -139,8 +165,9 @@ class Adam:
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, object]) -> None:
-        """Copy a :meth:`state_dict`'s moments into the live moment
-        tensors (cast to their dtype and device) and take its step."""
+        """Copy a :meth:`state_dict`'s moments (whole tensors) into the
+        live moment tensors (cast to their dtype and device; a DTensor
+        moment takes its own shards) and take its step."""
         for name in ("mu", "nu"):
             live, new = getattr(self, name), state[name]
             if len(new) != len(live):
@@ -150,5 +177,5 @@ class Adam:
                 if tuple(src.shape) != tuple(dst.shape):
                     raise ValueError(f"{name}: shape {tuple(src.shape)} for "
                                      f"a parameter of {tuple(dst.shape)}")
-                dst.copy_(src)
+                copy_whole(dst, src)
         self.step_count = int(state["step"])

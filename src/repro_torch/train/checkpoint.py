@@ -32,6 +32,13 @@ list indices joined by ``/``, as the reference joins its key paths.  The
 port's LM tree lists its layers (``params/layers/<i>/...``) where the
 reference stacks them, so the two packages' LM checkpoints share the file
 format, not the layer layout.
+
+Under a device mesh (DTensor leaves) every rank gathers each leaf whole
+(``full_tensor()``) on its calling thread, rank 0 writes, and the others
+wait at a barrier (after the write, where a save is async): no collective
+runs in the writer thread.  ``restore(shardings=, device_mesh=)`` places
+every leaf on a mesh, whatever mesh or package wrote it (elastic
+restore); the file format is the same.
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 try:                         # optional dep: fall back to stdlib zlib when
     import zstandard as zstd  # zstandard isn't installed; the manifest
@@ -226,8 +235,23 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
 
 
 def _host_copy(leaf: torch.Tensor) -> torch.Tensor:
-    """A host copy no later in-place update of ``leaf`` can reach."""
-    return leaf.detach().to("cpu", copy=True)
+    """A host copy no later in-place update of ``leaf`` can reach (a
+    DTensor's whole value, gathered here)."""
+    from repro_torch.dist.sharding import whole
+    return whole(leaf.detach()).to("cpu", copy=True)
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _sharded(tree: Any) -> bool:
+    return any(isinstance(leaf, DTensor) for _, leaf in flatten(tree))
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _leaf_bytes(leaf: torch.Tensor) -> Tuple[bytes, List[int], str]:
@@ -253,7 +277,21 @@ def _leaf_tensor(raw: bytes, dtype: str, shape: List[int]) -> torch.Tensor:
 def save(path: str, step: int, tree: Any,
          meta: Optional[Dict[str, Any]] = None) -> str:
     """Synchronous atomic checkpoint write of a tree of tensors. Returns
-    the final directory."""
+    the final directory.  A tree with DTensor leaves is a collective:
+    every rank calls it, the leaves are gathered, rank 0 writes and the
+    others wait for it at a barrier."""
+    final = os.path.join(path, f"step_{step:08d}")
+    if _sharded(tree):
+        host = tree_map(_host_copy, tree)
+        if _rank() == 0:
+            _write(path, step, host, meta)
+        _barrier()
+        return final
+    return _write(path, step, tree, meta)
+
+
+def _write(path: str, step: int, tree: Any,
+           meta: Optional[Dict[str, Any]]) -> str:
     final = os.path.join(path, f"step_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
@@ -290,14 +328,20 @@ def available_steps(path: str) -> List[int]:
     return sorted(steps)
 
 
-def restore(path: str, step: Optional[int] = None, target: Any = None
+def restore(path: str, step: Optional[int] = None, target: Any = None,
+            shardings: Any = None, device_mesh=None
             ) -> Tuple[int, Any, Dict[str, Any]]:
     """Load a checkpoint (the latest where ``step`` is None).
 
     Without ``target``: returns (step, flat {key: CPU tensor}, meta).
     With ``target`` (a tree of tensors with the checkpoint's keys): copies
     each leaf into the target's tensor in place, cast to its dtype and
-    moved to its device, and returns (step, target, meta)."""
+    moved to its device (a DTensor takes its own shards), and returns
+    (step, target, meta).  With ``shardings`` too (a ``NamedSharding``
+    tree of ``repro_torch.dist.sharding`` matching ``target``, which may
+    then be ``meta`` tensors) and ``device_mesh``: returns a new tree of
+    DTensors in the target's dtypes, each placed on the mesh (the
+    reference's elastic re-placement); every rank reads the files."""
     steps = available_steps(path)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {path}")
@@ -319,21 +363,51 @@ def restore(path: str, step: Optional[int] = None, target: Any = None
 
     if target is None:
         return step, arrays, manifest["meta"]
+    if shardings is not None:
+        from repro_torch.dist import sharding as SH
+        if device_mesh is None:
+            raise ValueError("restore(shardings=...) needs device_mesh")
+        flat = dict(flatten(target))
+        cast = {}
+        for key, leaf in flat.items():
+            arr = arrays[key]
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"shape mismatch for {key}: "
+                                 f"{tuple(arr.shape)} vs {tuple(leaf.shape)}")
+            cast[key] = arr.to(leaf.dtype)
+        tree = unflatten_like(target, cast)
+        return step, SH.distribute_tree(tree, shardings, device_mesh), \
+            manifest["meta"]
     copy_into(target, arrays)
     return step, target, manifest["meta"]
+
+
+def unflatten_like(target: Any, leaves: Dict[str, Any],
+                   prefix: str = "") -> Any:
+    """``target``'s structure with each leaf replaced by ``leaves[key]``
+    (keys as :func:`flatten` gives them)."""
+    if isinstance(target, dict):
+        return {k: unflatten_like(v, leaves, f"{prefix}/{k}" if prefix
+                                  else str(k)) for k, v in target.items()}
+    if isinstance(target, (list, tuple)):
+        return type(target)(unflatten_like(v, leaves, f"{prefix}/{i}"
+                                           if prefix else str(i))
+                            for i, v in enumerate(target))
+    return leaves[prefix]
 
 
 @torch.no_grad()
 def copy_into(target: Any, arrays: Dict[str, torch.Tensor]) -> None:
     """Copy each leaf of ``arrays`` (a :func:`restore` without target)
     into the tensor of ``target`` under the same key, in place, cast to its
-    dtype and moved to its device."""
+    dtype and moved to its device (a DTensor leaf takes its own shards)."""
+    from repro_torch.dist.sharding import copy_whole
     for key, leaf in flatten(target):
         arr = arrays[key]
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: "
                              f"{tuple(arr.shape)} vs {tuple(leaf.shape)}")
-        leaf.copy_(arr)
+        copy_whole(leaf, arr)
 
 
 class CheckpointManager:
@@ -346,16 +420,23 @@ class CheckpointManager:
         self._lock = threading.Lock()
         self._pending: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._unsynced = False   # a sharded async save not yet barriered
 
     def save_async(self, step: int, tree: Any,
                    meta: Optional[Dict[str, Any]] = None) -> None:
-        # copy to host memory *now* (training updates the tensors after)
+        """Write in the background.  The tree is copied to host memory
+        now (training updates the tensors after); DTensor leaves are
+        gathered here, on every rank, and only rank 0 starts a writer."""
+        sharded = _sharded(tree)
         host_tree = tree_map(_host_copy, tree)
         self.wait()
+        self._unsynced = sharded
+        if sharded and _rank() != 0:
+            return
 
         def work():
             try:
-                save(self.path, step, host_tree, meta)
+                _write(self.path, step, host_tree, meta)
                 self._gc()
             except BaseException as e:  # re-raised by wait()
                 self._error = e
@@ -367,13 +448,20 @@ class CheckpointManager:
                   meta: Optional[Dict[str, Any]] = None) -> None:
         self.wait()
         save(self.path, step, tree, meta)
-        self._gc()
+        if _rank() == 0:
+            self._gc()
+        if _sharded(tree):
+            _barrier()
 
     def wait(self) -> None:
-        """Drain the writer; raise what it raised."""
+        """Drain the writer; raise what it raised.  After a sharded save
+        every rank waits here for rank 0's write to land."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._unsynced:
+            self._unsynced = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -16,8 +16,14 @@ them (``jnp.take``'s fill, :func:`repro_torch.models.transformer.embed`),
 never an out-of-range gather, so on the card the rollback finds a usable
 CUDA context.
 
-One device; the mesh argument of the reference's ``Trainer`` waits for
-the device mesh (ROADMAP Queue 1, item 16).
+On one device, or over a ``DeviceMesh`` (``mesh=``, with ``rules``): the
+parameters and moments are then DTensors placed by the sharding rules,
+the step is ``build_sharded_train_step``'s, every rank builds the
+step-addressed global batch and the step places it by ``batch_specs``,
+and checkpoints are gathered whole (rank 0 writes) and restored into each
+rank's shards.  Every rank runs the same loop: a crash or a NaN loss
+(the loss is a global mean, so every rank sees it) rolls all of them
+back together.
 """
 from __future__ import annotations
 
@@ -33,9 +39,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.dist import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.train import checkpoint as CKPT
-from repro_torch.train.steps import TrainConfig, make_optimizer, train_step_fn
+from repro_torch.train.steps import (TrainConfig, build_sharded_train_step,
+                                     make_optimizer, train_step_fn)
 
 
 class FailureInjector:
@@ -73,17 +81,21 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Single-device trainer: ``init_params(tc.seed)`` or the latest
-    checkpoint under ``trc.ckpt_dir``, then :meth:`run`.  Runs on ``cuda``
-    unless ``device`` names another (``device="cpu"``); without CUDA it
-    raises rather than fall back."""
+    """The trainer: ``init_params(tc.seed)`` or the latest checkpoint under
+    ``trc.ckpt_dir``, then :meth:`run`.  Runs on ``cuda`` unless ``device``
+    names another (``device="cpu"``); without CUDA it raises rather than
+    fall back.  ``mesh``: a ``DeviceMesh`` (``launch.mesh.make_device_mesh``)
+    to train over with ``rules``; its device type is then the device."""
 
     def __init__(self, cfg: T.ArchConfig, tc: TrainConfig,
                  trc: TrainerConfig, device=None,
                  data_cfg: Optional[DataConfig] = None,
-                 injector: Optional[FailureInjector] = None):
+                 injector: Optional[FailureInjector] = None, mesh=None,
+                 rules: SH.ShardingRules = SH.ShardingRules()):
         self.cfg, self.tc, self.trc = cfg, tc, trc
-        self.device = resolve_device(device)
+        self.mesh, self.rules = mesh, rules
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device_type)
         self.injector = injector
         self.metrics_log: List[Dict[str, Any]] = []
         self.restarts = 0
@@ -94,8 +106,13 @@ class Trainer:
         self.ckpt = CKPT.CheckpointManager(trc.ckpt_dir, keep=trc.keep)
 
         self.params = T.init_params(tc.seed, cfg, device=self.device)
+        if mesh is None:
+            self._step_fn = train_step_fn(cfg, tc)
+        else:
+            make, sh = build_sharded_train_step(cfg, tc, mesh, rules)
+            self.params = SH.distribute_tree(self.params, sh["params"], mesh)
+            self._step_fn = make(self.ds.batch_at(0))
         self.opt = make_optimizer(tc, self.params)
-        self._step_fn = train_step_fn(cfg, tc)
         latest = self.ckpt.latest_step()
         self.step = 0
         if latest is not None:

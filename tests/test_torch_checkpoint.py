@@ -13,6 +13,7 @@ import ml_dtypes
 import pytest
 import torch
 
+from _torch_dist import run_ranks
 from _torch_support import one_torch_thread  # noqa: F401
 from repro.train import checkpoint as JCKPT
 from repro_torch.train import checkpoint as CKPT
@@ -186,3 +187,43 @@ def test_zstd_checkpoint_without_zstandard_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(CKPT, "zstd", None)
     with pytest.raises(ImportError, match="zstandard"):
         CKPT.restore(str(tmp_path))
+
+
+# ---------------------------------------------- elastic restore on a mesh
+
+@pytest.fixture(scope="module")
+def elastic(tmp_path_factory):
+    """The reference's reduced qwen2-1.5b params saved by the reference on
+    one device, restored by the port onto a (2, 2) mesh of 4 gloo ranks
+    and saved from there by the port (the reference's
+    ``test_elastic_restore_across_meshes``, across the packages)."""
+    from repro.configs import get_config
+    from repro.models import transformer as JT
+    tmp = tmp_path_factory.mktemp("elastic")
+    ref_dir, port_dir = str(tmp / "ref"), str(tmp / "port")
+    params = JT.init_params(jax.random.PRNGKey(0),
+                            get_config("qwen2-1.5b", reduced=True))
+    JCKPT.save(ref_dir, 3, params)
+    ranks = run_ranks("elastic_restore", 4, tmp / "ranks", timeout=240,
+                      ckpt=ref_dir, out_dir=port_dir)
+    return ref_dir, port_dir, ranks
+
+
+def test_reference_checkpoint_restores_onto_a_mesh(elastic):
+    _, _, ranks = elastic
+    for got in ranks:
+        assert got["step"] == 3 and got["equal"]
+        assert got["max_shards"] > 1          # actually distributed
+    assert "Shard(dim=0)" in ranks[0]["placements"]["embed"]
+
+
+def test_mesh_checkpoint_restores_on_one_device(elastic):
+    ref_dir, port_dir, _ = elastic
+    _, want, _ = JCKPT.restore(ref_dir)
+    step, got, _ = CKPT.restore(port_dir)
+    assert step == 3 and set(got) == set(want)
+    for key, arr in want.items():     # bf16 leaves: bit for bit
+        assert got[key].dtype == torch.bfloat16, key
+        np.testing.assert_array_equal(
+            got[key].view(torch.int16).numpy(),
+            np.asarray(arr).view(np.int16), err_msg=key)

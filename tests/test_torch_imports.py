@@ -26,8 +26,8 @@ print(json.dumps({"names": names, "bad": bad}))
 
 # the modules of the later slices (baselines, netopt, surrogate store and
 # zoo; the measurement fabric; LM training; MoE and the recurrent
-# mixers; placement, roofline and the dry-run): each must be among the
-# modules imported above
+# mixers; placement, roofline and the dry-run; the mesh): each must be
+# among the modules imported above
 SLICE_MODULES = (
     "repro_torch.core.baselines", "repro_torch.core.shard_space",
     "repro_torch.configs.shapes", "repro_torch.compiler.surrogate_store",
@@ -54,7 +54,14 @@ SLICE_MODULES = (
     "repro_torch.dist", "repro_torch.dist.sharding",
     "repro_torch.launch.mesh", "repro_torch.hw.roofline",
     "repro_torch.hw.step_analysis", "repro_torch.launch.dryrun",
-    "repro_torch.launch.autotune")
+    "repro_torch.launch.autotune",
+    # training and serving over a device mesh: the compressed all-reduce,
+    # and the modules the DTensor placements changed
+    "repro_torch.optim.compression", "repro_torch.optim.adam",
+    "repro_torch.models.layers", "repro_torch.models.transformer",
+    "repro_torch.train.steps", "repro_torch.train.checkpoint",
+    "repro_torch.train.trainer", "repro_torch.launch.train",
+    "repro_torch.launch.mesh", "repro_torch.dist.sharding")
 
 # the fabric's modules: a spawned measurement worker or a worker daemon
 # loads them and must not pay a torch (or numpy) import
