@@ -17,7 +17,7 @@ encoder-decoder and vision-prefix families served whole at full width
 xLSTM families trained at full width (moonshot-v1-16b-a3b cut to 2
 layers, xlstm-1.3b to one period), and the pod-level shard-space tuner
 (``tune --arch --oracle compile``) with its estimator held against a real
-training step.
+training step, and the reference's examples as the port runs them.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
@@ -194,9 +194,21 @@ training step.
    dry-run estimator's dot FLOPs at ``[train]``'s shape equal to
    ``FlopCounterMode``'s around one real training step on the card
    (within 1e-6), its memory estimate printed beside that step's peak;
+21. ``[drivers]``: the reference's examples as the port runs them
+   (``repro_torch.examples``), in process on the card, the launch counts
+   set to 0 just before: quickstart (ARCO, AutoTVM and random search on
+   one conv, then its tuned geometry deployed through the GEMM, one
+   launch, within 5e-5 of ``conv2d_ref``'s max), serve_lm at its
+   defaults (qwen2-1.5b's reduced config: 8 requests of 4-19 tokens, 12
+   new each, all served; flash once an attention layer a prefill, RMSNorm
+   a whole number of passes) and train_lm for 20 steps (reduced
+   smollm-360m, 8 x 128 tokens: the loss falls, RMSNorm every norm of
+   the forward and its recompute, flash and GEMM none); each driver's
+   seconds and launches;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
-times; every kernel's with the mesh phases' launches).
+times; every kernel's with the mesh phases' and ``[drivers]``'
+launches).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, so the script exits non-zero and prints no result; without a GPU,
@@ -285,7 +297,17 @@ RMSNORM_CHECKS = [((4, 64), False, True), ((2, 100, 96), False, True),
                   ((200, 6144), True, True), ((1536, 6144), True, True),
                   # [train moe]'s 4 x 1024 rows and [train ssm]'s 8 x 128
                   # at d 2048
-                  ((4096, 2048), True, True), ((1024, 2048), True, True)]
+                  ((4096, 2048), True, True), ((1024, 2048), True, True),
+                  # [drivers]: serve_lm's reduced qwen2 (d 64: a row a
+                  # warp, 1-3 rows a block below 4 rows, a prompt of 19)
+                  # and train_lm's reduced smollm (d 60, which bf16 runs
+                  # on the scalar template: a row spread over warps up to
+                  # 264 rows, one warp a row at a step's 1024)
+                  ((1, 64), True, True), ((2, 64), True, True),
+                  ((3, 64), True, True), ((19, 64), True, True),
+                  ((1, 60), True, True), ((2, 60), True, True),
+                  ((3, 60), True, True), ((200, 60), True, True),
+                  ((1024, 60), True, True)]
 # ((B, S, HQ, HKV, D, causal, window, block_q, block_k), on the path)
 FLASH_CHECKS = (
     [((2, 100, hq, hkv, 16, causal, window, 32, 32), False)
@@ -314,7 +336,10 @@ FLASH_CHECKS = (
     + [((1, s, 8, 8, 64, True, None, 128, 128), True)
        for s in (4, 48, 100, 223)]
     + [((1, s, 48, 8, 128, True, None, 128, 128), True)
-       for s in (1088, 1300, 1536)])
+       for s in (1088, 1300, 1536)]
+    # [drivers]: serve_lm's reduced qwen2 (4/2 heads, head_dim 16) at its
+    # shortest and longest prompts
+    + [((1, s, 4, 2, 16, True, None, 128, 128), True) for s in (4, 19)])
 # [fabric]: the stub oracle through the three executors
 FABRIC_N, FABRIC_DELAY_S = 16, 0.1
 FABRIC_SPEEDUP = 1.5      # the pool over serial (the reference's gate)
@@ -399,6 +424,14 @@ FAMILY_TRAIN = {"moe": (MOE_ARCH, 2, 4, 1024, 8, TRAIN_LR),
 AUTOTUNE_ARCH, AUTOTUNE_SHAPE, AUTOTUNE_BUDGET = "qwen2-1.5b", "train_4k", 8
 AUTOTUNE_DEVICES = 256
 FLOP_RTOL = 1e-6          # the estimator's dot FLOPs vs FlopCounterMode
+# [drivers]: the reference's examples as the port runs them (python -m
+# repro_torch.examples.<name>), in process on the card: quickstart and
+# serve_lm at their defaults (8 requests of 4-19 tokens, 12 new, on
+# qwen2-1.5b's reduced config), train_lm (reduced smollm-360m, 8 x 128
+# tokens a step) for DRIVER_TRAIN_STEPS steps
+DRIVER_REQUESTS, DRIVER_NEW, DRIVER_PROMPT_MAX = 8, 12, 19
+DRIVER_TRAIN_ARCH, DRIVER_TRAIN_ROWS = "smollm-360m", 8 * 128
+DRIVER_TRAIN_STEPS = 20
 # the gates' prompt lengths, where not the served ones: xlstm's prefill is
 # one Python step a token and layer (~20 ms a token), and its gates run 11
 # prefills a prompt
@@ -517,9 +550,10 @@ def lm_rmsnorm_layouts() -> dict:
     """The RMSNorm layouts the LM paths run at each served model's d_model
     (bf16 serving, the fp32 gates) for 1 row to its longest prefill's (a
     vision prefix + its longest prompt, or an encoder's frames) or the
-    family training phases' step (forward and the backward's recompute):
-    (d, dtype, 16-byte copies, warps a row, slots a lane, rows a block) ->
-    the rows that run it."""
+    family training phases' step (forward and the backward's recompute),
+    and ``[drivers]``' reduced models (serve_lm's prompts, train_lm's
+    step): (d, dtype, 16-byte copies, warps a row, slots a lane, rows a
+    block) -> the rows that run it."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import rmsnorm as RN
@@ -531,6 +565,11 @@ def lm_rmsnorm_layouts() -> dict:
     for arch, _, batch, seq, _, _ in FAMILY_TRAIN.values():
         d = get_config(arch).d_model     # a training step's rows
         widths[d] = max(widths.get(d, 0), batch * seq)
+    # [drivers]: serve_lm's prompts and train_lm's step
+    for arch, rows in ((LM_ARCH, DRIVER_PROMPT_MAX),
+                       (DRIVER_TRAIN_ARCH, DRIVER_TRAIN_ROWS)):
+        d = get_config(arch, reduced=True).d_model
+        widths[d] = max(widths.get(d, 0), rows)
     out = {}
     for d, max_rows in widths.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -545,8 +584,8 @@ def lm_flash_geometries() -> dict:
     """The flash templates the LM paths run (bf16 serving, the fp32 gates)
     in each served attention model's prefills, from 1 token to its longest
     (a vision prefix + its longest prompt, or an encoder's frames), at the
-    blocks the model asks for: (bq, bk, dp, dtype) -> the (head_dim, S)
-    that run it."""
+    blocks the model asks for, and serve_lm's reduced qwen2 in
+    ``[drivers]``: (bq, bk, dp, dtype) -> the (head_dim, S) that run it."""
     import inspect
     import torch
     from repro_torch.configs import get_config
@@ -554,7 +593,8 @@ def lm_flash_geometries() -> dict:
     from repro_torch.kernels import ops
     ask = inspect.signature(ops.attention).parameters
     block_q, block_k = ask["block_q"].default, ask["block_k"].default
-    models = [(lm_config(torch.bfloat16), LM_PROMPT[1])]
+    models = [(lm_config(torch.bfloat16), LM_PROMPT[1]),
+              (get_config(LM_ARCH, reduced=True), DRIVER_PROMPT_MAX)]
     for arch, _, prompt, _, _ in FAMILY_SERVE.values():
         cfg = get_config(arch)
         if cfg.enc_dec or any(m in ("attn", "swa") for m, _ in cfg.pattern):
@@ -2497,6 +2537,94 @@ def phase_autotune(dev, train_peak: int) -> dict:
     return out
 
 
+def phase_drivers(dev) -> dict:
+    """``[drivers]``: the reference's examples as the port runs them, in
+    process on the card (``python -m repro_torch.examples.<name>`` calls
+    the same ``main``), the launch counts set to 0 just before.  Gates:
+    quickstart's deployed conv (the Hopper GEMM at the tuned geometry)
+    within FP32_TOL of ``conv2d_ref``'s max, one GEMM launch, every
+    tuner's latency at or above the roofline bound; serve_lm's 8 requests
+    all served with 12 tokens each, flash once an attention layer a
+    prefill and RMSNorm a whole number of passes (8 prefills and the
+    decode steps); train_lm's loss falling over DRIVER_TRAIN_STEPS steps,
+    RMSNorm ``norm_launches_per_step`` a step, flash and GEMM none."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart, serve_lm, train_lm
+    zero_counts()
+    marks, secs = [launch_counts()], {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        secs[name] = time.perf_counter() - t0
+        marks.append(launch_counts())
+        for line in buf.getvalue().splitlines():
+            log(f"[drivers] {name}: {line}")
+        return out
+
+    qs = run("quickstart", lambda: quickstart.main(["--device", "cuda"]))
+    sv = run("serve_lm", lambda: serve_lm.main(["--device", "cuda"]))
+    tr = run("train_lm", lambda: train_lm.main(
+        ["--steps", str(DRIVER_TRAIN_STEPS), "--device", "cuda"]))
+    per = {name: {k: marks[i + 1][k] - marks[i][k] for k in KERNELS}
+           for i, name in enumerate(("quickstart", "serve_lm", "train_lm"))}
+    # quickstart: the deployed conv against the plain oracle
+    rel = qs["deploy_max_abs_err"] / qs["oracle_max_abs"]
+    check(rel <= FP32_TOL and per["quickstart"] == {
+        "gemm": 1, "rmsnorm": 0, "flash_attention": 0},
+          f"[drivers] quickstart: deploy rel err {rel:.3g} (gate "
+          f"{FP32_TOL}), launches {per['quickstart']}")
+    check(all(qs[f"{k}_latency_s"] >= qs["min_latency_s"]
+              for k in ("arco", "autotvm", "random")),
+          f"[drivers] quickstart: a latency under the roofline bound {qs}")
+    # serve_lm: every request, the launch identities
+    cfg = get_config(LM_ARCH, reduced=True)
+    npp, done = norms_per_pass(cfg), sv["done"]
+    served = [r for r in done if r.ok and len(r.output) == DRIVER_NEW]
+    launches = per["serve_lm"]
+    steps = launches["rmsnorm"] // npp - len(done)
+    check(len(served) == len(done) == DRIVER_REQUESTS
+          and sv["rejected"] == sv["abandoned"] == 0
+          and launches["flash_attention"] == attention_layers(cfg)
+          * DRIVER_REQUESTS and launches["rmsnorm"] % npp == 0
+          and steps > 0 and launches["gemm"] == 0,
+          f"[drivers] serve_lm: {len(served)}/{len(done)} served with "
+          f"{DRIVER_NEW} tokens, launches {launches} ({npp} norms a pass)")
+    # train_lm: the loss falls, RMSNorm every step
+    tcfg = get_config(DRIVER_TRAIN_ARCH, reduced=True)
+    per_step = norm_launches_per_step(tcfg)
+    check(tr["steps"] == DRIVER_TRAIN_STEPS
+          and tr["last_loss"] < tr["first_loss"]
+          and per["train_lm"] == {"gemm": 0, "flash_attention": 0,
+                                  "rmsnorm": per_step * DRIVER_TRAIN_STEPS},
+          f"[drivers] train_lm: {tr}, launches {per['train_lm']} "
+          f"({per_step} RMSNorm a step)")
+    total = {k: marks[-1][k] - marks[0][k] for k in KERNELS}
+    log(f"[drivers] quickstart {secs['quickstart']:.1f} s: deployed conv "
+        f"max |err| {qs['deploy_max_abs_err']:.3g} against max |oracle| "
+        f"{qs['oracle_max_abs']:.3g} (rel {rel:.3g}, gate {FP32_TOL}); "
+        f"launches {per['quickstart']}")
+    log(f"[drivers] serve_lm {secs['serve_lm']:.1f} s: {len(served)}/"
+        f"{len(done)} requests served, {sv['tokens']} tokens, "
+        f"{sv['tokens'] / sv['wall_s']:.1f} tokens/s; launches "
+        f"{launches} ({DRIVER_REQUESTS} prefills + {steps} decode steps "
+        f"x {npp} norms)")
+    log(f"[drivers] train_lm {secs['train_lm']:.1f} s: loss "
+        f"{tr['first_loss']} -> {tr['last_loss']} over {tr['steps']} steps, "
+        f"{tr['tokens_per_s']} tokens/s; launches {per['train_lm']}")
+    log(f"[drivers] launches in the phase {total}")
+    return {"quickstart": qs,
+            "serve_lm": {"served": len(served), "requests": len(done),
+                         "tokens": sv["tokens"], "wall_s": sv["wall_s"],
+                         "decode_steps": steps},
+            "train_lm": tr, "seconds": secs, "per_driver": per,
+            "launches": total}
+
+
 def mesh_group():
     """The mesh phases' process group: NCCL at world size 1, rendezvous
     through a ``FileStore`` under a temporary directory of the run; and
@@ -3203,6 +3331,8 @@ def main() -> int:
     autotune, autotune_s = timed(
         lambda: phase_autotune(dev, train["peak_mem_bytes"]))
     log(f"[autotune] phase {autotune_s:.1f} s")
+    drivers, drivers_s = timed(lambda: phase_drivers(dev))
+    log(f"[drivers] phase {drivers_s:.1f} s")
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -3229,7 +3359,8 @@ def main() -> int:
                                 "train_audio": train_audio_s,
                                 **{f"train_{k}": v
                                    for k, v in train_fam_s.items()},
-                                "autotune": autotune_s},
+                                "autotune": autotune_s,
+                                "drivers": drivers_s},
                     "train": train, "train_faults": faults,
                     **{k: {key: v for key, v in ph.items()
                            if key != "launches"}
@@ -3239,6 +3370,7 @@ def main() -> int:
                                            if key != "rmsnorm_time"}
                                        for k, f in train_fam.items()},
                     "autotune": autotune,
+                    "drivers": drivers,
                     "families": {k: {key: v for key, v in f.items()
                                      if key != "kernels"}
                                  for k, f in families.items()},
@@ -3272,6 +3404,7 @@ def main() -> int:
         "device_ms": total("device_ms"),
         "library_device_ms": total("library_device_ms"),
         "netopt_deploy_launches": netopt_deploy["launches"],
+        "drivers_launches": drivers["launches"]["gemm"],
         **{f"{k}_launches": ph["launches"]["gemm"]
            for k, ph in mesh_phases.items()},
     }] + [{
@@ -3302,6 +3435,7 @@ def main() -> int:
                for k, f in train_fam.items()}}
            if name == "rmsnorm" else {}),
         "autotune_launches": autotune["launches"][name],
+        "drivers_launches": drivers["launches"][name],
         **{f"{k}_launches": ph["launches"][name]
            for k, ph in mesh_phases.items()},
     } for name, tot in lm_kernels]}))

@@ -61,10 +61,22 @@ SLICE_MODULES = (
     "repro_torch.models.layers", "repro_torch.models.transformer",
     "repro_torch.train.steps", "repro_torch.train.checkpoint",
     "repro_torch.train.trainer", "repro_torch.launch.train",
-    "repro_torch.launch.mesh", "repro_torch.dist.sharding")
+    "repro_torch.launch.mesh", "repro_torch.dist.sharding",
+    # the reference's drivers: examples, benchmarks, make_tables
+    "repro_torch.examples", "repro_torch.examples.quickstart",
+    "repro_torch.examples.tune_resnet18", "repro_torch.examples.serve_lm",
+    "repro_torch.examples.train_lm",
+    "repro_torch.examples.arco_sharding_search",
+    "repro_torch.benchmarks", "repro_torch.benchmarks.tuning_runs",
+    "repro_torch.benchmarks.transfer_runs",
+    "repro_torch.benchmarks.serve_runs",
+    "repro_torch.benchmarks.measure_throughput",
+    "repro_torch.benchmarks.run", "repro_torch.tools",
+    "repro_torch.tools.make_tables")
 
 # the fabric's modules: a spawned measurement worker or a worker daemon
-# loads them and must not pay a torch (or numpy) import
+# loads them and must not pay a torch (or numpy) import; nor does a worker
+# of the throughput bench, which re-imports that driver as __mp_main__
 _FABRIC_IMPORT = """
 import importlib, json, sys
 for name in ("repro_torch.compiler.executor",
@@ -74,7 +86,8 @@ for name in ("repro_torch.compiler.executor",
              "repro_torch.compiler.executor.pool",
              "repro_torch.compiler.executor.remote",
              "repro_torch.compiler.executor.worker",
-             "repro_torch.obs", "repro_torch.obs.serve"):
+             "repro_torch.obs", "repro_torch.obs.serve",
+             "repro_torch.benchmarks.measure_throughput"):
     importlib.import_module(name)
 print(json.dumps(sorted(k for k in ("torch", "numpy", "jax")
                         if k in sys.modules)))
@@ -82,6 +95,13 @@ print(json.dumps(sorted(k for k in ("torch", "numpy", "jax")
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\s|\.|$)",
                         re.MULTILINE)
+# a module of either named in a string, which a spawned worker or
+# importlib would load: "repro.compiler.executor.stub:make_stub" (a
+# WorkerSpec factory), "repro.obs", "jax"; the bare word "repro" stays a
+# name (the Tracer's default, as the reference's)
+_FORBIDDEN_STRING = re.compile(
+    r"""(?<![\w.])["'](?:(?:jax|jaxlib|repro)(?:\.\w+)+(?::\w+)?"""
+    r"""|(?:jax|jaxlib|repro):\w+|jax|jaxlib)["']""")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -115,7 +135,9 @@ def test_sources_never_import_jax_or_repro():
     offenders = []
     for path in _python_files():
         with open(path) as f:
-            for m in _FORBIDDEN.finditer(f.read()):
+            text = f.read()
+        for pat in (_FORBIDDEN, _FORBIDDEN_STRING):
+            for m in pat.finditer(text):
                 offenders.append(f"{os.path.relpath(path, ROOT)}: "
                                  f"{m.group(0).strip()}")
     assert not offenders, offenders
@@ -128,3 +150,13 @@ def test_forbidden_pattern_catches_reference_imports():
     for line in ("import repro_torch", "from repro_torch.core import mappo",
                  "import jaxtyping"):
         assert not _FORBIDDEN.search(line), line
+    for line in ('WorkerSpec(factory="repro.compiler.executor.stub:make_stub")',
+                 "importlib.import_module('repro.obs.trace')",
+                 'resolve_factory("repro:make")', 'find_spec("jax")',
+                 "STUB = 'jax.numpy'"):
+        assert _FORBIDDEN_STRING.search(line), line
+    for line in ('WorkerSpec(factory="repro_torch.compiler.executor.stub:'
+                 'make_stub")', 'Tracer(name="repro")',
+                 '"src/repro/kernels/gemm.py:48"', '"reprox.a"',
+                 '"the reference\'s repro.obs"'):
+        assert not _FORBIDDEN_STRING.search(line), line
