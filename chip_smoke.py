@@ -22,13 +22,14 @@ training step, and the reference's examples as the port runs them.
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, all at once, and
-   prints what ``ptxas -v`` says of the fp32 GEMM's, the bf16 flash
-   kernel's and the RMSNorm kernel's templates (registers, spills, static
-   shared memory), and which RMSNorm templates the LM path runs;
+   prints what ``ptxas -v`` says of the fp32 and bf16 GEMMs', the bf16
+   flash kernel's and the RMSNorm kernel's templates (registers, spills,
+   static shared memory), and which RMSNorm templates the LM path runs;
 3. holds each kernel against its plain PyTorch version on the card, fp32
    and bf16: the reference test shapes and configs, the GEMM's split-K
-   shapes and misaligned row strides, the 8 ResNet-18 im2col shapes at
-   batch 8 under the default and knob-derived configs, the GEMM's
+   shapes and misaligned row strides (fp32 and bf16), the 8 ResNet-18
+   im2col shapes at batch 8 under the default and knob-derived configs
+   (fp32 and bf16), the GEMM's
    ``out_dtype`` both ways (fp32 -> bf16, bf16 -> fp32), flash at every
    head_dim template with GQA, window 32 and ragged S, and the LM's shapes
    (RMSNorm over prompts of 200, 384 and 1024 rows and (8, 1536), plus
@@ -60,6 +61,15 @@ training step, and the reference's examples as the port runs them.
 6. times each ResNet-18 GEMM shape (kernel and one ``torch.matmul`` call
    as a yardstick, each through Python calls and as device time in a CUDA
    graph; the plain version; the card's bound) and the forward;
+   ``[deploy bf16]``: the same network and input in bf16 with the tuned
+   geometries, the GEMM count set to 0 just before (17 launches), logits
+   within 2e-2 of max |logit| of the plain path in bf16; the distances to
+   the fp32 forward and to cuDNN bf16 convolutions, the forward's ms
+   three ways and a profile, ungated; ``[time bf16]``: the bf16 GEMM (the
+   tensor-core kernel) at the 8 shapes under the tuned geometries and
+   ``GemmConfig()`` and at bert-gemm's four GEMM shapes, each held
+   against the plain version, by device time beside ``torch.matmul``
+   bf16 and the bytes bound, and the forward's 17 GEMMs both ways;
 7. ``[baselines]``: random search, AutoTVM and CHAMELEON tune the same 8
    tasks at ARCO's budget and seed; tuning seconds and network latency
    (the analytical TPU v5e model) beside ARCO's; every task ends with the
@@ -205,10 +215,14 @@ training step, and the reference's examples as the port runs them.
    smollm-360m, 8 x 128 tokens: the loss falls, RMSNorm every norm of
    the forward and its recompute, flash and GEMM none); each driver's
    seconds and launches;
+then ``[time flash fp32]``: the fp32 flash kernel at every shape the
+fp32 gates launched (counted while they ran), beside SDPA fp32, the
+plain version (which holds it at 5e-5) and its fp32 operations bound;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
 times; every kernel's with the mesh phases' and ``[drivers]``'
-launches).
+launches; the GEMM's with the bf16 forward's launches and times, flash's
+with the fp32 gates').
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, so the script exits non-zero and prints no result; without a GPU,
@@ -216,6 +230,9 @@ or without the repository's ``src/repro_torch`` beside it, it exits 2.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -246,14 +263,30 @@ REFERENCE_SHAPES = [(8, 8, 8), (100, 70, 90), (128, 128, 128), (1, 256, 33),
                     (257, 129, 65)]
 REFERENCE_CONFIGS = [(32, 32, 32, True, True), (128, 128, 128, True, True),
                      (16, 64, 128, False, True), (8, 128, 256, True, False)]
-# ((M, K, N), config): split-K (conv8b, conv6b at their tuned tiles) and
-# misaligned row strides (conv1's K 147; K 129 with N 33; K 1029, split)
-GEMM_EXTRA_CHECKS = [((392, 4608, 512), (32, 256, 2304, True, True)),
-                     ((1568, 2304, 256), (128, 128, 2304, True, True)),
-                     ((392, 4608, 512), (128, 128, 128, True, True)),
-                     ((1568, 147, 64), (128, 64, 128, True, True)),
-                     ((257, 129, 33), (64, 32, 32, True, True)),
-                     ((257, 1029, 33), (64, 32, 32, True, True))]
+# ((M, K, N), config, dtype): split-K (conv8b, conv6b at their tuned
+# tiles) and misaligned row strides (conv1's K 147; K 129 with N 33; K
+# 1029, split), fp32; then bf16: split-K (conv8b at a tuned tile, 5
+# slices), conv1's K 147 (K % 8 != 0: the scalar copies), K 1029 with N 33
+# (both strides misaligned, 7 slices)
+GEMM_EXTRA_CHECKS = [
+    ((392, 4608, 512), (32, 256, 2304, True, True), "float32"),
+    ((1568, 2304, 256), (128, 128, 2304, True, True), "float32"),
+    ((392, 4608, 512), (128, 128, 128, True, True), "float32"),
+    ((1568, 147, 64), (128, 64, 128, True, True), "float32"),
+    ((257, 129, 33), (64, 32, 32, True, True), "float32"),
+    ((257, 1029, 33), (64, 32, 32, True, True), "float32"),
+    ((392, 4608, 512), (32, 256, 2304, True, True), "bfloat16"),
+    ((1568, 147, 64), (128, 64, 128, True, True), "bfloat16"),
+    ((257, 1029, 33), (64, 32, 32, True, True), "bfloat16")]
+# [deploy bf16]: the kernel path's logits against the plain path's (cuDNN
+# fp32 convolutions on the bf16 values, each layer's output rounded to
+# bf16), relative to max |logit|.  The CPU test holds the port's bf16
+# forward to the reference's at 2e-2 (measured 5.0e-3 at 32 x 32; the
+# reference's bf16 forward lies 5.5e-3 from its fp32 one): both paths
+# round every layer to bf16 and the two sums' orders flip a rounding now
+# and then, compounding over 17 convs; 2e-2 keeps that room, under the LM
+# bf16 gate's 5e-2.
+DEPLOY_BF16_TOL = 2e-2
 # LM serving path: qwen2-1.5b at its published width and depth, bf16
 LM_ARCH = "qwen2-1.5b"
 LM_SLOTS, LM_MAX_LEN = 8, 2048
@@ -438,11 +471,11 @@ DRIVER_TRAIN_STEPS = 20
 GATE_PROMPT = {"ssm": (64, 128)}
 # the port's kernels as the profiler names them
 PORT_KERNEL_NAMES = ("gemm_f32_kernel", "splitk_sum_kernel",
-                     "gemm_loop_kernel", "flash_mma_kernel",
+                     "gemm_bf16_kernel", "flash_mma_kernel",
                      "flash_ffma_kernel", "rmsnorm_kernel")
 # the templates redesigned for the card, whose ptxas lines are printed
-NEW_TEMPLATES = ("gemm_f32_kernel", "splitk_sum_kernel", "flash_mma_kernel",
-                 "rmsnorm_kernel")
+NEW_TEMPLATES = ("gemm_f32_kernel", "gemm_bf16_kernel", "splitk_sum_kernel",
+                 "flash_mma_kernel", "rmsnorm_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -660,7 +693,8 @@ def phase_check_kernel(dev) -> float:
              (torch.bfloat16, torch.float32, FP32_TOL))
     cases = [(shape, cfg, pair) for shape in REFERENCE_SHAPES
              for cfg in REFERENCE_CONFIGS for pair in pairs]
-    cases += [(shape, cfg, pairs[0]) for shape, cfg in GEMM_EXTRA_CHECKS[:3]]
+    cases += [(shape, cfg, pairs[0])
+              for shape, cfg, _ in GEMM_EXTRA_CHECKS[:3]]
     for (m, k, n), cfg, (src, dst, tol) in cases:
         a = torch.randn(m, k, generator=gen, device=dev).to(src)
         b = torch.randn(k, n, generator=gen, device=dev).to(src)
@@ -678,16 +712,18 @@ def phase_check_kernel(dev) -> float:
         n_checks += 1
     log(f"[check] gemm out_dtype fp32 -> bf16 (tol {BF16_TOL}) and bf16 -> "
         f"fp32 (tol {FP32_TOL}): {len(cases)} checks passed")
-    for (m, k, n), cfg in GEMM_EXTRA_CHECKS:
-        a = torch.randn(m, k, generator=gen, device=dev)
-        b = torch.randn(k, n, generator=gen, device=dev)
+    for (m, k, n), cfg, dt in GEMM_EXTRA_CHECKS:
+        dtype, tol = getattr(torch, dt), (FP32_TOL if dt == "float32"
+                                          else BF16_TOL)
+        a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        b = torch.randn(k, n, generator=gen, device=dev).to(dtype)
         c = G.GemmConfig(*cfg)
         got = G.gemm(a, b, c)
         run = G.gemm.last_geometry["run"]
         want = G.gemm(a, b, c, use_kernel=False)
         torch.cuda.synchronize()
         diff, rel = rel_err(got, want)
-        check(rel <= FP32_TOL, f"gemm {(m, k, n)} {run}: rel err {rel:.3g}")
+        check(rel <= tol, f"gemm {(m, k, n)} {run}: rel err {rel:.3g}")
         log(f"[check] gemm M={m} K={k} N={n} run={run} dynamic smem "
             f"{G.RunGeometry(**run).smem_bytes} B max_abs_err={diff:.3g} "
             f"rel={rel:.3g}")
@@ -705,19 +741,22 @@ def phase_check_kernel(dev) -> float:
             for tm, i in ((1, 0), (32, -1), (64, 0))]
         a = torch.randn(m, k, generator=gen, device=dev)
         b = torch.randn(k, n, generator=gen, device=dev)
-        for cfg in configs:
-            got = G.gemm(a, b, cfg)
-            run = G.gemm.last_geometry["run"]
-            want = G.gemm(a, b, cfg, use_kernel=False)
-            torch.cuda.synchronize()
-            diff, rel = rel_err(got, want)
-            check(rel <= FP32_TOL,
-                  f"gemm {name} {(m, n, k)} {run}: rel err {rel:.3g}")
-            worst = max(worst, diff)
-            n_checks += 1
-            log(f"[check] {name} M={m} N={n} K={k} run={run} dynamic "
-                f"smem {G.RunGeometry(**run).smem_bytes} B "
-                f"max_abs_err={diff:.3g} rel={rel:.3g}")
+        for x, y, tol in ((a, b, FP32_TOL),
+                          (a.bfloat16(), b.bfloat16(), BF16_TOL)):
+            for cfg in configs:
+                got = G.gemm(x, y, cfg)
+                run = G.gemm.last_geometry["run"]
+                want = G.gemm(x, y, cfg, use_kernel=False)
+                torch.cuda.synchronize()
+                diff, rel = rel_err(got, want)
+                check(rel <= tol,
+                      f"gemm {name} {(m, n, k)} {run}: rel err {rel:.3g}")
+                if x.dtype == torch.float32:
+                    worst = max(worst, diff)
+                n_checks += 1
+                log(f"[check] {name} M={m} N={n} K={k} run={run} dynamic "
+                    f"smem {G.RunGeometry(**run).smem_bytes} B "
+                    f"max_abs_err={diff:.3g} rel={rel:.3g}")
     log(f"[check] {n_checks} kernel-vs-plain checks passed "
         f"(fp32 tol {FP32_TOL} x max|plain|, bf16 {BF16_TOL})")
     return worst
@@ -771,17 +810,33 @@ def phase_episode_time(dev) -> float:
     return ms
 
 
+def resnet_layers() -> tuple:
+    """ResNet-18's conv specs and each layer's task name."""
+    from repro_torch.core.task import conv_tasks
+    from repro_torch.models import cnn
+    layer_task = {layer: t.name for t in conv_tasks("resnet-18", batch=BATCH)
+                  for layer in t.layer_names}
+    return cnn.conv_specs("resnet-18"), layer_task
+
+
+def tuned_configs(rep) -> tuple:
+    """Each ResNet-18 conv layer's GemmConfig from its task's tuned knobs
+    (``knob_config``), and each task's (its shape's) config."""
+    specs, layer_task = resnet_layers()
+    configs = [knob_config(rep[layer_task[s.name]].best_settings, s)
+               for s in specs]
+    per_shape = {}
+    for s, cfg in zip(specs, configs):
+        per_shape.setdefault(layer_task[s.name], cfg)
+    return configs, per_shape
+
+
 def resnet_setup(dev):
     """ResNet-18's conv specs, each layer's task name, the seeded weights
     and the 224x224 batch-8 input that every deploy phase runs."""
     import torch
-    from repro_torch.core.task import conv_tasks
     from repro_torch.models import cnn
-    specs = cnn.conv_specs("resnet-18")
-    layer_task = {}
-    for t in conv_tasks("resnet-18", batch=BATCH):
-        for layer in t.layer_names:
-            layer_task[layer] = t.name
+    specs, layer_task = resnet_layers()
     net = cnn.init_params(SEED, "resnet-18", device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn((BATCH, 224, 224, 3), generator=gen, device=dev)
@@ -794,9 +849,8 @@ def phase_deploy(dev, rep):
     set to 0 before tuning, where the main path starts)."""
     import torch
     from repro_torch.kernels import gemm as G
-    specs, layer_task, net, x = resnet_setup(dev)
-    configs = [knob_config(rep[layer_task[s.name]].best_settings, s)
-               for s in specs]
+    _, _, net, x = resnet_setup(dev)
+    configs, per_shape = tuned_configs(rep)
     with torch.no_grad():
         logits = net(x, configs)
         torch.cuda.synchronize()
@@ -818,10 +872,7 @@ def phase_deploy(dev, rep):
         f"{plain_fwd_ms:.3f} ms through cuDNN fp32 convolutions")
     with torch.no_grad():   # where the forward's time goes
         profile_runs({"forward": (3, lambda: net(x, configs))})
-    per_shape = {}
-    for s, cfg in zip(specs, configs):
-        per_shape.setdefault(layer_task[s.name], cfg)
-    return launches, diff, fwd_ms, plain_fwd_ms, per_shape
+    return launches, diff, fwd_ms, plain_fwd_ms, configs, per_shape
 
 
 def phase_time_shapes(dev, per_shape):
@@ -868,6 +919,298 @@ def phase_time_shapes(dev, per_shape):
             f"plain {plain_ms:.1f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
+
+
+def events_ms(fn) -> tuple:
+    """(fn's result, the device ms of that one call by CUDA events)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bf16_gemm_cases(per_shape) -> list:
+    """``[time bf16]``'s cases, (task, M, N, K, layers, geometry label,
+    GemmConfig): the 8 ResNet-18 shapes at batch 8 under the tuned
+    geometries (``per_shape``) and under ``GemmConfig()``, and bert-gemm's
+    four GEMM shapes (the resnet-bert network's tail) under
+    ``GemmConfig()``."""
+    from repro_torch.compiler.zoo import get_network
+    from repro_torch.kernels import gemm as G
+    shapes = gemm_shapes()
+    cases = [(name, m, n, k, layers, "tuned", per_shape[name])
+             for name, m, n, k, layers in shapes]
+    cases += [(name, m, n, k, layers, "default", G.GemmConfig())
+              for name, m, n, k, layers in shapes]
+    for t in get_network("bert-gemm").tasks:
+        wl = t.space.workload
+        cases.append((t.name, wl["m"], wl["n"], wl["k"], t.multiplicity,
+                      "default", G.GemmConfig()))
+    return cases
+
+
+def phase_time_bf16(dev, per_shape) -> dict:
+    """``[time bf16]``: the GEMM with bf16 operands and C (fp32
+    accumulation, as the TPU kernel's MXU dot) at :func:`bf16_gemm_cases`.
+    Each row: the run geometry, the kernel and one ``torch.matmul`` bf16
+    call by ``device_ms`` (a CUDA graph), the plain version by CUDA events
+    over one call, and the bound: the operands read once and C written
+    once at 3.35 TB/s against 2 M N K operations at the bf16 tensor-core
+    peak; the kernel's output is held against the plain version's at
+    BF16_TOL.  Then the device ms of the forward's 17 GEMMs under the
+    tuned geometries and under ``GemmConfig()``.  Returns the rows, those
+    totals and the (M, N, K, run geometry) set the checks held."""
+    import torch
+    from repro_torch.kernels import gemm as G
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    bf = torch.bfloat16
+    rows, checked = [], set()
+    for name, m, n, k, layers, label, cfg in bf16_gemm_cases(per_shape):
+        a = torch.randn(m, k, generator=gen, device=dev).to(bf)
+        b = torch.randn(k, n, generator=gen, device=dev).to(bf)
+        got = G.gemm(a, b, cfg)
+        run = G.gemm.last_geometry["run"]
+        want, plain_ms = events_ms(lambda: G.gemm(a, b, cfg,
+                                                  use_kernel=False))
+        diff, rel = rel_err(got, want)
+        check(got.dtype == bf and rel <= BF16_TOL,
+              f"gemm bf16 {name} {(m, n, k)} {run}: rel err {rel:.3g}")
+        checked.add((m, n, k, tuple(sorted(run.items()))))
+        dev_ms = device_ms(lambda: G.gemm(a, b, cfg))
+        lib_ms = device_ms(lambda: torch.matmul(a, b))
+        flops = 2.0 * m * n * k
+        nbytes = 2.0 * (m * k + k * n + m * n)
+        row = {"task": name, "M": m, "N": n, "K": k, "layers": layers,
+               "geometry": label,
+               "requested": [cfg.block_m, cfg.block_n, cfg.block_k],
+               "run": [run["bm"], run["bn"], run["bk"]],
+               "split_k": run["split_k"], "vec": run["vec"],
+               "device_ms": dev_ms, "library_device_ms": lib_ms,
+               "plain_ms": plain_ms, "max_abs_err": diff, "rel_err": rel,
+               **bound(flops / BF16_FLOPS * 1e3,
+                       nbytes / HBM_BYTES_PER_S * 1e3),
+               "device_tflops": flops / dev_ms / 1e9}
+        rows.append(row)
+        log(f"[time bf16] {name} M={m} N={n} K={k} x{layers} {label} "
+            f"requested={row['requested']} run={row['run']} "
+            f"split_k={row['split_k']} vec={row['vec']}: device time "
+            f"{dev_ms:.4f} ms ({row['device_tflops']:.2f} TFLOP/s, "
+            f"{100 * row['bound_ms'] / dev_ms:.1f}% of bound), "
+            f"torch.matmul bf16 {lib_ms:.4f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); vs plain "
+            f"max_abs_err={diff:.3g} rel={rel:.3g}")
+    resnet = {t for t, *_ in gemm_shapes()}
+    total = {}
+    for label in ("tuned", "default"):
+        fwd = [r for r in rows if r["task"] in resnet
+               and r["geometry"] == label]
+        total[label] = {key: sum(r[key] * r["layers"] for r in fwd)
+                        for key in ("device_ms", "library_device_ms",
+                                    "plain_ms", "bound_ms")}
+        by_ops = sum(r["bound_ms"] * r["layers"] for r in fwd
+                     if r["bound_by"] == "operations")
+        total[label]["bound_by"] = ("operations" if 2 * by_ops >=
+                                    total[label]["bound_ms"] else "bytes")
+    log(f"[time bf16] the forward's 17 GEMMs (device_ms): "
+        f"{total['tuned']['device_ms']:.4f} ms at the tuned geometries, "
+        f"{total['default']['device_ms']:.4f} ms at GemmConfig(); "
+        f"torch.matmul bf16 {total['tuned']['library_device_ms']:.4f} ms; "
+        f"bound {total['tuned']['bound_ms']:.4f} ms; {len(checked)} "
+        f"geometries held against the plain version (tol {BF16_TOL})")
+    return {"rows": rows, "forward": total, "checked": checked}
+
+
+def cudnn_bf16_forward(net, x):
+    """ResNet-18's forward as ``cnn.apply`` runs it, each conv one cuDNN
+    call in x's dtype (NHWC x, HWIO weights): the yardstick of the bf16
+    forward, which the port never calls."""
+    import torch.nn.functional as F
+    from repro_torch.models import cnn
+    specs = cnn.conv_specs(net.model)
+    nchw = lambda f, t, *a, **kw: f(t.permute(0, 3, 1, 2), *a,
+                                    **kw).permute(0, 2, 3, 1)
+
+    def conv(i, t):
+        return nchw(F.conv2d, t, net.conv_w[i].permute(3, 2, 0, 1),
+                    stride=specs[i].stride,
+                    padding=specs[i].pad) + net.conv_b[i]
+
+    x = nchw(F.max_pool2d, F.relu(conv(0, x)), 3, 2, padding=1)
+    for i in range(1, len(specs), 2):   # the basic blocks, as cnn.apply
+        y = conv(i + 1, F.relu(conv(i, x)))
+        if x.shape != y.shape:
+            s = specs[i].stride
+            x = F.pad(nchw(F.avg_pool2d, x, s, s),
+                      (0, y.shape[-1] - x.shape[-1]))
+        x = F.relu(x + y)
+    return x.mean(dim=(1, 2)) @ net.fc_w + net.fc_b
+
+
+def phase_deploy_bf16(dev, configs) -> dict:
+    """``[deploy bf16]``: ResNet-18 at 224x224, batch 8, deployed in bf16
+    (``net.to(torch.bfloat16)``, bf16 input) with the per-layer geometries
+    ``[tune]`` found.  The GEMM's launch count is set to 0 just before the
+    forward and must read 17 just after; the logits finite, of shape (8,
+    1000) and within DEPLOY_BF16_TOL of the plain path in bf16.  Printed,
+    not gated: the distance to the fp32 forward (the plain path, cuDNN
+    fp32) and to a forward whose convs are cuDNN bf16 calls
+    (:func:`cudnn_bf16_forward`); the forward's ms through the kernel, the
+    plain path and cuDNN bf16 (CUDA events over Python calls); a profile
+    of the forward.  Returns those numbers and the (M, N, K, run
+    geometry) of each GEMM the forward ran."""
+    import torch
+    from repro_torch.kernels import gemm as G
+    specs, layer_task, net, x = resnet_setup(dev)
+    with torch.no_grad():
+        fp32 = net(x, use_kernel=False)
+    net = net.to(torch.bfloat16)
+    x = x.to(torch.bfloat16)
+    mnk = {t: (m, n, k) for t, m, n, k, _ in gemm_shapes()}
+    ran = set()
+    for s, cfg in zip(specs, configs):
+        shape = mnk[layer_task[s.name]]
+        geom = G.legalize(cfg, *shape, torch.bfloat16)
+        ran.add((*shape, tuple(sorted(dataclasses.asdict(geom).items()))))
+    with torch.no_grad():
+        G.gemm.launches = 0   # the bf16 deploy path starts here
+        logits = net(x, configs)
+        torch.cuda.synchronize()
+        launches = G.gemm.launches   # and ends here
+        check(launches == 17, f"bf16 forward launched the kernel "
+                              f"{launches} times, expected 17")
+        plain = net(x, use_kernel=False)
+        cudnn = cudnn_bf16_forward(net, x)
+        cudnn_ms = cuda_ms(lambda: cudnn_bf16_forward(net, x), reps=5)
+        torch.cuda.synchronize()
+    check(tuple(logits.shape) == (BATCH, 1000) and logits.dtype ==
+          torch.bfloat16, f"bf16 logits {logits.shape} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "non-finite bf16 logits")
+    diff, rel = rel_err(logits, plain)
+    check(rel <= DEPLOY_BF16_TOL, f"bf16 forward vs plain path: rel err "
+                                  f"{rel:.3g} > {DEPLOY_BF16_TOL}")
+    _, rel32 = rel_err(logits, fp32)
+    _, rel_cudnn = rel_err(logits, cudnn)
+    log(f"[deploy bf16] ResNet-18 224x224 batch {BATCH} in bf16, tuned "
+        f"geometries: 17 kernel launches, logits max_abs_err {diff:.3g} "
+        f"(rel {rel:.3g}, gate {DEPLOY_BF16_TOL}) vs the plain path (cuDNN "
+        f"fp32 convolutions on the bf16 values, rounded to bf16 a layer); "
+        f"rel {rel32:.3g} vs the fp32 forward, {rel_cudnn:.3g} vs cuDNN "
+        f"bf16 convolutions (not gated)")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: net(x, configs), reps=5)
+        plain_ms = cuda_ms(lambda: net(x, use_kernel=False), reps=5)
+    log(f"[deploy bf16] forward {fwd_ms:.3f} ms through the kernel, "
+        f"{plain_ms:.3f} ms through the plain path, {cudnn_ms:.3f} ms "
+        f"through cuDNN bf16 convolutions (CUDA events over Python calls)")
+    with torch.no_grad():
+        profile = profile_runs({"forward bf16": (3, lambda: net(x,
+                                                                 configs))})
+    return {"launches": launches, "logits_max_abs_err": diff,
+            "logits_rel_err": rel, "logits_rel_err_vs_fp32": rel32,
+            "logits_rel_err_vs_cudnn_bf16": rel_cudnn, "forward_ms": fwd_ms,
+            "forward_plain_ms": plain_ms, "forward_cudnn_bf16_ms": cudnn_ms,
+            "profile": profile, "geometries": ran}
+
+
+@contextlib.contextmanager
+def fp32_flash_recorded(calls):
+    """While active, records in ``calls`` every fp32 flash launch on the
+    LM paths by ((B, S, HQ, HKV, D), causal, window, block_q, block_k):
+    the models reach the kernel through ``ops.attention``, which calls
+    the wrapper as ``ops.flash_attention``.  Each call adds what the
+    wrapper's own count (``flash_attention.launches``, kept where the
+    kernel launches) moved during it, and must have moved by 1."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    inner = ops.flash_attention
+
+    def counted(q, k, v, *args, **kw):
+        before = FA.flash_attention.launches
+        out = inner(q, k, v, *args, **kw)
+        moved = FA.flash_attention.launches - before
+        if q.dtype == torch.float32 and q.is_cuda:
+            check(moved == 1, f"an fp32 flash call on the card moved the "
+                              f"launch count by {moved}")
+            calls[(tuple(q.shape), k.shape[2], kw.get("causal", True),
+                   kw.get("window"), kw.get("block_q", 128),
+                   kw.get("block_k", 128))] += moved
+        return out
+
+    ops.flash_attention = counted
+    try:
+        yield calls
+    finally:
+        ops.flash_attention = inner
+
+
+def phase_time_flash_fp32(dev, calls) -> dict:
+    """``[time flash fp32]``: the fp32 flash kernel (the FFMA kernel of
+    the first port, ``flash_ffma_kernel``) at every shape the fp32 gates
+    launched (``calls``, from :func:`fp32_flash_recorded`): the kernel and
+    one SDPA fp32 call by ``device_ms``, the plain version by CUDA events
+    over one call (its output holds the kernel's at FP32_TOL), and the
+    bound: the fp32 operations over the 67 TFLOP/s FMA peak against q, k,
+    v read and o written once.  Totals over the launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows = []
+    for (qshape, hkv, causal, window, bq, bk), n in sorted(calls.items()):
+        b, s, hq, d = qshape
+        q = torch.randn(qshape, generator=gen, device=dev)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev)
+                for _ in range(2))
+        geom = FA.legalize(bq, bk, s, d, torch.float32)
+        got = FA.flash_attention(q, k, v, causal, window, None, bq, bk)
+        want, plain_ms = events_ms(lambda: FA.flash_attention_plain(
+            q, k, v, causal, window, d ** -0.5, geom))
+        diff, rel = rel_err(got, want)
+        check(rel <= FP32_TOL, f"flash fp32 {qshape} {hkv}: rel err "
+                               f"{rel:.3g}")
+        check(window is None, f"flash fp32 {qshape}: a window, which the "
+                              f"SDPA yardstick here does not take")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        flops = 2.0 * b * hq * d * (s * (s + 1) if causal else 2 * s * s)
+        row = {"shape": [b, s, hq, hkv, d], "causal": causal,
+               "window": window, "launches": n,
+               "run": [geom.bq, geom.bk, geom.dp],
+               "ms": device_ms(lambda: FA.flash_attention(
+                   q, k, v, causal, window, None, bq, bk)),
+               "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=True)),
+               "plain_ms": plain_ms, "max_abs_err": diff,
+               **bound(flops / FP32_FLOPS * 1e3,
+                       4.0 * b * s * d * (2 * hq + 2 * hkv)
+                       / HBM_BYTES_PER_S * 1e3)}
+        rows.append(row)
+        log(f"[time flash fp32] {row['shape']}"
+            f"{' causal' if causal else ' non-causal'} x{n} launches "
+            f"run={row['run']}: kernel {row['ms']:.4f} ms, SDPA fp32 "
+            f"{row['library_ms']:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; the kernel at "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of it); vs plain "
+            f"max_abs_err={diff:.3g} rel={rel:.3g}")
+    tot = {key: sum(r[key] * r["launches"] for r in rows)
+           for key in ("ms", "library_ms", "plain_ms", "bound_ms")}
+    by_ops = sum(r["bound_ms"] * r["launches"] for r in rows
+                 if r["bound_by"] == "operations")
+    tot["bound_by"] = ("operations" if 2 * by_ops >= tot["bound_ms"]
+                       else "bytes")
+    tot["launches"] = sum(calls.values())
+    tot["max_abs_err"] = max((r["max_abs_err"] for r in rows), default=0.0)
+    tot["shapes"] = rows
+    log(f"[time flash fp32] over the fp32 gates' {tot['launches']} launches "
+        f"({len(rows)} shapes): kernel {tot['ms']:.3f} ms, SDPA fp32 "
+        f"{tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.1f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+    return tot
 
 
 # ------------------------------------------------ baselines and netopt
@@ -3275,9 +3618,18 @@ def main() -> int:
     from repro_torch.kernels import gemm as G
     G.gemm.launches = 0  # the main path (tune -> deploy) starts here
     rep, tune_s = phase_tune(dev)
-    launches, fwd_err, fwd_ms, plain_fwd_ms, per_shape = phase_deploy(dev, rep)
+    (launches, fwd_err, fwd_ms, plain_fwd_ms, configs,
+     per_shape) = phase_deploy(dev, rep)
     episode_ms = phase_episode_time(dev)
     rows = phase_time_shapes(dev, per_shape)
+    deploy16, deploy16_s = timed(lambda: phase_deploy_bf16(dev, configs))
+    log(f"[deploy bf16] phase {deploy16_s:.1f} s")
+    gemm16, time16_s = timed(lambda: phase_time_bf16(dev, per_shape))
+    unchecked = deploy16.pop("geometries") - gemm16.pop("checked")
+    check(not unchecked, f"[deploy bf16] ran geometries no check held: "
+                         f"{sorted(unchecked)}")
+    log(f"[time bf16] every geometry [deploy bf16] ran is among them; "
+        f"phase {time16_s:.1f} s")
     baselines, base_s = timed(lambda: phase_baselines(dev, rep, tune_s))
     log(f"[baselines] phase {base_s:.1f} s")
     (coopt, netopt), net_s = timed(lambda: phase_netopt(dev))
@@ -3285,7 +3637,9 @@ def main() -> int:
     netopt_deploy, dep_s = timed(lambda: phase_netopt_deploy(
         dev, coopt, fwd_ms, plain_fwd_ms, rows))
     log(f"[netopt deploy] phase {dep_s:.1f} s")
-    lm_params, lm_cfg, lm_rel32, lm_rel16 = phase_lm_gate(dev)
+    flash32 = collections.Counter()   # the fp32 gates' flash launches
+    with fp32_flash_recorded(flash32):
+        lm_params, lm_cfg, lm_rel32, lm_rel16 = phase_lm_gate(dev)
     serve = phase_serve(dev, lm_params, lm_cfg)   # resets the LM counts
     fabric, fab_s = timed(phase_fabric)
     log(f"[fabric] phase {fab_s:.1f} s")
@@ -3318,8 +3672,9 @@ def main() -> int:
     log(f"[train faults] phase {faults_s:.1f} s")
     families, family_s = {}, {}
     for kind in FAMILY_SERVE:
-        families[kind], family_s[kind] = timed(
-            lambda: phase_serve_family(dev, kind))
+        with fp32_flash_recorded(flash32):
+            families[kind], family_s[kind] = timed(
+                lambda: phase_serve_family(dev, kind))
         log(f"[serve {kind}] phase {family_s[kind]:.1f} s")
     train_audio, train_audio_s = timed(lambda: phase_train_audio(dev))
     log(f"[train audio] phase {train_audio_s:.1f} s")
@@ -3333,6 +3688,9 @@ def main() -> int:
     log(f"[autotune] phase {autotune_s:.1f} s")
     drivers, drivers_s = timed(lambda: phase_drivers(dev))
     log(f"[drivers] phase {drivers_s:.1f} s")
+    flash_fp32, flash32_s = timed(lambda: phase_time_flash_fp32(dev,
+                                                                flash32))
+    log(f"[time flash fp32] phase {flash32_s:.1f} s")
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -3347,7 +3705,12 @@ def main() -> int:
                     "gemm_shapes": rows,
                     "baselines": baselines, "netopt": netopt,
                     "netopt_deploy": netopt_deploy,
-                    "phase_s": {"baselines": base_s, "netopt": net_s,
+                    "deploy_bf16": deploy16, "gemm_bf16": gemm16,
+                    "flash_fp32_gates": flash_fp32,
+                    "phase_s": {"deploy_bf16": deploy16_s,
+                                "time_bf16": time16_s,
+                                "time_flash_fp32": flash32_s,
+                                "baselines": base_s, "netopt": net_s,
                                 "netopt_deploy": dep_s, "fabric": fab_s,
                                 "serve_live": live_s, "train": train_s,
                                 "train_sharded": sharded_s,
@@ -3404,6 +3767,18 @@ def main() -> int:
         "device_ms": total("device_ms"),
         "library_device_ms": total("library_device_ms"),
         "netopt_deploy_launches": netopt_deploy["launches"],
+        "deploy_bf16_launches": deploy16["launches"],
+        # bf16 operands (the tensor-core kernel): the forward's 17 GEMMs
+        # at the tuned geometries, device time in CUDA graphs
+        "bf16": {"ms": gemm16["forward"]["tuned"]["device_ms"],
+                 "default_ms": gemm16["forward"]["default"]["device_ms"],
+                 "plain_ms": gemm16["forward"]["tuned"]["plain_ms"],
+                 "bound_ms": gemm16["forward"]["tuned"]["bound_ms"],
+                 "bound_by": gemm16["forward"]["tuned"]["bound_by"],
+                 "library_ms":
+                     gemm16["forward"]["tuned"]["library_device_ms"],
+                 "max_abs_err": max(r["max_abs_err"]
+                                    for r in gemm16["rows"])},
         "drivers_launches": drivers["launches"]["gemm"],
         **{f"{k}_launches": ph["launches"]["gemm"]
            for k, ph in mesh_phases.items()},
@@ -3434,6 +3809,10 @@ def main() -> int:
             **{f"train_{k}": f["rmsnorm_time"]
                for k, f in train_fam.items()}}
            if name == "rmsnorm" else {}),
+        **({"fp32_gates_launches": flash_fp32["launches"],
+            "fp32_gates": {k: v for k, v in flash_fp32.items()
+                           if k != "shapes"}}
+           if name == "flash_attention" else {}),
         "autotune_launches": autotune["launches"][name],
         "drivers_launches": drivers["launches"][name],
         **{f"{k}_launches": ph["launches"][name]

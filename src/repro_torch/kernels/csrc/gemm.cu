@@ -6,26 +6,60 @@
 // Replaces the TPU kernel repro/kernels/gemm.py::_gemm_kernel.  There the
 // grid was (M/bm, N/bn, K/bk) run in order on one core, with an fp32 VMEM
 // scratch accumulator carried across the sequential k axis and the inputs
-// zero-padded to tile multiples.  Here a thread block owns one (BM, BN)
-// output tile and runs a K loop itself, in steps of BK, with the
-// accumulator in registers; loads are masked at the M/N/K tails instead of
-// padding, and the store is masked instead of slicing the padded result.
+// zero-padded to tile multiples; each step was one jnp.dot of bf16 (or
+// fp32) tiles on the MXU with preferred_element_type=float32.  Here a
+// thread block owns one (BM, BN) output tile and runs a K loop itself, in
+// steps of BK, with the accumulator in registers; loads are masked at the
+// M/N/K tails instead of padding, and the store is masked instead of
+// slicing the padded result.  Two kernels, one per operand dtype.
 //
-// What bounds it on an H100: the ResNet-18 im2col products at batch 8 do
-// 2*M*N*K = 0.9 to 1.9 GFLOP each against 12 to 85 MB of fp32 operands,
-// i.e. 22 to 106 FLOP per byte, above the 20 FLOP/byte ridge of the fp32
-// pipes (67 TFLOP/s, no TF32: the reference holds fp32 to rtol 1e-5) over
-// 3.35 TB/s of device memory, so the bound is the arithmetic, and the
-// kernel has to keep 132 SMs' FMA pipes busy.  The fp32 kernel
-// (gemm_f32_kernel, the main path) does three things for that:
+// Split-K, shared by both.  The ARCO-tuned tile still sets the output
+// tile, but where the tiles are fewer than the SMs (ResNet-18's deep
+// layers get 16-49 tiles at batch 8) the wrapper
+// (repro_torch/kernels/gemm.py::legalize) cuts K into split_k contiguous
+// slices of whole BK steps, about two blocks an SM in all.  Each slice's
+// block writes its fp32 partial tile to a workspace (split_k, M, N);
+// splitk_sum_kernel then adds the slices in slice order and rounds each
+// sum once to C's type.  No atomics: the result is deterministic.
 //
-// - Split-K.  The ARCO-tuned tile still sets the output tile, but where
-//   the tiles are fewer than the SMs (the deep layers get 26-52 tiles) the
-//   wrapper (repro_torch/kernels/gemm.py::legalize) cuts K into split_k
-//   contiguous slices of whole BK steps, about two blocks an SM in all.
-//   Each slice's block writes its partial tile to an fp32 workspace
-//   (split_k, M, N); splitk_sum_kernel then adds the slices in slice
-//   order and writes C.  No atomics: the result is deterministic.
+// bf16 (gemm_bf16_kernel): what the TPU kernel computes, bf16 tiles into
+// an fp32 accumulator.  What bounds it on an H100: bytes.  The ResNet-18
+// im2col products at batch 8 do 45-212 FLOP per byte of bf16 operands,
+// below the 295 FLOP/byte ridge of the bf16 tensor cores (989 TFLOP/s)
+// over 3.35 TB/s, so the kernel has to keep the memory system busy: many
+// bytes in flight and every SM working.  Its design:
+//
+// - Tensor cores: mma.sync.m16n8k16 bf16 -> fp32.  A block of 2 to 8
+//   warps (Warps<BM, BN>) tiles its output into warp tiles of 16 or 32
+//   rows by 16, 32 or 64 columns; a warp's A fragments come through
+//   ldmatrix and B's (row-major K x N, the .col operand) through
+//   ldmatrix.trans, as flash_mma_kernel reads Q and V.
+// - bf16 kept in shared memory: a tile row is padded by 8 bf16 (16
+//   bytes), so the 8 rows an ldmatrix reads fall in 8 different 16-byte
+//   bank groups: no conflicts.  Half the bytes of fp32 tiles.
+// - A 3-stage cp.async ring (kStages): both operands by 16-byte
+//   cp.async.cg (8 bf16, zero-filled past the tails) with commit_group /
+//   wait_group, two steps in flight while one computes, one barrier a
+//   step.  The 16-byte copies need K % 8 == 0 and N % 8 == 0 (rows on
+//   16-byte boundaries) and 16-byte aligned bases; otherwise (conv1's K
+//   147) the wrapper picks the scalar template (VEC false): each thread
+//   loads its single A values of step t + 2, masked, into registers
+//   before step t computes (all of them in flight at once) and stores
+//   them into the ring after it; B's single values go straight into the
+//   ring (conv1's B is 147 x 64, read by every block from L2).
+// - Split-K as above; a block's tile goes to C directly (fp32 or bf16,
+//   two adjacent columns a store where VEC) when K is not cut.
+//
+// It is mma.sync and not wgmma/TMA: wgmma takes 64-row tiles, and ARCO's
+// 16- and 32-row templates do not give them; at these intensities the
+// bytes, not the tensor cores, set the bound.
+//
+// fp32 (gemm_f32_kernel): bounded by the arithmetic.  The same products do
+// 22 to 106 FLOP per byte of fp32 operands, above the 20 FLOP/byte ridge
+// of the fp32 pipes (67 TFLOP/s, no TF32: the reference holds fp32 to rtol
+// 1e-5) over 3.35 TB/s, so the kernel has to keep 132 SMs' FMA pipes busy.
+// Beside split-K it has:
+//
 // - A contiguous register microtile.  Each thread owns TM x TN outputs
 //   (8 x 8 at 128 x 128, 256 threads) as float4 groups of 4 rows and 4
 //   columns, the two groups of a dimension half a tile apart, so a k step
@@ -41,134 +75,32 @@
 //   registers; the wrapper picks VEC when both row strides and the base
 //   pointers allow it, and conv1 (K = 147) takes the scalar one.
 //
-// It issues plain FFMA, not wgmma/TMA: fp32 must stay IEEE fp32.
-//
-// bf16 operands are not on the main path and keep the first port's loop
-// (gemm_loop_kernel): 256 threads, a (BM/16) x (BN/16) block of
-// accumulators a thread at a stride of 16, scalar loads converted to fp32
-// into static shared memory, no pipelining and no split.
-//
-// The output type is a template parameter of the two kernels that write C:
-// gemm_loop_kernel (bf16 operands, fp32 or bf16 C) and splitk_sum_kernel.
-// gemm_f32_kernel always writes fp32; for a bf16 C from fp32 operands its
-// tiles go to the fp32 workspace even when K is not cut, and the sum
-// kernel rounds each sum once to bf16.
+// It issues plain FFMA, not wgmma/TMA: fp32 must stay IEEE fp32.  It
+// always writes fp32; for a bf16 C from fp32 operands its tiles go to the
+// fp32 workspace even when K is not cut, and the sum kernel rounds each
+// sum once to bf16.
 //
 // Tile templates (the "run geometry"): BM in {16, 32, 64, 128}, BN in
-// {32, 64, 128}, BK in {16, 32}.  fp32, for each VEC: (BM / TM) * (BN /
-// TN) threads with TM = 8 at BM 128 (else 4) and TN = 8 at BN 128 (else
-// 4), 32 to 256;
-// dynamic shared memory 2 * BK * ((BM + 4) + BN) * 4 bytes, at most
-// 66,560 (the opt-in above 48 KB is made once per template).  bf16: 256
-// threads, ((BM + 1) + BN) * BK * 4 bytes of static shared memory.  The
-// wrapper maps a requested GemmConfig onto these templates: per
-// dimension, the largest template not above min(requested block, problem
-// size), else the smallest template.
+// {32, 64, 128}.  fp32: BK in {16, 32}, for each VEC (BM / TM) * (BN / TN)
+// threads with TM = 8 at BM 128 (else 4) and TN = 8 at BN 128 (else 4),
+// 32 to 256; dynamic shared memory 2 * BK * ((BM + 4) + BN) * 4 bytes, at
+// most 66,560.  bf16: BK in {32, 64} (64 or 128 bytes a row), for each
+// VEC 64 to 256 threads; dynamic shared memory kStages * (BM * (BK + 8) +
+// BK * (BN + 8)) * 2 bytes, at most 107,520 (128 x 128 x 64).  A launch
+// above 48 KB opts in once per template.  The wrapper maps a requested
+// GemmConfig onto these templates: per dimension, the largest template
+// not above min(requested block, problem size), else the smallest
+// template.  It alone decides which templates run: bf16's BK is taken
+// among those whose ring fits two blocks an SM at its BM x BN (so never
+// 128 x 128 x 64), and the wrapper's RunGeometry.smem_bytes repeats
+// bf16_smem_bytes and f32_smem_bytes below.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// ------------------------------------------------------ bf16: the loop
-
-constexpr int kLoopThreads = 256;  // a 16 x 16 thread grid over the tile
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
-
-template <typename T, typename O, int BM, int BN, int BK>
-__global__ void __launch_bounds__(kLoopThreads)
-gemm_loop_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                 O* __restrict__ C, int M, int N, int K) {
-  constexpr int TM = BM / 16;  // rows per thread, strided by 16
-  constexpr int TN = BN / 16;  // columns per thread, strided by 16
-  // A is stored transposed (k-major) so the inner loop reads a column of
-  // the tile; the +1 keeps the transposing store free of bank conflicts.
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // consecutive threads read consecutive k of one A row (coalesced)
-    for (int e = tid; e < BM * BK; e += kLoopThreads) {
-      const int r = e / BK, c = e % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[c][r] = (gr < M && gc < K)
-                     ? to_float(A[(int64_t)gr * K + gc]) : 0.f;
-    }
-    // consecutive threads read consecutive n of one B row (coalesced)
-    for (int e = tid; e < BK * BN; e += kLoopThreads) {
-      const int r = e / BN, c = e % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      Bs[r][c] = (gr < K && gc < N)
-                     ? to_float(B[(int64_t)gr * N + gc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c < N) C[(int64_t)r * N + c] = from_float<O>(acc[i][j]);
-    }
-  }
-}
-
-
-// ------------------------------------------------- fp32: the main path
-
-template <int BM, int BN>
-struct Micro {
-  static constexpr int TM = BM >= 128 ? 8 : 4;  // rows a thread owns
-  static constexpr int TN = BN >= 128 ? 8 : 4;  // columns a thread owns
-  static constexpr int TX = BN / TN;            // threads across the tile
-  static constexpr int THREADS = (BM / TM) * TX;
-};
-
-template <int BM, int BN, int BK>
-constexpr int f32_smem_bytes() {  // two stages of As [BK][BM+4], Bs [BK][BN]
-  return 2 * BK * ((BM + 4) + BN) * 4;
-}
+typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -192,8 +124,263 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------- bf16: tensor cores
+
+constexpr int kStages = 3;  // the cp.async ring: two steps in flight
+
+// the warp grid over a (BM, BN) tile: warp tiles of WM (16 or 32) rows by
+// WN (16, 32 or 64) columns; 4 warps, 8 at BM 128, 2 at 16 x 32
+template <int BM, int BN>
+struct Warps {
+  static constexpr int M = BM == 16 ? 1 : (BM == 128 ? 4 : 2);
+  static constexpr int N = BM == 16 ? (BN >= 64 ? 4 : 2) : 2;
+  static constexpr int WM = BM / M;
+  static constexpr int WN = BN / N;
+  static constexpr int THREADS = 32 * M * N;
+};
+
+template <int BM, int BN, int BK>
+constexpr int bf16_smem_bytes() {  // the ring of A [BM][BK+8], B [BK][BN+8]
+  return kStages * (BM * (BK + 8) + BK * (BN + 8)) * 2;
+}
+
+// One (BM, BN) tile of C, or of slice blockIdx.z's fp32 partial in the
+// workspace, over K range [z * k_slice, min(K, (z + 1) * k_slice)).  C is
+// bf16 when out_bf16, else fp32 (always fp32 for the workspace).
+template <int BM, int BN, int BK, bool VEC>
+__global__ void __launch_bounds__(Warps<BM, BN>::THREADS)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                 void* __restrict__ C, int M, int N, int K, int k_slice,
+                 int out_bf16) {
+  using W = Warps<BM, BN>;
+  constexpr int NT = W::THREADS;
+  constexpr int LDA = BK + 8, LDB = BN + 8;  // padded rows (16 bytes)
+  constexpr int MI = W::WM / 16;             // m16 tiles of a warp
+  constexpr int NI = W::WN / 8;              // n8 tiles of a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [kStages][BM][LDA]
+  bf16* Bs = As + kStages * BM * LDA;            // [kStages][BK][LDB]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / W::N, wn = warp % W::N;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * k_slice;
+  const int ke = min(K, kb + k_slice);
+  const int n_steps = (ke - kb + BK - 1) / BK;
+
+  // step t's tiles into ring slot `slot`, zeros past M, N and the slice:
+  // VEC both by cp.async; else B by single values (A: fetch and put)
+  auto load = [&](int t, int slot) {
+    const int k0 = kb + t * BK;
+    bf16* as = As + slot * BM * LDA;
+    bf16* bs = Bs + slot * BK * LDB;
+    if constexpr (VEC) {  // 16-byte chunks: whole chunks in or out
+      constexpr int ACH = BM * BK / 8, BCH = BK * BN / 8;
+#pragma unroll
+      for (int i = 0; i < (ACH + NT - 1) / NT; ++i) {
+        const int e = tid + i * NT;
+        if (ACH % NT == 0 || e < ACH) {
+          const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
+          const bool in = row0 + r < M && k0 + c < ke;
+          cp_async_16(smem_addr(as + r * LDA + c),
+                      in ? A + (int64_t)(row0 + r) * K + k0 + c : A, in);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < (BCH + NT - 1) / NT; ++i) {
+        const int e = tid + i * NT;
+        if (BCH % NT == 0 || e < BCH) {
+          const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
+          const bool in = k0 + r < ke && col0 + c < N;
+          cp_async_16(smem_addr(bs + r * LDB + c),
+                      in ? B + (int64_t)(k0 + r) * N + col0 + c : B, in);
+        }
+      }
+    } else {  // consecutive threads along a row
+#pragma unroll 4
+      for (int e = tid; e < BK * BN; e += NT) {
+        const int r = e / BN, c = e % BN;
+        bs[r * LDB + c] = (k0 + r < ke && col0 + c < N)
+                              ? B[(int64_t)(k0 + r) * N + col0 + c]
+                              : __float2bfloat16(0.f);
+      }
+    }
+  };
+  // !VEC: A (conv1's 147-value rows) by single values, consecutive
+  // threads along a row, staged in registers (fetch) while a step
+  // computes and stored after it (put): all of a step's A loads in flight
+  // at once
+  constexpr int AE = (BM * BK + NT - 1) / NT;
+  bf16 ra[AE];  // unused (and dropped) where VEC
+  auto fetch = [&](int t) {
+    const int k0 = kb + t * BK;
+#pragma unroll
+    for (int i = 0; i < AE; ++i) {
+      const int e = tid + i * NT, r = e / BK, c = e % BK;
+      ra[i] = (e < BM * BK && row0 + r < M && k0 + c < ke)
+                  ? A[(int64_t)(row0 + r) * K + k0 + c]
+                  : __float2bfloat16(0.f);
+    }
+  };
+  auto put = [&](int slot) {
+    bf16* as = As + slot * BM * LDA;
+#pragma unroll
+    for (int i = 0; i < AE; ++i) {
+      const int e = tid + i * NT;
+      if ((BM * BK) % NT == 0 || e < BM * BK)
+        as[(e / BK) * LDA + e % BK] = ra[i];
+    }
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {  // the ring's first steps
+    if (s < n_steps) {
+      load(s, s);
+      if constexpr (!VEC) {
+        fetch(s);
+        put(s);
+      }
+    }
+    cp_async_commit();  // possibly empty: one group a step
+  }
+  for (int t = 0; t < n_steps; ++t) {
+    cp_async_wait<kStages - 2>();  // step t has landed
+    // ... and every warp is done with step t - 1, whose slot refills now
+    __syncthreads();
+    const int next = t + kStages - 1;
+    if (next < n_steps) {
+      load(next, next % kStages);
+      if constexpr (!VEC) fetch(next);
+    }
+    cp_async_commit();
+    const bf16* as = As + (t % kStages) * BM * LDA + wm * W::WM * LDA;
+    const bf16* bs = Bs + (t % kStages) * BK * LDB + wn * W::WN;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // A: lanes 0-15 address rows 0-15 at k 0-7, lanes 16-31 at k 8-15
+      uint32_t af[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldmatrix_x4(af[i], smem_addr(as + (i * 16 + (lane & 15)) * LDA +
+                                     kk * 16 + (lane >> 4) * 8));
+      // B: lanes 0-15 address k rows 0-15 of n-tile j, lanes 16-31 those
+      // of n-tile j + 1; .trans makes each the .col operand
+      uint32_t bfr[NI][2];
+#pragma unroll
+      for (int j = 0; j < NI; j += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, smem_addr(bs + (kk * 16 + (lane & 15)) * LDB +
+                                       j * 8 + (lane >> 4) * 8));
+        bfr[j][0] = r[0];
+        bfr[j][1] = r[1];
+        bfr[j + 1][0] = r[2];
+        bfr[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+    if constexpr (!VEC) {
+      if (next < n_steps) put(next % kStages);
+    }
+  }
+  cp_async_wait<0>();
+
+  // fragment (i, j): rows r and r + 8 (e = 0, 1 and e = 2, 3), columns
+  // c and c + 1, with r = g + 16 i and c = 2 t4 + 8 j in the warp tile
+  const int g = lane / 4, t4 = lane % 4;
+  const int64_t base = (int64_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm * W::WM + i * 16 + g + h * 8;
+      if (r >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int c = col0 + wn * W::WN + j * 8 + 2 * t4;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        const int64_t off = base + (int64_t)r * N + c;
+        if (out_bf16) {
+          bf16* dst = static_cast<bf16*>(C) + off;
+          if (VEC) {  // N % 8 == 0: c and c + 1 are in or out together
+            if (c < N)
+              *reinterpret_cast<__nv_bfloat162*>(dst) =
+                  __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (c < N) dst[0] = __float2bfloat16(v0);
+            if (c + 1 < N) dst[1] = __float2bfloat16(v1);
+          }
+        } else {
+          float* dst = static_cast<float*>(C) + off;
+          if (VEC) {
+            if (c < N) *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            if (c < N) dst[0] = v0;
+            if (c + 1 < N) dst[1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+
+// ------------------------------------------------- fp32: the main path
+
+template <int BM, int BN>
+struct Micro {
+  static constexpr int TM = BM >= 128 ? 8 : 4;  // rows a thread owns
+  static constexpr int TN = BN >= 128 ? 8 : 4;  // columns a thread owns
+  static constexpr int TX = BN / TN;            // threads across the tile
+  static constexpr int THREADS = (BM / TM) * TX;
+};
+
+template <int BM, int BN, int BK>
+constexpr int f32_smem_bytes() {  // two stages of As [BK][BM+4], Bs [BK][BN]
+  return 2 * BK * ((BM + 4) + BN) * 4;
 }
 
 // One (BM, BN) tile of C, or of slice blockIdx.z's partial in the
@@ -409,7 +596,7 @@ struct Args {
   const void* a;
   const void* b;
   void* c;
-  float* ws;  // (split, M, N) fp32 partials when split > 1 or out_bf16
+  float* ws;  // (split, M, N) fp32 partials: split > 1, or fp32 -> bf16
   int m, n, k, split, k_slice, vec;
   bool out_bf16;  // C in bf16 (else fp32)
   cudaStream_t stream;
@@ -468,29 +655,46 @@ int launch_f32(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename O, int BM, int BN, int BK>
-void launch_loop_to(const Args& a) {
-  typedef __nv_bfloat16 T;
-  dim3 grid((a.n + BN - 1) / BN, (a.m + BM - 1) / BM);
-  gemm_loop_kernel<T, O, BM, BN, BK><<<grid, kLoopThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.a), static_cast<const T*>(a.b),
-      static_cast<O*>(a.c), a.m, a.n, a.k);
-}
-
-template <int BM, int BN, int BK>
-int launch_loop(const Args& a) {
-  if (a.out_bf16)
-    launch_loop_to<__nv_bfloat16, BM, BN, BK>(a);
-  else
-    launch_loop_to<float, BM, BN, BK>(a);
+template <int BM, int BN, int BK, bool VEC>
+int launch_bf16_tiles(const Args& a) {
+  constexpr int smem = bf16_smem_bytes<BM, BN, BK>();
+  auto kernel = gemm_bf16_kernel<BM, BN, BK, VEC>;
+  static const int opt_in = smem_opt_in(kernel, smem);
+  if (opt_in) return opt_in;
+  dim3 grid((a.n + BN - 1) / BN, (a.m + BM - 1) / BM, a.split);
+  const bool to_ws = a.split > 1;
+  kernel<<<grid, Warps<BM, BN>::THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.a), static_cast<const bf16*>(a.b),
+      to_ws ? static_cast<void*>(a.ws) : a.c, a.m, a.n, a.k, a.k_slice,
+      !to_ws && a.out_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BM, int BN, int BK>
+int launch_bf16(const Args& a) {
+  const int err = a.vec ? launch_bf16_tiles<BM, BN, BK, true>(a)
+                        : launch_bf16_tiles<BM, BN, BK, false>(a);
+  if (err != 0 || a.split == 1) return err;
+  if (a.out_bf16)
+    launch_sum<__nv_bfloat16, bf16x4>(a);
+  else
+    launch_sum<float, float4>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// BK: fp32 16 or 32, bf16 32 or 64
 template <bool F32, int BM, int BN>
 int dispatch_bk(int bk, const Args& a) {
-  switch (bk) {
-    case 16: return F32 ? launch_f32<BM, BN, 16>(a) : launch_loop<BM, BN, 16>(a);
-    case 32: return F32 ? launch_f32<BM, BN, 32>(a) : launch_loop<BM, BN, 32>(a);
+  if constexpr (F32) {
+    switch (bk) {
+      case 16: return launch_f32<BM, BN, 16>(a);
+      case 32: return launch_f32<BM, BN, 32>(a);
+    }
+  } else {
+    switch (bk) {
+      case 32: return launch_bf16<BM, BN, 32>(a);
+      case 64: return launch_bf16<BM, BN, 64>(a);
+    }
   }
   return -1;
 }
@@ -519,11 +723,10 @@ int dispatch(int bm, int bn, int bk, const Args& a) {
 }  // namespace
 
 // dtype (the operands') and out_dtype (C's): 0 = float32, 1 = bfloat16.
-// fp32 operands: split-K and vec as given; each slice but the last covers
-// k_slice, a multiple of bk; ws holds split * M * N floats when split > 1
-// or C is bf16.  bf16 operands: the loop, split must be 1.  Returns
-// cudaGetLastError() after the launches (0 on success), or -1 when the
-// arguments name no template.
+// Split-K and vec as given; each slice but the last covers k_slice, a
+// multiple of bk; ws holds split * M * N floats when split > 1, or when
+// fp32 operands write a bf16 C.  Returns cudaGetLastError() after the
+// launches (0 on success), or -1 when the arguments name no template.
 extern "C" int repro_gemm(const void* a, const void* b, void* c, void* ws,
                           int m, int n, int k, int dtype, int out_dtype,
                           int bm, int bn, int bk, int split, int k_slice,
@@ -531,11 +734,12 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c, void* ws,
   if (split < 1 || k_slice < 1 || k_slice % bk != 0 ||
       (int64_t)k_slice * (split - 1) >= k || (out_dtype != 0 && out_dtype != 1))
     return -1;
-  if (dtype == 0 && (split > 1 || out_dtype == 1) && ws == nullptr) return -1;
+  if ((split > 1 || (dtype == 0 && out_dtype == 1)) && ws == nullptr)
+    return -1;
   const Args args{a, b, c, static_cast<float*>(ws), m, n, k, split,
                   k_slice, vec, out_dtype == 1,
                   static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch<true>(bm, bn, bk, args);
-  if (dtype == 1 && split == 1) return dispatch<false>(bm, bn, bk, args);
+  if (dtype == 1) return dispatch<false>(bm, bn, bk, args);
   return -1;
 }

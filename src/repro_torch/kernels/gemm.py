@@ -1,4 +1,15 @@
-"""Tunable tiled GEMM: the Hopper kernel, its legalizer and its plain version.
+"""Tunable tiled GEMM: the Hopper kernels, their legalizer and their plain
+version.
+
+The Hopper counterpart of ``repro/kernels/gemm.py::_gemm_kernel`` (bf16
+or fp32 tiles into an fp32 accumulator, cast once to ``out_dtype``), as
+two CUDA kernels in ``csrc/gemm.cu``: bf16 operands run on the tensor
+cores (``mma.sync`` bf16 -> fp32, tiles kept in bf16 in shared memory
+behind a 3-stage ``cp.async`` ring); on an H100 they are bound by bytes
+(45-212 FLOP a byte at ResNet-18's shapes, under the 295 ridge), so the
+design keeps bytes in flight and every SM busy.  fp32 operands run on the
+FMA pipes (IEEE fp32, as the reference's rtol 1e-5 asks), bound by the
+arithmetic.
 
 The ARCO hardware agent's knobs set the requested geometry exactly as in
 the reference (``gemm_config_from_knobs`` is identical): tile_m from
@@ -8,7 +19,7 @@ block_k up to 4,608), so the wrapper maps each requested ``GemmConfig``
 onto one of the tile templates compiled into ``csrc/gemm.cu`` (the *run
 geometry*, see :func:`legalize`) and records both on
 ``gemm.last_geometry``.  Where the output tiles are fewer than the card's
-SMs, the run geometry also cuts K into ``split_k`` slices (fp32), whose
+SMs, the run geometry also cuts K into ``split_k`` slices, whose fp32
 partial tiles a second kernel sums in slice order.  ``parallel_m``/
 ``parallel_n`` (the TPU grid dimension semantics) are kept and recorded;
 on a GPU every block runs in parallel, so they change nothing.
@@ -38,7 +49,9 @@ from repro_torch.kernels import ref  # noqa: F401  (sets IEEE fp32 matmuls)
 # Tile templates compiled into csrc/gemm.cu.
 BM_TEMPLATES = (16, 32, 64, 128)
 BN_TEMPLATES = (32, 64, 128)
-BK_TEMPLATES = (16, 32)
+BK_TEMPLATES = (16, 32)        # fp32
+BF16_BK_TEMPLATES = (32, 64)   # bf16: 64 or 128 bytes a tile row
+BF16_STAGES = 3                # the bf16 kernel's cp.async ring
 SMEM_BUDGET = 100 * 1024  # shared memory of a block: two blocks an SM
 SM_COUNT = 132            # SMs of an H100 SXM, the card the kernel targets
 BLOCKS_PER_SM = 2         # split-K aims at this many blocks an SM
@@ -73,10 +86,11 @@ class RunGeometry:
     def smem_bytes(self) -> int:
         """Shared memory of the template (see csrc/gemm.cu).  fp32: two
         stages of the k-major A tile, rows padded by 4, and the B tile.
-        bf16 (the first port's loop): both tiles once, in fp32, the A tile
-        padded by one column."""
+        bf16: BF16_STAGES stages of the A tile (bm, bk) and the B tile
+        (bk, bn) in bf16, every row padded by 8 values (16 bytes)."""
         if self.dtype == "bfloat16":
-            return ((self.bm + 1) + self.bn) * self.bk * 4
+            return BF16_STAGES * (self.bm * (self.bk + 8)
+                                  + self.bk * (self.bn + 8)) * 2
         return 2 * ((self.bm + 4) + self.bn) * self.bk * 4
 
     def slice_width(self, k: int) -> int:
@@ -114,6 +128,18 @@ def _pick(templates: Tuple[int, ...], requested: int, dim: int) -> int:
     return max(fits) if fits else templates[0]
 
 
+def bk_templates(dtype: torch.dtype, bm: int, bn: int) -> Tuple[int, ...]:
+    """The BK templates a (bm, bn) tile may run: fp32's BK_TEMPLATES;
+    bf16's BF16_BK_TEMPLATES whose ring fits SMEM_BUDGET (all but 64 at
+    128 x 128).  This is the one place that decides: ``csrc/gemm.cu``
+    compiles every BF16_BK_TEMPLATES entry."""
+    if dtype != torch.bfloat16:
+        return BK_TEMPLATES
+    return tuple(bk for bk in BF16_BK_TEMPLATES
+                 if RunGeometry(bm, bn, bk, dtype="bfloat16").smem_bytes
+                 <= SMEM_BUDGET)
+
+
 def split_k_for(tiles: int, steps: int) -> int:
     """K slices for ``tiles`` output tiles of ``steps`` bk steps each: 1
     when the tiles fill the SMs; else about BLOCKS_PER_SM blocks an SM,
@@ -133,22 +159,21 @@ def legalize(config: GemmConfig, m: int, n: int, k: int,
     block to its dimension (``min(block, dim)``), each run tile is the
     largest template not above ``min(requested block, dim)``; where no
     template is that small, the smallest template runs and the kernel
-    masks the tail.  fp32 then cuts K by :func:`split_k_for` and copies 16
-    bytes at a time where both row strides allow it (``K % 4 == 0`` and
-    ``N % 4 == 0``); bf16 runs the first port's loop, uncut, by single
-    elements."""
+    masks the tail.  BK comes from :func:`bk_templates` of the dtype and
+    the run tile.  K is then cut by :func:`split_k_for`, and the copies
+    move 16 bytes at a time where both row strides allow it: fp32 ``K % 4
+    == 0`` and ``N % 4 == 0``, bf16 ``K % 8 == 0`` and ``N % 8 == 0``."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"gemm takes float32 or bfloat16, got {dtype}")
-    geom = RunGeometry(bm=_pick(BM_TEMPLATES, config.block_m, m),
-                       bn=_pick(BN_TEMPLATES, config.block_n, n),
-                       bk=_pick(BK_TEMPLATES, config.block_k, k),
+    bm = _pick(BM_TEMPLATES, config.block_m, m)
+    bn = _pick(BN_TEMPLATES, config.block_n, n)
+    bk = _pick(bk_templates(dtype, bm, bn), config.block_k, k)
+    chunk = 16 // dtype.itemsize   # values in a 16-byte copy
+    tiles = -(-m // bm) * -(-n // bn)
+    return RunGeometry(bm=bm, bn=bn, bk=bk,
+                       split_k=split_k_for(tiles, -(-k // bk)),
+                       vec=k % chunk == 0 and n % chunk == 0,
                        dtype=str(dtype).removeprefix("torch."))
-    if dtype == torch.bfloat16:
-        return geom
-    tiles = -(-m // geom.bm) * -(-n // geom.bn)
-    return dataclasses.replace(
-        geom, split_k=split_k_for(tiles, -(-k // geom.bk)),
-        vec=k % 4 == 0 and n % 4 == 0)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -226,9 +251,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
     if not on_kernel:
         return gemm_plain(a, b, geom, out_dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    # fp32 tiles go to the workspace where the summing kernel writes C
-    use_ws = a.dtype == torch.float32 and (geom.split_k > 1
-                                           or out_dtype != a.dtype)
+    # the slices' fp32 partials, or fp32 tiles whose C the sum writes bf16
+    use_ws = geom.split_k > 1 or (a.dtype == torch.float32
+                                  and out_dtype != a.dtype)
     ws = (torch.empty((geom.split_k, m, n), dtype=torch.float32,
                       device=a.device) if use_ws else None)
     with torch.cuda.device(a.device):

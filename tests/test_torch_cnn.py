@@ -44,10 +44,7 @@ def test_apply_with_knob_configs_matches_reference():
     tree = _jax_params(model, seed=1)
     specs = TC.conv_specs(model)
     rng = np.random.default_rng(2)
-    knobs = [(int(2 ** rng.integers(0, 6)), int(2 ** rng.integers(0, 9)),
-              int(2 ** rng.integers(0, 6)) * s.kh * s.kw,
-              int(rng.choice([1, 2, 4])), int(rng.choice([1, 2, 4])))
-             for s in specs]
+    knobs = _knob_configs(specs, rng)
     j_cfgs = [j_knobs(*k) for k in knobs]
     t_cfgs = [TG.gemm_config_from_knobs(*k) for k in knobs]
     x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
@@ -57,6 +54,51 @@ def test_apply_with_knob_configs_matches_reference():
     got = net(torch.from_numpy(x), t_cfgs).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-4 * float(np.abs(want).max()))
+
+
+def _knob_configs(specs, rng):
+    """Random ARCO knob settings for each conv layer, as the tuner draws
+    them: (tile_m, tile_n, tile_k, h_threading, oc_threading)."""
+    return [(int(2 ** rng.integers(0, 6)), int(2 ** rng.integers(0, 9)),
+             int(2 ** rng.integers(0, 6)) * s.kh * s.kw,
+             int(rng.choice([1, 2, 4])), int(rng.choice([1, 2, 4])))
+            for s in specs]
+
+
+@pytest.mark.parametrize("knobs", [False, True], ids=["default", "knobs"])
+def test_apply_bf16_matches_reference(knobs):
+    """ResNet-18 deployed in bf16: the reference's ``apply`` on a bf16 tree
+    and bf16 input (``use_pallas=False``: XLA's bf16 convolutions) against
+    the port's net cast to bf16, every conv through the GEMM's bf16 path
+    (on the CPU its plain version: bf16 operands, an fp32 sum over the run
+    geometry's K steps and slices, one rounding), with the default and
+    with random knob-derived geometries (other BK and split-K cuts).  Both
+    round every layer's output to bf16, so the two sums' orders flip a
+    rounding now and then and the flips compound over 17 convs: 2e-2 of
+    max |logit| (measured 5.0e-3 with either geometry; the reference's own
+    bf16 forward lies 5.5e-3 from its fp32 one)."""
+    model = "resnet-18"
+    tree = _jax_params(model, seed=3)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    want = JC.apply(jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                                 tree),
+                    jnp.asarray(x, jnp.bfloat16), model, use_pallas=False)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    net = TC.params_from_jax(tree, model, device="cpu").to(torch.bfloat16)
+    configs = ([TG.gemm_config_from_knobs(*k)
+                for k in _knob_configs(TC.conv_specs(model), rng)]
+               if knobs else None)
+    launches = TG.gemm.launches
+    got = net(torch.from_numpy(x).to(torch.bfloat16), configs)
+    assert TG.gemm.launches == launches  # CPU tensors: plain version
+    assert TG.gemm.last_geometry["run"]["dtype"] == "bfloat16"
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 1000)
+    got = got.float().detach().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-2 * float(np.abs(want).max()))
 
 
 def test_params_from_jax_and_init_params():

@@ -20,8 +20,6 @@ GEMM_SHAPES = [(8, 8, 8), (100, 70, 90), (128, 128, 128), (1, 256, 33),
                (257, 129, 65)]
 GEMM_CONFIGS = [(32, 32, 32, True, True), (128, 128, 128, True, True),
                 (16, 64, 128, False, True), (8, 128, 256, True, False)]
-# a block's static shared memory (the bf16 loop's tiles) is capped at 48 KB
-STATIC_SMEM_LIMIT = 48 * 1024
 
 
 def _operands(m, k, n, seed, dtype=np.float32):
@@ -98,16 +96,22 @@ def test_gemm_config_from_knobs_identical():
 
 def test_legalizer_covers_resnet18_knob_configs_within_smem():
     """Every knob-derived config of the 8 ResNet-18 tasks at batch 8 maps
-    onto a compiled template, no tile above what the problem needs, its K
-    slices cover K, every fp32 template (dynamic shared memory) fits the
-    budget of two blocks an SM and every bf16 template (static shared
-    memory) fits the 48 KB static limit."""
+    onto a compiled template in both dtypes, no tile above what the
+    problem needs, its K slices cover K, and every template, fp32 and
+    bf16 (dynamic shared memory: bf16's three-stage ring), fits the budget
+    of two blocks an SM; bf16 leaves out only the 128 x 128 x 64 ring,
+    which would not."""
     for bm in TG.BM_TEMPLATES:
         for bn in TG.BN_TEMPLATES:
+            assert TG.bk_templates(torch.float32, bm, bn) == TG.BK_TEMPLATES
             for bk in TG.BK_TEMPLATES:
                 assert TG.RunGeometry(bm, bn, bk).smem_bytes <= TG.SMEM_BUDGET
-                assert (TG.RunGeometry(bm, bn, bk, dtype="bfloat16").smem_bytes
-                        <= STATIC_SMEM_LIMIT)
+            kept = TG.bk_templates(torch.bfloat16, bm, bn)
+            assert kept == ((32,) if (bm, bn) == (128, 128) else (32, 64))
+            for bk in TG.BF16_BK_TEMPLATES:
+                fits = (TG.RunGeometry(bm, bn, bk, dtype="bfloat16").smem_bytes
+                        <= TG.SMEM_BUDGET)
+                assert fits is (bk in kept)
     seen = set()
     for task in jax_conv_tasks("resnet-18", batch=8):
         sp, wl = task.space, task.space.workload
@@ -121,16 +125,20 @@ def test_legalizer_covers_resnet18_knob_configs_within_smem():
                             cfg = TG.gemm_config_from_knobs(
                                 tb * th * tw, co, ci * wl["kh"] * wl["kw"],
                                 2, 2)
-                            g = TG.legalize(cfg, m, n, k)
-                            assert g.bm in TG.BM_TEMPLATES
-                            assert g.bn in TG.BN_TEMPLATES
-                            assert g.bk in TG.BK_TEMPLATES
-                            assert g.bm <= max(16, min(cfg.block_m, m))
-                            assert g.bn <= max(32, min(cfg.block_n, n))
-                            assert len(g.k_slices(k)) == g.split_k
-                            seen.add((g.bm, g.bn, g.bk))
+                            for dt in (torch.float32, torch.bfloat16):
+                                g = TG.legalize(cfg, m, n, k, dt)
+                                assert g.bm in TG.BM_TEMPLATES
+                                assert g.bn in TG.BN_TEMPLATES
+                                assert g.bk in TG.bk_templates(dt, g.bm,
+                                                               g.bn)
+                                assert g.smem_bytes <= TG.SMEM_BUDGET
+                                assert g.bm <= max(16, min(cfg.block_m, m))
+                                assert g.bn <= max(32, min(cfg.block_n, n))
+                                assert len(g.k_slices(k)) == g.split_k
+                                seen.add((g.bm, g.bn, g.bk, g.dtype))
     # tuning really moves the run geometry: all four M tiles occur
-    assert {g[0] for g in seen} == set(TG.BM_TEMPLATES)
+    assert {g[0] for g in seen if g[3] == "float32"} == set(TG.BM_TEMPLATES)
+    assert {g[0] for g in seen if g[3] == "bfloat16"} == set(TG.BM_TEMPLATES)
 
 
 def test_legalize_rule():
@@ -142,9 +150,18 @@ def test_legalize_rule():
     assert g == TG.RunGeometry(16, 32, 16, split_k=1, vec=False)
     g = TG.legalize(TG.GemmConfig(100, 96, 20), 1000, 1000, 1000)
     assert g == TG.RunGeometry(64, 64, 16, split_k=1, vec=True)
+    # bf16: its own BK (64 but at 128 x 128, whose ring takes 32), cut by
+    # the same split-K rule, 16-byte copies at K % 8 == N % 8 == 0
     g = TG.legalize(TG.GemmConfig(4096, 512, 4608), 392, 512, 4608,
-                    torch.bfloat16)   # the first port's loop: never cut
-    assert g == TG.RunGeometry(128, 128, 32, split_k=1, vec=False,
+                    torch.bfloat16)
+    assert g == TG.RunGeometry(128, 128, 32, split_k=16, vec=True,
+                               dtype="bfloat16")
+    g = TG.legalize(TG.GemmConfig(8, 128, 128), 100352, 64, 147,
+                    torch.bfloat16)
+    assert g == TG.RunGeometry(16, 64, 64, split_k=1, vec=False,
+                               dtype="bfloat16")
+    g = TG.legalize(TG.GemmConfig(48, 128, 128), 1, 33, 8, torch.bfloat16)
+    assert g == TG.RunGeometry(16, 32, 32, split_k=1, vec=False,
                                dtype="bfloat16")
 
 
@@ -202,10 +219,50 @@ def test_split_k_rule():
                                      (128, 33, False), (129, 32, False),
                                      (576, 64, True), (8, 8, True)])
 def test_copy_variant_follows_row_strides(k, n, vec):
-    """16-byte copies need K % 4 == 0 (A's rows) and N % 4 == 0 (B's);
-    conv1's K 147 and the reference's K 129 / N 33 take the scalar one."""
+    """16-byte copies need K % 4 == 0 (A's rows) and N % 4 == 0 (B's) in
+    fp32, K % 8 == 0 and N % 8 == 0 in bf16; conv1's K 147 and the
+    reference's K 129 / N 33 take the scalar one."""
     assert TG.legalize(TG.GemmConfig(), 300, n, k).vec is vec
-    assert TG.legalize(TG.GemmConfig(), 300, n, k, torch.bfloat16).vec is False
+    assert TG.legalize(TG.GemmConfig(), 300, n, k, torch.bfloat16).vec is (
+        vec and k % 8 == 0 and n % 8 == 0)
+
+
+@pytest.mark.parametrize("k,n,vec32,vec16", [
+    (36, 64, True, False), (576, 12, True, False), (1152, 256, True, True),
+    (20, 20, True, False)])
+def test_bf16_copy_variant_needs_8_values(k, n, vec32, vec16):
+    """A 16-byte copy holds 4 fp32 values but 8 bf16: rows whose stride is
+    a multiple of 4 values and not of 8 take 16 bytes in fp32 only."""
+    assert TG.legalize(TG.GemmConfig(), 300, n, k).vec is vec32
+    assert TG.legalize(TG.GemmConfig(), 300, n, k, torch.bfloat16).vec is vec16
+
+
+# ResNet-18 at batch 8 in bf16 under the default GemmConfig: (M, N, K) ->
+# (run tile, split_k, vec).  At 128 x 128 the ring takes BK 32 (64 would
+# pass the budget), elsewhere 64; conv1's K 147 takes the scalar copies.
+RESNET18_BF16 = {
+    (100352, 64, 147): ((128, 64, 64), 1, False),
+    (25088, 64, 576): ((128, 64, 64), 1, True),
+    (6272, 128, 576): ((128, 128, 32), 4, True),
+    (6272, 128, 1152): ((128, 128, 32), 5, True),
+    (1568, 256, 1152): ((128, 128, 32), 9, True),
+    (1568, 256, 2304): ((128, 128, 32), 9, True),
+    (392, 512, 2304): ((128, 128, 32), 15, True),
+    (392, 512, 4608): ((128, 128, 32), 16, True)}
+
+
+@pytest.mark.parametrize("mnk", list(RESNET18_BF16), ids=str)
+def test_bf16_split_k_for_resnet18(mnk):
+    """bf16 takes the fp32 split-K rule: the deep layers' 16-49 tiles are
+    cut to about two blocks an SM, whole BK steps a slice."""
+    m, n, k = mnk
+    g = TG.legalize(TG.GemmConfig(), m, n, k, torch.bfloat16)
+    tile, split, vec = RESNET18_BF16[mnk]
+    assert ((g.bm, g.bn, g.bk), g.split_k, g.vec) == (tile, split, vec)
+    tiles = -(-m // g.bm) * -(-n // g.bn)
+    assert g.split_k == TG.split_k_for(tiles, -(-k // g.bk))
+    assert len(g.k_slices(k)) == g.split_k
+    assert g.smem_bytes <= TG.SMEM_BUDGET
 
 
 @pytest.mark.parametrize("m,k,n,cfg", [
@@ -226,6 +283,31 @@ def test_plain_split_k_matches_pallas_gemm(m, k, n, cfg):
     assert TG.gemm.last_geometry["run"]["split_k"] == geom.split_k
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m,k,n,cfg", [
+    (64, 512, 64, (64, 64, 128, True, True)),     # 2 even slices
+    (100, 600, 70, (128, 128, 128, True, True)),  # 2 slices, the last short
+    (1, 512, 33, (16, 32, 32, True, True))])      # 4 slices of one row
+def test_plain_split_k_bf16_matches_pallas_gemm(m, k, n, cfg):
+    """bf16 split-K against the reference's Pallas kernel on the same bf16
+    operands: both sum exact bf16 products in fp32 and round once to bf16,
+    the slices only reassociate the sum, so one bf16 step apart at most
+    (rtol 2^-7, and atol 2^-7 of the largest output for the sum's own
+    rounding)."""
+    a, b = _operands(m, k, n, seed=m + 2 * k + n)
+    ja, jb = jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16)
+    geom = TG.legalize(TG.GemmConfig(*cfg), m, n, k, torch.bfloat16)
+    assert geom.split_k > 1
+    want = np.asarray(JG.gemm(ja, jb, JG.GemmConfig(*cfg), interpret=True)
+                      .astype(jnp.float32))
+    ta = torch.from_numpy(np.array(ja.astype(jnp.float32))).bfloat16()
+    tb = torch.from_numpy(np.array(jb.astype(jnp.float32))).bfloat16()
+    got = TG.gemm(ta, tb, TG.GemmConfig(*cfg))
+    assert got.dtype == torch.bfloat16
+    assert TG.gemm.last_geometry["run"]["split_k"] == geom.split_k
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=2 ** -7 * np.abs(want).max())
 
 
 def test_plain_version_walks_tails_and_records_geometry():

@@ -9,6 +9,8 @@ also runs on a GPU machine that has only the port's dependencies:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -75,6 +77,54 @@ def test_kernel_out_dtype_matches_plain_on_card(src, dst, tol):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max()
             assert float(err) <= tol * float(want.float().abs().max())
+
+
+# bf16 on the tensor-core kernel: the 8 ResNet-18 shapes at batch 8 under
+# GemmConfig() (split-K 4-16 on the deep ones; conv1's K 147, the scalar
+# copies), then split-K with a short last slice, K % 8 != 0 and N % 8 !=
+# 0 under split-K, and a tile of one row
+BF16_CASES = [((100352, 147, 64), (128, 128, 128)),
+              ((25088, 576, 64), (128, 128, 128)),
+              ((6272, 576, 128), (128, 128, 128)),
+              ((6272, 1152, 128), (128, 128, 128)),
+              ((1568, 1152, 256), (128, 128, 128)),
+              ((1568, 2304, 256), (128, 128, 128)),
+              ((392, 2304, 512), (128, 128, 128)),
+              ((392, 4608, 512), (128, 128, 128)),
+              ((100, 600, 70), (128, 128, 128)),
+              ((257, 1029, 40), (64, 32, 64)),
+              ((300, 2052, 36), (32, 64, 64)),
+              ((1, 512, 33), (16, 32, 32))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn,cfg", BF16_CASES, ids=str)
+def test_bf16_kernel_matches_plain_on_card(mkn, cfg):
+    """The bf16 kernel (mma.sync, a cp.async ring, split-K) against its
+    plain version on the same bf16 operands, bf16 and fp32 C: both sum
+    exact bf16 products in fp32 over the same slices and round once, so
+    1e-2 of max |plain| (the bf16 step, 2^-8, with room for the sums'
+    orders); one count a call, the summing kernel included."""
+    require_cuda()
+    m, k, n = mkn
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(k, n, generator=gen, device="cuda").bfloat16()
+    config = TG.GemmConfig(*cfg)
+    geom = TG.legalize(config, m, n, k, torch.bfloat16)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        launches = TG.gemm.launches
+        got = TG.gemm(a, b, config, out_dtype=out_dtype)
+        assert TG.gemm.launches == launches + 1
+        assert TG.gemm.last_geometry["run"] == dataclasses.asdict(geom)
+        want = TG.gemm(a, b, config, out_dtype=out_dtype, use_kernel=False)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert _rel_err(got, want) <= 1e-2
+    if mkn in ((392, 4608, 512), (100, 600, 70), (257, 1029, 40)):
+        assert geom.split_k > 1
+    if k % 8 or n % 8:
+        assert not geom.vec
 
 
 @pytest.mark.gpu
