@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-fp32 [--tree DIR]   # [time flash fp32] alone
 
 Drives the port's paths on ``cuda:0``: the paper's own loop at full
 ResNet-18 width, its baselines and its network co-optimization with the
@@ -23,8 +24,9 @@ training step, and the reference's examples as the port runs them.
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, all at once, and
    prints what ``ptxas -v`` says of the fp32 and bf16 GEMMs', the bf16
-   flash kernel's and the RMSNorm kernel's templates (registers, spills,
-   static shared memory), and which RMSNorm templates the LM path runs;
+   and fp32 flash kernels' (and the fp32 KV split's combine kernel) and
+   the RMSNorm kernel's templates (registers, spills, static shared
+   memory), and which RMSNorm templates the LM path runs;
 3. holds each kernel against its plain PyTorch version on the card, fp32
    and bf16: the reference test shapes and configs, the GEMM's split-K
    shapes and misaligned row strides (fp32 and bf16), the 8 ResNet-18
@@ -45,9 +47,12 @@ training step, and the reference's examples as the port runs them.
    3584 and 12000, at d 6144 over 8, 200 and 1536 rows, at d 2048 over the
    family training steps' 4096 and 1024 rows, flash non-causal
    at (1, 1500, 8/8 heads, d 64), causal at 8/8 heads d 64 over S 4, 100,
-   223 and at 48/8 heads d 128 over S 1088, 1300, 1536); there the
-   bf16 flash kernel is also held against the plain version with P kept
-   in fp32 (the reference kernel's arithmetic), within 2^-7 x max |v|;
+   223 and at 48/8 heads d 128 over S 1088, 1300, 1536; flash at head_dim
+   6 and 18 and with q, k and v one value into their storage, the
+   4-byte / scalar copies; fp32 flash with and without its KV split);
+   there the bf16 flash kernel is also held against the plain version
+   with P kept in fp32 (the reference kernel's arithmetic), within 2^-7 x
+   max |v|;
    ``[check] rmsnorm backward``: the RMSNorm autograd Function's (dx, dw)
    against autograd through the plain version at the training shape
    (8192, 1536) and (8, 1536) and the family training shapes (4096, 2048)
@@ -216,8 +221,12 @@ training step, and the reference's examples as the port runs them.
    the forward and its recompute, flash and GEMM none); each driver's
    seconds and launches;
 then ``[time flash fp32]``: the fp32 flash kernel at every shape the
-fp32 gates launched (counted while they ran), beside SDPA fp32, the
-plain version (which holds it at 5e-5) and its fp32 operations bound;
+fp32 gates launched (the wrapper's own record of calls, diffed around
+them, which must equal what the gates' draws and configs give), beside
+SDPA fp32, the plain version (which holds it at 5e-5) and its fp32
+operations bound, and the CUDA kernels the profiler sees SDPA fp32 run;
+``--flash-fp32`` runs that phase alone at the gates' shapes without the
+gates, and with ``--tree DIR`` on another checkout's kernel;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
 times; every kernel's with the mesh phases' and ``[drivers]``'
@@ -233,6 +242,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -342,7 +352,7 @@ RMSNORM_CHECKS = [((4, 64), False, True), ((2, 100, 96), False, True),
                   ((3, 60), True, True), ((200, 60), True, True),
                   ((1024, 60), True, True)]
 # ((B, S, HQ, HKV, D, causal, window, block_q, block_k), on the path)
-FLASH_CHECKS = (
+_FLASH_CASES = (
     [((2, 100, hq, hkv, 16, causal, window, 32, 32), False)
      for hq, hkv in ((4, 4), (4, 2), (6, 1))
      for causal, window in ((True, None), (False, None), (True, 32))]
@@ -373,6 +383,16 @@ FLASH_CHECKS = (
     # [drivers]: serve_lm's reduced qwen2 (4/2 heads, head_dim 16) at its
     # shortest and longest prompts
     + [((1, s, 4, 2, 16, True, None, 128, 128), True) for s in (4, 19)])
+# (case, on the path, q/k/v on 16-byte boundaries): the cases above
+# aligned, then head_dim 6 and 18 (D % 4 != 0: fp32's 4-byte copies, bf16's
+# scalar loads) and q, k and v one value into their storage at D 128 and
+# 64 (the same copies on the LM's head_dims)
+FLASH_CHECKS = (
+    [(case, on_path, True) for case, on_path in _FLASH_CASES]
+    + [((2, 77, 6, 2, 6, True, 32, 64, 64), False, True),
+       ((1, 90, 4, 2, 18, False, None, 32, 32), False, True),
+       ((1, 130, 12, 2, 128, True, None, 128, 128), False, False),
+       ((2, 77, 6, 2, 64, True, 32, 64, 64), False, False)])
 # [fabric]: the stub oracle through the three executors
 FABRIC_N, FABRIC_DELAY_S = 16, 0.1
 FABRIC_SPEEDUP = 1.5      # the pool over serial (the reference's gate)
@@ -472,10 +492,12 @@ GATE_PROMPT = {"ssm": (64, 128)}
 # the port's kernels as the profiler names them
 PORT_KERNEL_NAMES = ("gemm_f32_kernel", "splitk_sum_kernel",
                      "gemm_bf16_kernel", "flash_mma_kernel",
-                     "flash_ffma_kernel", "rmsnorm_kernel")
+                     "flash_f32_kernel", "flash_f32_combine_kernel",
+                     "rmsnorm_kernel")
 # the templates redesigned for the card, whose ptxas lines are printed
 NEW_TEMPLATES = ("gemm_f32_kernel", "gemm_bf16_kernel", "splitk_sum_kernel",
-                 "flash_mma_kernel", "rmsnorm_kernel")
+                 "flash_mma_kernel", "flash_f32_kernel",
+                 "flash_f32_combine_kernel", "rmsnorm_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -1119,56 +1141,82 @@ def phase_deploy_bf16(dev, configs) -> dict:
 
 @contextlib.contextmanager
 def fp32_flash_recorded(calls):
-    """While active, records in ``calls`` every fp32 flash launch on the
-    LM paths by ((B, S, HQ, HKV, D), causal, window, block_q, block_k):
-    the models reach the kernel through ``ops.attention``, which calls
-    the wrapper as ``ops.flash_attention``.  Each call adds what the
-    wrapper's own count (``flash_attention.launches``, kept where the
-    kernel launches) moved during it, and must have moved by 1."""
-    import torch
+    """While active, records in ``calls`` every fp32 flash launch by
+    ((B, S, HQ, D), HKV, causal, window, block_q, block_k): the
+    difference, over the block, of the wrapper's own record
+    (``flash_attention.calls``, bumped where ``flash_attention.launches``
+    is, so only a launch on the card counts)."""
     from repro_torch.kernels import flash_attention as FA
+    before = collections.Counter(FA.flash_attention.calls)
+    yield calls
+    for (*key, dtype), n in (FA.flash_attention.calls - before).items():
+        if dtype == "float32":
+            calls[tuple(key)] += n
+
+
+def fp32_gate_calls() -> collections.Counter:
+    """The fp32 flash launches the fp32 gates make, in the recorder's keys,
+    from their own draws and configs: each gate's prompt lengths (the
+    first draw of its seeded generator: phase_lm_gate's, then each
+    family's), one prefill a prompt on the kernel path, one launch an
+    attention layer (a vision prefix ahead of the prompt; an encoder's
+    layers non-causal over its frames).  The full run holds it equal to
+    what :func:`fp32_flash_recorded` counted; ``--flash-fp32`` times the
+    kernel at these shapes without the gates."""
+    import inspect
+    import numpy as np
+    import torch
     from repro_torch.kernels import ops
-    inner = ops.flash_attention
+    ask = inspect.signature(ops.attention).parameters
+    blocks = (ask["block_q"].default, ask["block_k"].default)
+    calls = collections.Counter()
 
-    def counted(q, k, v, *args, **kw):
-        before = FA.flash_attention.launches
-        out = inner(q, k, v, *args, **kw)
-        moved = FA.flash_attention.launches - before
-        if q.dtype == torch.float32 and q.is_cuda:
-            check(moved == 1, f"an fp32 flash call on the card moved the "
-                              f"launch count by {moved}")
-            calls[(tuple(q.shape), k.shape[2], kw.get("causal", True),
-                   kw.get("window"), kw.get("block_q", 128),
-                   kw.get("block_k", 128))] += moved
-        return out
+    def prefills(cfg, lengths):
+        def key(s, causal, window):
+            return ((1, s, cfg.n_heads, cfg.head_dim), cfg.n_kv_heads,
+                    causal, window, *blocks)
+        for n in lengths:
+            s = cfg.vision_prefix + int(n)
+            for mixer, _ in cfg.layer_kinds():
+                if mixer in ("attn", "swa"):
+                    window = cfg.swa_window if mixer == "swa" else None
+                    calls[key(s, True, window)] += 1
+            if cfg.enc_dec:
+                calls[key(cfg.enc_seq, False, None)] += cfg.n_enc_layers
 
-    ops.flash_attention = counted
-    try:
-        yield calls
-    finally:
-        ops.flash_attention = inner
+    rng = np.random.default_rng(SEED + 4)
+    prefills(lm_config(torch.float32), rng.integers(
+        LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_GATE_REQUESTS))
+    for i, kind in enumerate(FAMILY_SERVE):
+        rng = np.random.default_rng(SEED + 10 + i)
+        lo, hi = GATE_PROMPT.get(kind, FAMILY_SERVE[kind][2])
+        prefills(family_config(kind, torch.float32, gate=True),
+                 rng.integers(lo, hi + 1, size=LM_GATE_REQUESTS))
+    return calls
 
 
 def phase_time_flash_fp32(dev, calls) -> dict:
-    """``[time flash fp32]``: the fp32 flash kernel (the FFMA kernel of
-    the first port, ``flash_ffma_kernel``) at every shape the fp32 gates
-    launched (``calls``, from :func:`fp32_flash_recorded`): the kernel and
-    one SDPA fp32 call by ``device_ms``, the plain version by CUDA events
-    over one call (its output holds the kernel's at FP32_TOL), and the
-    bound: the fp32 operations over the 67 TFLOP/s FMA peak against q, k,
-    v read and o written once.  Totals over the launches."""
+    """``[time flash fp32]``: the fp32 flash kernel (``flash_f32_kernel``,
+    register-tiled FFMA fed by a ``cp.async`` ring) at every shape the
+    fp32 gates launched (``calls``, from :func:`fp32_flash_recorded`, or
+    :func:`fp32_gate_calls`): the kernel and one SDPA fp32 call by
+    ``device_ms``, the plain version by CUDA events over one call (its
+    output holds the kernel's at FP32_TOL), and the bound: the fp32
+    operations over the 67 TFLOP/s FMA peak against q, k, v read and o
+    written once.  Totals over the launches; then the CUDA kernels the
+    profiler sees SDPA fp32 run, one call a shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    rows = []
+    rows, sdpa_calls = [], []
     for (qshape, hkv, causal, window, bq, bk), n in sorted(calls.items()):
         b, s, hq, d = qshape
         q = torch.randn(qshape, generator=gen, device=dev)
         k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev)
                 for _ in range(2))
-        geom = FA.legalize(bq, bk, s, d, torch.float32)
         got = FA.flash_attention(q, k, v, causal, window, None, bq, bk)
+        geom = FA.RunGeometry(**FA.flash_attention.last_geometry["run"])
         want, plain_ms = events_ms(lambda: FA.flash_attention_plain(
             q, k, v, causal, window, d ** -0.5, geom))
         diff, rel = rel_err(got, want)
@@ -1177,14 +1225,16 @@ def phase_time_flash_fp32(dev, calls) -> dict:
         check(window is None, f"flash fp32 {qshape}: a window, which the "
                               f"SDPA yardstick here does not take")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                                 is_causal=causal, enable_gqa=True)
+        sdpa_calls.append(sdpa)
         flops = 2.0 * b * hq * d * (s * (s + 1) if causal else 2 * s * s)
         row = {"shape": [b, s, hq, hkv, d], "causal": causal,
                "window": window, "launches": n,
-               "run": [geom.bq, geom.bk, geom.dp],
+               "run": [geom.bq, geom.bk, geom.dp], "kv_chunk": geom.kv_chunk,
                "ms": device_ms(lambda: FA.flash_attention(
                    q, k, v, causal, window, None, bq, bk)),
-               "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=causal, enable_gqa=True)),
+               "library_ms": device_ms(sdpa),
                "plain_ms": plain_ms, "max_abs_err": diff,
                **bound(flops / FP32_FLOPS * 1e3,
                        4.0 * b * s * d * (2 * hq + 2 * hkv)
@@ -1192,7 +1242,8 @@ def phase_time_flash_fp32(dev, calls) -> dict:
         rows.append(row)
         log(f"[time flash fp32] {row['shape']}"
             f"{' causal' if causal else ' non-causal'} x{n} launches "
-            f"run={row['run']}: kernel {row['ms']:.4f} ms, SDPA fp32 "
+            f"run={row['run']} kv_chunk={geom.kv_chunk}: kernel "
+            f"{row['ms']:.4f} ms, SDPA fp32 "
             f"{row['library_ms']:.4f} ms, plain {plain_ms:.2f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}; the kernel at "
             f"{100 * row['bound_ms'] / row['ms']:.1f}% of it); vs plain "
@@ -1210,7 +1261,78 @@ def phase_time_flash_fp32(dev, calls) -> dict:
         f"({len(rows)} shapes): kernel {tot['ms']:.3f} ms, SDPA fp32 "
         f"{tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.1f} ms, bound "
         f"{tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+    tot["library_kernels"] = profiled_kernels(sdpa_calls)
+    log("[time flash fp32] SDPA fp32 runs (profiler, one call a shape): "
+        + ("; ".join(f"{name} {ms:.4f} ms"
+                     for name, ms in tot["library_kernels"])
+           or "not measured (the profiler recorded no CUDA kernel)"))
     return tot
+
+
+def profiled_kernels(fns) -> list:
+    """The CUDA kernels one call of each of ``fns`` runs, by
+    ``torch.profiler`` after a warm-up: [name, device ms summed], longest
+    first; empty where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    return [[name, ms] for name, ms in by_name.most_common()]
+
+
+def flash_fp32_main(argv) -> int:
+    """``python3 chip_smoke.py --flash-fp32 [--tree DIR]``: ``[time flash
+    fp32]`` alone, at the fp32 gates' shapes (:func:`fp32_gate_calls`)
+    without running the gates: the card's line, the flash kernel built
+    (its fp32 templates' ptxas lines), then the phase, and its result as
+    one JSON line.  ``--tree DIR``: DIR's own package and ``chip_smoke.py``
+    (another commit, unpacked by ``git archive``) time DIR's kernel at the
+    same shapes, so that two kernels compare by one method, in turns, on
+    one card."""
+    import argparse
+    import importlib.util
+    import torch
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --flash-fp32")
+    ap.add_argument("--tree", default=ROOT)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs one GPU",
+              file=sys.stderr)
+        return 2
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, os.path.join(tree, "src"))
+    spec = importlib.util.spec_from_file_location(
+        "tree_chip_smoke", os.path.join(tree, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase_card()
+    log(f"[env] tree {tree}, torch {torch.__version__} cuda "
+        f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build("flash_attention")
+    log(f"[build] flash_attention in {time.perf_counter() - t0:.1f} s")
+    for r in _build.ptxas_report("flash_attention"):
+        if not r["kernel"].startswith("flash_mma_kernel"):
+            log(f"[build] ptxas {r['kernel']}: {r['registers']} registers, "
+                f"spill stores {r['spill_stores']} B, loads "
+                f"{r['spill_loads']} B")
+    calls = fp32_gate_calls()
+    tot, secs = timed(lambda: mod.phase_time_flash_fp32(dev, calls))
+    log(f"[time flash fp32] phase {secs:.1f} s")
+    print(json.dumps({"tree": tree, "flash_fp32_gates": tot}), flush=True)
+    return 0
 
 
 # ------------------------------------------------ baselines and netopt
@@ -1461,12 +1583,19 @@ def phase_check_lm_kernels(dev) -> dict:
     check(len(strided) == 4, f"the rmsnorm grid-stride loop is checked "
           f"only in {sorted(map(str, strided))}")
     flash_ran = set()             # templates checked
-    for (b, s, hq, hkv, d, causal, window, bq, bk), on_path in FLASH_CHECKS:
+    f32_split = set()             # fp32 runs with and without a KV split
+    for (b, s, hq, hkv, d, causal, window, bq, bk), on_path, aligned in \
+            FLASH_CHECKS:
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
-            q, k, v = (torch.randn(b, s, h, d, generator=gen,
-                                   device=dev).to(dtype)
-                       for h in (hq, hkv, hkv))
+            def draw(h):
+                n = b * s * h * d
+                x = torch.randn(n + 1, generator=gen, device=dev).to(dtype)
+                return (x[:n] if aligned else x[1:]).view(b, s, h, d)
+            q, k, v = draw(hq), draw(hkv), draw(hkv)
+            vec = FA.vec_copies(q, k, v)
+            check(vec == (aligned and d % (16 // q.element_size()) == 0),
+                  f"flash D={d} {dtype} aligned={aligned}: vec {vec}")
             got = FA.flash_attention(q, k, v, causal, window, None, bq, bk)
             run = FA.flash_attention.last_geometry["run"]
             want = FA.flash_attention(q, k, v, causal, window, None, bq, bk,
@@ -1475,11 +1604,15 @@ def phase_check_lm_kernels(dev) -> dict:
             diff, rel = rel_err(got, want)
             case = (b, s, hq, hkv, d, causal, window)
             check(got.dtype == dtype and rel <= tol,
-                  f"flash {case} {dtype}: rel err {rel:.3g}")
+                  f"flash {case} {dtype} aligned={aligned}: rel err "
+                  f"{rel:.3g}")
             flash_ran.add((run["bq"], run["bk"], run["dp"], run["dtype"]))
-            if on_path:
+            if dtype == torch.float32:
+                f32_split.add(run["kv_chunk"] > 0)
+            if on_path or not vec:
                 log(f"[check] flash B={b} S={s} HQ={hq} HKV={hkv} D={d} "
-                    f"{dtype} run={run} dynamic smem "
+                    f"{dtype}{'' if aligned else ' q/k/v at an offset of one value'}"
+                    f" run={run} vec={int(vec)} dynamic smem "
                     f"{FA.RunGeometry(**run).smem_bytes} B "
                     f"max_abs_err={diff:.3g} rel={rel:.3g}")
             if on_path and dtype == torch.bfloat16:
@@ -1497,6 +1630,8 @@ def phase_check_lm_kernels(dev) -> dict:
                     f"max_abs_err={diff32:.3g} rel={rel32:.3g} (bound "
                     f"{bound:.3g} = 2^-7 x max|v|)")
             n_checks += 1
+    check(f32_split == {True, False}, f"fp32 flash checked only with "
+          f"the KV split {f32_split}")
     for geom, runs in lm_flash_geometries().items():
         check(geom in flash_ran, f"no flash check runs the LM path's "
               f"template {geom} (head_dim, S from {runs[0]} to {runs[-1]})")
@@ -3688,6 +3823,9 @@ def main() -> int:
     log(f"[autotune] phase {autotune_s:.1f} s")
     drivers, drivers_s = timed(lambda: phase_drivers(dev))
     log(f"[drivers] phase {drivers_s:.1f} s")
+    check(flash32 == fp32_gate_calls(), f"the fp32 gates launched "
+          f"{dict(flash32)}, not the {dict(fp32_gate_calls())} their draws "
+          f"and configs give")
     flash_fp32, flash32_s = timed(lambda: phase_time_flash_fp32(dev,
                                                                 flash32))
     log(f"[time flash fp32] phase {flash32_s:.1f} s")
@@ -3826,4 +3964,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(flash_fp32_main(sys.argv[2:]) if sys.argv[1:2] == ["--flash-fp32"]
+             else main())

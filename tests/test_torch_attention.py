@@ -5,6 +5,9 @@ rounds it, in bf16; the oracle, forward chunked attention, and decode
 attention with its cache updates (full, per-slot, ring) against
 ``repro.models.layers``.  The kernel itself is tested on the card by
 tests/test_torch_gpu.py."""
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -45,23 +48,85 @@ def test_plain_flash_matches_pallas(causal, window, hq, hkv):
     got = TO.attention(*_t(q, k, v), causal=causal, window=window,
                        block_q=32, block_k=32)
     assert TF.flash_attention.launches == launches  # the CPU never launches
+    # 8-12 heads x 4 query tiles is far under a wave: the KV loops split in
+    # runs of 2 tiles, but for the window's, 2 tiles long at most
     assert TF.flash_attention.last_geometry["run"] == {
-        "bq": 32, "bk": 32, "dp": 16, "dtype": "float32"}
+        "bq": 32, "bk": 32, "dp": 32, "dtype": "float32",
+        "kv_chunk": 0 if window else 2}
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("s,bq,bk,causal", [
-    (3, 16, 16, True), (17, 32, 16, False), (33, 16, 64, True),
-    (45, 32, 64, False), (64, 16, 16, True), (70, 32, 16, True)])
-def test_plain_flash_matches_pallas_mixed_blocks(s, bq, bk, causal):
+# every fp32 template legalize can pick, each requested as itself (each is
+# a fixed point of legalize), at a head_dim 4 short of its dp and S 70:
+# ragged tiles at every bq and bk, a head_dim tail
+F32_TEMPLATE_CASES = [(70, bq, bk, (bq + bk + dp) % 3 != 0, dp - 4)
+                      for bq, bk, dp in sorted(TF.f32_templates())]
+
+
+@pytest.mark.parametrize("s,bq,bk,causal,d", [
+    (3, 16, 16, True, 8), (17, 32, 16, False, 8), (33, 16, 64, True, 8),
+    (45, 32, 64, False, 8), (64, 16, 16, True, 8), (70, 32, 16, True, 8)]
+    + F32_TEMPLATE_CASES)
+def test_plain_flash_matches_pallas_mixed_blocks(s, bq, bk, causal, d):
     """Block sizes never change the result (online-softmax correctness),
-    at the reference's property-test sizes."""
-    q, k, v = _qkv(1, s, 2, 2, 8, seed=s)
+    at the reference's property-test sizes and at every fp32 template's
+    run geometry."""
+    q, k, v = _qkv(1, s, 2, 2, d, seed=s + d)
     want = np.asarray(JO.attention(*_j(q, k, v), causal=causal,
                                    block_q=bq, block_k=bk))
     got = TF.flash_attention(*_t(q, k, v), causal=causal, block_q=bq,
                              block_k=bk)
+    if (s, bq, bk, causal, d) in F32_TEMPLATE_CASES:
+        run = TF.flash_attention.last_geometry["run"]
+        assert (run["bq"], run["bk"], run["dp"]) == (bq, bk, d + 4)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,causal,window,bq,bk,chunk", [
+    (100, True, None, 32, 32, 1), (100, False, None, 16, 32, 3),
+    (150, True, 20, 16, 16, 1), (150, True, 40, 32, 16, 2),
+    (97, False, 30, 64, 16, 2)])
+def test_plain_flash_split_matches_pallas(s, causal, window, bq, bk, chunk):
+    """A KV split (runs of ``chunk`` tiles, each folded from scratch, then
+    merged by exp(m_z - max m)) gives the reference's result, and the
+    unsplit walk's to 1e-6; windows leave runs whose first tiles mask a
+    row entirely."""
+    q, k, v = _qkv(2, s, 4, 2, 24, seed=s + chunk)
+    want = np.asarray(JO.attention(*_j(q, k, v), causal=causal,
+                                   window=window, block_q=bq, block_k=bk))
+    geom = TF.RunGeometry(bq, bk, 32, kv_chunk=chunk)
+    got = TF.flash_attention_plain(*_t(q, k, v), causal, window, 24 ** -0.5,
+                                   geom)
+    whole = TF.flash_attention_plain(*_t(q, k, v), causal, window,
+                                     24 ** -0.5, TF.RunGeometry(bq, bk, 32))
+    assert max(len(TF.kv_runs(*TF.kv_tile_range(t, bq, bk, s, causal,
+                                                 window), chunk))
+               for t in range(0, s, bq)) >= 2
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_kv_split_rule():
+    """fp32 grids under one wave whose longest query tile holds at least
+    twice a slot's share of the KV tiles split; runs partition each
+    tile's range in order."""
+    def split(s, heads, d, causal=True, dtype=torch.float32):
+        return TF.kv_split(TF.legalize(128, 128, s, d, dtype), heads, s,
+                           causal, None).kv_chunk
+    # qwen2's fp32 gate (12 heads, 16 query tiles of up to 31 KV tiles):
+    # 192 blocks for 132 x 2 slots, 3,264 KV tiles -> runs of 7
+    assert split(973, 12, 128) == 7
+    assert split(973, 12, 128, dtype=torch.bfloat16) == 0   # bf16: never
+    assert split(1461, 48, 128) == 0      # 1,104 blocks: over a wave
+    assert split(1500, 8, 64, causal=False) == 0   # even tiles
+    assert split(224, 64, 128) == 0       # 256 blocks, 7 tiles at most
+    assert split(201, 8, 64) == TF.MIN_KV_CHUNK
+    for lo, hi, chunk in ((0, 30, 7), (3, 9, 2), (5, 5, 3), (0, 13, 0)):
+        runs = TF.kv_runs(lo, hi, chunk)
+        assert [j for a, b in runs for j in range(a, b + 1)] == list(
+            range(lo, hi + 1))
+        assert all(b - a + 1 <= (chunk or hi - lo + 1) for a, b in runs)
 
 
 @pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,bq,bk", [
@@ -137,17 +202,33 @@ def test_kv_tile_range_is_the_reference_block_skip():
 
 
 def test_legalize_rule():
+    # fp32 (flash_f32_kernel): bk halves until an SM holds 8 warps; at the
+    # LM's head_dim 128 the 64 x 64 tiles (184 KB) hold 4, 64 x 32 (109
+    # KB) two blocks of 4
     g = TF.legalize(128, 128, 1024, 128)
-    assert g == TF.RunGeometry(64, 32, 128, "float32")  # bk halved: 115 KB
-    assert g.smem_bytes <= TF.SMEM_BUDGET
+    assert g == TF.RunGeometry(64, 32, 128, "float32")
+    assert g.smem_bytes == 4 * (64 * 132 + 2 * 32 * 132 + 2 * 32 * 128
+                                + 32 * 68) == 109_056
+    assert g.threads == 128 and g.warps_per_sm == 8
+    assert TF.RunGeometry(64, 64, 128).warps_per_sm == 4
     assert TF.legalize(128, 128, 1024, 64) == TF.RunGeometry(64, 64, 64,
                                                              "float32")
-    assert TF.legalize(32, 16, 100, 16) == TF.RunGeometry(32, 16, 16,
+    # fp32 head_dim pads to 32 at least (8 threads a row, a float4 each)
+    assert TF.legalize(32, 16, 100, 16) == TF.RunGeometry(32, 16, 32,
                                                           "float32")
     assert TF.legalize(128, 128, 12, 20) == TF.RunGeometry(16, 16, 32,
                                                            "float32")
-    assert TF.legalize(128, 128, 40, 8) == TF.RunGeometry(32, 32, 16,
+    assert TF.legalize(128, 128, 40, 8) == TF.RunGeometry(32, 32, 32,
                                                           "float32")
+    # a 16-row tile at head_dim 128 holds 5 warps an SM even at bk 16: bq
+    # doubles
+    assert TF.RunGeometry(16, 16, 128).warps_per_sm == 5
+    assert TF.legalize(128, 128, 12, 128) == TF.RunGeometry(32, 16, 128,
+                                                            "float32")
+    # the 17 fp32 templates dispatch_f32 compiles, each a fixed point
+    assert len(TF.f32_templates()) == 17
+    for bq, bk, dp in TF.f32_templates():
+        assert TF.legalize(bq, bk, 4096, dp) == TF.RunGeometry(bq, bk, dp)
     # bf16 tiles cost 2 bytes and pad rows by 8: the serving shape keeps
     # bk 64 (Q 17 KB + two K/V stages 68 KB)
     g = TF.legalize(128, 128, 1024, 128, torch.bfloat16)
@@ -159,13 +240,54 @@ def test_legalize_rule():
         for d in (8, 16, 64, 128):
             for s in (3, 100, 4096):
                 g = TF.legalize(128, 128, s, d, dtype)
-                assert g.smem_bytes <= TF.SMEM_BUDGET
                 if dtype == torch.bfloat16:   # never halved
+                    assert g.smem_bytes <= TF.SMEM_BUDGET
                     assert g.bk == min(64, max(16, 1 << (s.bit_length() - 1)))
+                else:                         # the fp32 budget
+                    assert g.warps_per_sm >= TF.F32_MIN_WARPS
+                    assert (g.smem_bytes + TF.BLOCK_SMEM_RESERVED) * (
+                        TF.F32_MIN_WARPS * 32 // g.threads
+                    ) <= TF.SM_SMEM_BYTES
+                    assert (g.bq, g.bk, g.dp) in TF.f32_templates()
+                    assert g.dp == max(32, d)
     with pytest.raises(ValueError):
         TF.legalize(128, 128, 64, 256)
     with pytest.raises(TypeError):
         TF.legalize(128, 128, 64, 64, torch.float16)
+
+
+def test_dispatch_f32_compiles_exactly_the_legal_templates():
+    """``dispatch_f32`` in the CUDA source instantiates the fp32 templates
+    legalize can pick and no other (nvcc time; no dead template)."""
+    src = (Path(TF.__file__).parent / "csrc" / "flash_attention.cu")
+    body = src.read_text().split("int dispatch_f32(")[1].split("\n}\n")[0]
+    listed = {tuple(map(int, t)) for t in
+              re.findall(r"F32\((\d+), (\d+), (\d+)\);", body)}
+    assert listed == set(TF.f32_templates())
+
+
+@pytest.mark.parametrize("dtype,d,offset,vec", [
+    (torch.float32, 128, 0, True), (torch.float32, 64, 0, True),
+    (torch.float32, 20, 0, True),              # 5 float4s a row
+    (torch.float32, 18, 0, False),             # D % 4 != 0
+    (torch.float32, 6, 0, False),
+    (torch.float32, 128, 1, False),            # one value off 16 bytes
+    (torch.float32, 128, 4, True),             # 16 bytes off: aligned
+    (torch.bfloat16, 20, 0, False),            # bf16 needs D % 8 == 0
+    (torch.bfloat16, 16, 0, True), (torch.bfloat16, 16, 1, False)])
+def test_vec_rule(dtype, d, offset, vec):
+    """The kernel copies by 16 bytes when head_dim is a whole number of
+    16-byte chunks (4 fp32 or 8 bf16 values) and q, k and v start on
+    16-byte boundaries; a tensor that starts one value into its storage
+    takes the 4-byte (fp32) or scalar (bf16) copies."""
+    shape = (1, 5, 2, d)
+    n = int(np.prod(shape))
+    base = torch.zeros(offset + n + 16, dtype=dtype)
+    q = base[offset:offset + n].view(shape)
+    k, v = (torch.zeros(shape, dtype=dtype) for _ in range(2))
+    assert q.is_contiguous()
+    assert TF.vec_copies(q, k, v) is vec
+    assert TF.vec_copies(k, q, v) is vec and TF.vec_copies(k, v, q) is vec
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

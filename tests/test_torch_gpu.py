@@ -229,8 +229,13 @@ def test_rmsnorm_kernel_matches_plain_on_card(dtype, tol):
                                        (torch.bfloat16, 1e-2)], ids=str)
 def test_flash_kernel_matches_plain_on_card(dtype, tol):
     """The reference's test cases (GQA, causal / full / window 32, mixed
-    blocks and tails), the LM's prefill shape, and the bf16 tensor-core
-    kernel's head_dim templates, windows and ragged tails."""
+    blocks and tails), the LM's prefill shape, the bf16 tensor-core
+    kernel's head_dim templates, windows and ragged tails, every fp32
+    template legalize can pick, q, k and v one value off 16 bytes or
+    with D % 4 != 0 (the 4-byte / scalar copies), and fp32 grids with and
+    without the KV split (the split's two kernels count as one launch).
+    Each call launches once and agrees with the plain version, which
+    walks the same geometry, to ``tol`` x max |plain|."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(2, 100, hq, hkv, 16, causal, window, 32, 32)
@@ -245,19 +250,44 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol):
     cases += [(1, 150, 12, 2, 128, False, None, 128, 128),
               (2, 130, 4, 1, 64, True, None, 32, 64),
               (1, 50, 2, 1, 20, True, None, 64, 64)]
-    for b, s, hq, hkv, d, causal, window, bq, bk in cases:
-        q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
+    # every fp32 template, requested as itself (D 4 short of its dp)
+    templates = sorted(TF.f32_templates())
+    cases += [(1, 70, 4, 2, dp - 4, (bq + bk) % 3 != 0, None, bq, bk)
+              for bq, bk, dp in templates]
+    # D % 4 != 0 (D 6, 18), then q, k and v one value into their storage
+    cases += [(2, 77, 6, 2, 6, True, 32, 64, 64),
+              (1, 90, 4, 2, 18, False, None, 32, 32),
+              (1, 130, 12, 2, 128, True, None, 128, 128, 1),
+              (2, 77, 6, 2, 64, True, 32, 64, 64, 1)]
+    # fp32's KV split: qwen2's gate shape and a window (split), and a grid
+    # over a wave (not split)
+    cases += [(1, 973, 12, 2, 128, True, None, 128, 128),
+              (1, 1000, 4, 2, 64, True, 100, 128, 128),
+              (2, 600, 16, 4, 64, True, None, 128, 128)]
+    ran, split = set(), set()
+    for b, s, hq, hkv, d, causal, window, bq, bk, *offset in cases:
+        def draw(h):
+            n = b * s * h * d + (offset[0] if offset else 0)
+            x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+            return x[n - b * s * h * d:].view(b, s, h, d)
+        q, k, v = draw(hq), draw(hkv), draw(hkv)
+        assert TF.vec_copies(q, k, v) == (not offset and d % (
+            16 // q.element_size()) == 0)
         launches = TF.flash_attention.launches
         got = TF.flash_attention(q, k, v, causal, window, None, bq, bk)
         assert TF.flash_attention.launches == launches + 1
+        run = TF.flash_attention.last_geometry["run"]
+        ran.add((run["bq"], run["bk"], run["dp"]))
+        split.add(run["kv_chunk"] > 0)
         want = TF.flash_attention(q, k, v, causal, window, None, bq, bk,
                                   use_kernel=False)
         assert TF.flash_attention.launches == launches + 1
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == q.shape
-        assert _rel_err(got, want) <= tol, (b, s, hq, hkv, d, causal, window)
+        assert _rel_err(got, want) <= tol, (b, s, hq, hkv, d, causal, window,
+                                            offset, run)
+    if dtype == torch.float32:
+        assert ran >= set(templates) and split == {True, False}
 
 
 @pytest.mark.gpu
