@@ -14,7 +14,9 @@ and recurrent families served at full width (moonshot-v1-16b-a3b cut to
 16 of its 48 layers, xlstm-1.3b to 16 of 48, jamba-1.5-large-398b to 5),
 and the
 encoder-decoder and vision-prefix families served whole at full width
-(whisper-base, internvl2-26b), whisper-base also trained, the MoE and
+(whisper-base, internvl2-26b), the sliding-window MoE served past its
+window (mixtral-8x22b cut to 4 of its 56 layers), whisper-base also
+trained, the MoE and
 xLSTM families trained at full width (moonshot-v1-16b-a3b cut to 2
 layers, xlstm-1.3b to one period), and the pod-level shard-space tuner
 (``tune --arch --oracle compile``) with its estimator held against a real
@@ -49,7 +51,12 @@ training step, and the reference's examples as the port runs them.
    at (1, 1500, 8/8 heads, d 64), causal at 8/8 heads d 64 over S 4, 100,
    223 and at 48/8 heads d 128 over S 1088, 1300, 1536; flash at head_dim
    6 and 18 and with q, k and v one value into their storage, the
-   4-byte / scalar copies; fp32 flash with and without its KV split);
+   4-byte / scalar copies; fp32 flash with and without its KV split;
+   mixtral's window of 4,096 past itself, causal over 4,608 tokens at
+   head_dim 128 (6/1 heads, and 2/1, which splits the fp32 KV range);
+   the layouts of three configs no phase serves, held only: minitron-4b's
+   d 3072, qwen1.5-4b's 2560 and smollm-360m's 960 over 1-1024 rows,
+   their flash templates over prompts up to 1024);
    there the bf16 flash kernel is also held against the plain version
    with P kept in fp32 (the reference kernel's arithmetic), within 2^-7 x
    max |v|;
@@ -172,7 +179,8 @@ training step, and the reference's examples as the port runs them.
    tokens/s, prefill ms by length and a prompt token, the decode step
    beside the time to read every weight once, and each kernel timed at
    the run's shapes over its launches;
-17. ``[serve audio]`` and ``[serve vlm]``, the same way: whisper-base
+17. ``[serve audio]``, ``[serve vlm]`` and ``[serve swa]``, the same
+   way (``[serve swa]`` below): whisper-base
    whole (6 encoder + 6 decoder layers, 97.2 M parameters; its fp32 gate
    the whole model, the encoder over frames drawn with numpy from the
    seed) and internvl2-26b whole (48 layers, 19.86 B parameters, 39.7 GB
@@ -185,7 +193,16 @@ training step, and the reference's examples as the port runs them.
    non-causal encoder launches at S 1500 and 6 causal -- and RMSNorm 32,
    a decode step RMSNorm 19; internvl2: flash 48 and RMSNorm 97 a
    prefill, RMSNorm 97 a decode step), each kernel timed at the run's
-   shapes (the encoder's flash non-causal);
+   shapes (the encoder's flash non-causal); ``[serve swa]``:
+   mixtral-8x22b, the sliding-window config, its first 4 of 56 layers at
+   full width (10.4 B parameters; the fp32 gate its first 2, prompts of
+   4,608-5,120 tokens past the 4,096-token window), then 8 requests
+   (prompts 3,072-6,144, the first 4,080; 32 new) through ``Server(8,
+   8192)``, whose SWA layers keep 4,096-slot rings: it must serve a prompt
+   that never wraps its ring, one whose decode wraps it and one whose
+   prefill rotates it; flash 4 and RMSNorm 9 a prefill, RMSNorm 9 a
+   decode step; each flash shape timed with its window (a banded SDPA, a
+   band-counted bound);
 18. ``[train audio]``: whisper-base at full width, bf16, remat on, 10
    steps of 8 x 448 synthetic tokens with 1500 frames a sequence drawn
    with numpy from the seed: RMSNorm 62 launches a step (32 in the
@@ -224,7 +241,9 @@ then ``[time flash fp32]``: the fp32 flash kernel at every shape the
 fp32 gates launched (the wrapper's own record of calls, diffed around
 them, which must equal what the gates' draws and configs give), beside
 SDPA fp32, the plain version (which holds it at 5e-5) and its fp32
-operations bound, and the CUDA kernels the profiler sees SDPA fp32 run;
+operations bound (a windowed shape: SDPA with the band as a boolean mask,
+the pairs inside the band counted), and the CUDA kernels the profiler
+sees SDPA fp32 run;
 ``--flash-fp32`` runs that phase alone at the gates' shapes without the
 gates, and with ``--tree DIR`` on another checkout's kernel;
 then one JSON line with the three kernels (RMSNorm's with its training
@@ -350,7 +369,14 @@ RMSNORM_CHECKS = [((4, 64), False, True), ((2, 100, 96), False, True),
                   ((3, 64), True, True), ((19, 64), True, True),
                   ((1, 60), True, True), ((2, 60), True, True),
                   ((3, 60), True, True), ((200, 60), True, True),
-                  ((1024, 60), True, True)]
+                  ((1024, 60), True, True),
+                  # HELD_ONLY: minitron-4b's d 3072, qwen1.5-4b's 2560 and
+                  # smollm-360m's 960 at a decode step's 8 rows (a row
+                  # spread over warps) and a prompt of 1024 (fewer warps a
+                  # row, or several rows a block)
+                  ((8, 3072), False, True), ((1024, 3072), False, True),
+                  ((8, 2560), False, True), ((1024, 2560), False, True),
+                  ((8, 960), False, True), ((1024, 960), False, True)]
 # ((B, S, HQ, HKV, D, causal, window, block_q, block_k), on the path)
 _FLASH_CASES = (
     [((2, 100, hq, hkv, 16, causal, window, 32, 32), False)
@@ -382,7 +408,12 @@ _FLASH_CASES = (
        for s in (1088, 1300, 1536)]
     # [drivers]: serve_lm's reduced qwen2 (4/2 heads, head_dim 16) at its
     # shortest and longest prompts
-    + [((1, s, 4, 2, 16, True, None, 128, 128), True) for s in (4, 19)])
+    + [((1, s, 4, 2, 16, True, None, 128, 128), True) for s in (4, 19)]
+    # past a 4,096-token window at mixtral's head_dim and blocks: its
+    # queries past 4,096 + a tile skip whole KV tiles below the band; at 6
+    # heads no fp32 KV split, at 2 the split's runs start above tile 0
+    + [((1, 4608, 6, 1, 128, True, 4096, 128, 128), True),
+       ((1, 4608, 2, 1, 128, True, 4096, 128, 128), False)])
 # (case, on the path, q/k/v on 16-byte boundaries): the cases above
 # aligned, then head_dim 6 and 18 (D % 4 != 0: fp32's 4-byte copies, bf16's
 # scalar loads) and q, k and v one value into their storage at D 128 and
@@ -442,7 +473,7 @@ NOISE = {"float32": 1e-7, "bfloat16": 2 ** -8}
 # same expert sets); xlstm's own noise at depth exceeds the gate (its
 # logits move by O(1) under one bf16 rounding of the input: PERF.md), so
 # its bf16 gate is block by block only (:func:`_lockstep`)
-FREE_BF16_GATE = ("moe", "hybrid", "audio", "vlm")
+FREE_BF16_GATE = ("moe", "hybrid", "audio", "vlm", "swa")
 HYBRID_LAYERS = 5         # jamba's first 5: mamba+mlp, mamba+moe,
                           # mamba+mlp, mamba+moe, attn+mlp
 HYBRID_GATE_PATTERN = (("mamba", "mlp"), ("attn", "mlp"))  # fp32 gate
@@ -451,12 +482,26 @@ VLM_GATE_LAYERS = 2       # the fp32 gate's internvl2: its first 2 layers
                           # (48 in fp32 would not fit the card)
 # whisper's decoder context is 448 tokens, its prompt context 223
 AUDIO_MAX_LEN = 448
+# [serve swa]: mixtral-8x22b, the only sliding-window config (window
+# 4,096), served past its window: its first 4 of 56 layers at full width
+# (10.4 B parameters, 20.8 GB bf16; the cut follows moonshot's and
+# jamba's), the fp32 gate its first 2 (5.4 B, 21.6 GB).  Each SWA layer's
+# cache is a 4,096-slot ring; prompts of 3,072-6,144 tokens in an
+# 8,192-token context, the first fixed at 4,080 so that its decode wraps
+# the ring mid-request
+SWA_ARCH = "mixtral-8x22b"
+SWA_SERVE_LAYERS, SWA_GATE_LAYERS = 4, 2
+SWA_MAX_LEN = 8192
+SWA_FIRST_PROMPT = 4080
 # (arch, requests, prompt lengths drawn in, new tokens each, max_len)
 FAMILY_SERVE = {"moe": (MOE_ARCH, 16, (128, 1024), 32, LM_MAX_LEN),
                 "ssm": (SSM_ARCH, 8, (64, 256), 32, LM_MAX_LEN),
                 "hybrid": (HYBRID_ARCH, 8, (128, 512), 16, LM_MAX_LEN),
                 "audio": (AUDIO_ARCH, 16, (4, 223), 64, AUDIO_MAX_LEN),
-                "vlm": (VLM_ARCH, 8, (64, 512), 32, LM_MAX_LEN)}
+                "vlm": (VLM_ARCH, 8, (64, 512), 32, LM_MAX_LEN),
+                "swa": (SWA_ARCH, 8, (3072, 6144), 32, SWA_MAX_LEN)}
+# a family's first prompt lengths where they are fixed, not drawn
+FIXED_PROMPTS = {"swa": (SWA_FIRST_PROMPT,)}
 # [train audio]: whisper-base bf16 training steps, 8 x 448 text tokens
 # and 8 x 1500 frames a step
 AUDIO_TRAIN_BATCH, AUDIO_TRAIN_STEPS = 8, 10
@@ -487,8 +532,13 @@ DRIVER_TRAIN_ARCH, DRIVER_TRAIN_ROWS = "smollm-360m", 8 * 128
 DRIVER_TRAIN_STEPS = 20
 # the gates' prompt lengths, where not the served ones: xlstm's prefill is
 # one Python step a token and layer (~20 ms a token), and its gates run 11
-# prefills a prompt
-GATE_PROMPT = {"ssm": (64, 128)}
+# prefills a prompt; mixtral's past its window, so that the window binds
+# and whole KV tiles below it are skipped, and the prefill rotates the ring
+GATE_PROMPT = {"ssm": (64, 128), "swa": (4608, 5120)}
+# configs whose kernel layouts the checks hold at their full width but
+# which no phase serves (they run qwen2's code path): their flash templates
+# and RMSNorm layouts over prompts up to LM_PROMPT[1] tokens
+HELD_ONLY = ("minitron-4b", "qwen1.5-4b", "smollm-360m")
 # the port's kernels as the profiler names them
 PORT_KERNEL_NAMES = ("gemm_f32_kernel", "splitk_sum_kernel",
                      "gemm_bf16_kernel", "flash_mma_kernel",
@@ -606,13 +656,17 @@ def lm_rmsnorm_layouts() -> dict:
     (bf16 serving, the fp32 gates) for 1 row to its longest prefill's (a
     vision prefix + its longest prompt, or an encoder's frames) or the
     family training phases' step (forward and the backward's recompute),
-    and ``[drivers]``' reduced models (serve_lm's prompts, train_lm's
-    step): (d, dtype, 16-byte copies, warps a row, slots a lane, rows a
-    block) -> the rows that run it."""
+    ``[drivers]``' reduced models (serve_lm's prompts, train_lm's
+    step), and the HELD_ONLY configs over LM_PROMPT: (d, dtype, 16-byte
+    copies, warps a row, slots a lane, rows a block) -> the rows that run
+    it."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import rmsnorm as RN
     widths = {lm_config(torch.bfloat16).d_model: LM_PROMPT[1]}
+    for arch in HELD_ONLY:
+        d = get_config(arch).d_model
+        widths[d] = max(widths.get(d, 0), LM_PROMPT[1])
     for arch, _, prompt, _, _ in FAMILY_SERVE.values():
         cfg = get_config(arch)
         rows = max(cfg.vision_prefix + prompt[1], cfg.enc_seq)
@@ -639,8 +693,9 @@ def lm_flash_geometries() -> dict:
     """The flash templates the LM paths run (bf16 serving, the fp32 gates)
     in each served attention model's prefills, from 1 token to its longest
     (a vision prefix + its longest prompt, or an encoder's frames), at the
-    blocks the model asks for, and serve_lm's reduced qwen2 in
-    ``[drivers]``: (bq, bk, dp, dtype) -> the (head_dim, S) that run it."""
+    blocks the model asks for, serve_lm's reduced qwen2 in ``[drivers]``,
+    and the HELD_ONLY configs over LM_PROMPT: (bq, bk, dp, dtype) -> the
+    (head_dim, S) that run it."""
     import inspect
     import torch
     from repro_torch.configs import get_config
@@ -650,6 +705,7 @@ def lm_flash_geometries() -> dict:
     block_q, block_k = ask["block_q"].default, ask["block_k"].default
     models = [(lm_config(torch.bfloat16), LM_PROMPT[1]),
               (get_config(LM_ARCH, reduced=True), DRIVER_PROMPT_MAX)]
+    models += [(get_config(arch), LM_PROMPT[1]) for arch in HELD_ONLY]
     for arch, _, prompt, _, _ in FAMILY_SERVE.values():
         cfg = get_config(arch)
         if cfg.enc_dec or any(m in ("attn", "swa") for m, _ in cfg.pattern):
@@ -1203,10 +1259,12 @@ def phase_time_flash_fp32(dev, calls) -> dict:
     ``device_ms``, the plain version by CUDA events over one call (its
     output holds the kernel's at FP32_TOL), and the bound: the fp32
     operations over the 67 TFLOP/s FMA peak against q, k, v read and o
-    written once.  Totals over the launches; then the CUDA kernels the
-    profiler sees SDPA fp32 run, one call a shape."""
+    written once.  A windowed shape's SDPA takes the band as a boolean
+    mask and its operations count the pairs inside the band
+    (:func:`sdpa_call`, :func:`attention_flops`).  Totals over the
+    launches; then the CUDA kernels the profiler sees SDPA fp32 run, one
+    call a shape."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     rows, sdpa_calls = [], []
@@ -1222,13 +1280,9 @@ def phase_time_flash_fp32(dev, calls) -> dict:
         diff, rel = rel_err(got, want)
         check(rel <= FP32_TOL, f"flash fp32 {qshape} {hkv}: rel err "
                                f"{rel:.3g}")
-        check(window is None, f"flash fp32 {qshape}: a window, which the "
-                              f"SDPA yardstick here does not take")
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
-                                 is_causal=causal, enable_gqa=True)
+        sdpa = sdpa_call(q, k, v, causal, window)
         sdpa_calls.append(sdpa)
-        flops = 2.0 * b * hq * d * (s * (s + 1) if causal else 2 * s * s)
+        flops = attention_flops(b, s, hq, d, causal, window)
         row = {"shape": [b, s, hq, hkv, d], "causal": causal,
                "window": window, "launches": n,
                "run": [geom.bq, geom.bk, geom.dp], "kv_chunk": geom.kv_chunk,
@@ -1241,7 +1295,8 @@ def phase_time_flash_fp32(dev, calls) -> dict:
                        / HBM_BYTES_PER_S * 1e3)}
         rows.append(row)
         log(f"[time flash fp32] {row['shape']}"
-            f"{' causal' if causal else ' non-causal'} x{n} launches "
+            f"{' causal' if causal else ' non-causal'}"
+            f"{'' if window is None else f' window {window}'} x{n} launches "
             f"run={row['run']} kv_chunk={geom.kv_chunk}: kernel "
             f"{row['ms']:.4f} ms, SDPA fp32 "
             f"{row['library_ms']:.4f} ms, plain {plain_ms:.2f} ms, bound "
@@ -1806,10 +1861,11 @@ def attention_layers(cfg) -> int:
 
 def phase_serve(dev, params, cfg, tag="[serve]", arch=LM_ARCH,
                 n_requests=LM_REQUESTS, prompt=LM_PROMPT, new=LM_NEW,
-                seed=SEED + 5, max_len=LM_MAX_LEN):
+                seed=SEED + 5, max_len=LM_MAX_LEN, fixed=()):
     """The serving path: ``Server(n_slots=8, max_len)`` in bf16 serves
-    ``n_requests`` requests (prompts drawn in ``prompt``, ``new`` new
-    tokens each; qwen2-1.5b's: 16, 128-1024, 32, max_len 2048).  The
+    ``n_requests`` requests (prompts drawn in ``prompt``, the first ones
+    of length ``fixed`` where given, ``new`` new tokens each;
+    qwen2-1.5b's: 16, 128-1024, 32, max_len 2048).  The
     RMSNorm and flash launch counts are set to 0 just before and read just
     after, and checked step by step: each prefill launches flash
     :func:`attention_layers` times and RMSNorm :func:`norms_per_pass`
@@ -1826,6 +1882,7 @@ def phase_serve(dev, params, cfg, tag="[serve]", arch=LM_ARCH,
     srv.run_until_drained()                     # warm-up, not counted
     rng = np.random.default_rng(seed)
     lens = rng.integers(prompt[0], prompt[1] + 1, size=n_requests)
+    lens[:len(fixed)] = fixed
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=int(n))
                     .astype(np.int32), max_new_tokens=new)
             for i, n in enumerate(lens)]
@@ -2281,6 +2338,42 @@ def bound(t_ops, t_bytes) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def attention_flops(b, s, hq, d, causal, window) -> float:
+    """The operations attention needs: 2 GEMMs (2 operations a
+    multiply-add) over the (query, key) pairs the mask keeps: all S^2, the
+    S(S+1)/2 causal ones, or within a window of w keys min(row + 1, w) a
+    row."""
+    if not causal:
+        pairs = s * s
+    elif window is None or window >= s:
+        pairs = s * (s + 1) // 2
+    else:
+        pairs = window * (window + 1) // 2 + (s - window) * window
+    return 4.0 * b * hq * d * pairs
+
+
+def sdpa_call(q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call of the same function on
+    (B, S, H, D) operands (transposed here, outside the call): ``is_causal``
+    without a window; with one, the band (causal and col > row - window) as
+    an explicit boolean ``attn_mask``, since ``is_causal`` cannot carry a
+    window."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window is None:
+        return functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                                 is_causal=causal, enable_gqa=True)
+    s = q.shape[1]
+    rows = torch.arange(s, device=q.device)[:, None]
+    cols = torch.arange(s, device=q.device)[None]
+    band = cols > rows - window
+    if causal:
+        band &= cols <= rows
+    return functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                             attn_mask=band, enable_gqa=True)
+
+
 def time_rmsnorm(randn, rows, d) -> dict:
     """The RMSNorm kernel at (rows, d) from ``randn``: kernel and
     ``F.rms_norm`` by device_ms, the plain version by CUDA events, and the
@@ -2301,6 +2394,8 @@ def log_row(name, r, launches=None) -> None:
              if "run" in r else "")
     times = "" if launches is None else f" x{launches} launches"
     mask = {True: " causal", False: " non-causal"}.get(r.get("causal"), "")
+    if r.get("window") is not None:
+        mask += f" window {r['window']}"
     log(f"[time] {name} {r['shape']}{mask} bf16{times}:{extra} kernel "
         f"{r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, plain "
         f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms "
@@ -2357,12 +2452,13 @@ def time_serve_kernels(dev, cfg, serve, seed=SEED + 6,
     length, a vision prefix included, and an encoder's frames: its norms'
     rows and its non-causal flash; (8, d_model) rows for the decode
     steps' norms).  Returns ([(kernel, totals)] for the kernels the run
-    launched, and the shapes' row functions, ``randn``)."""
+    launched, and the shapes' row functions, ``randn``).  A sliding-window
+    layer's flash is timed with its window: the kernel, its plain version,
+    a banded SDPA and a band-counted bound (:func:`sdpa_call`,
+    :func:`attention_flops`)."""
     import collections
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import rmsnorm as RN
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt, d = torch.bfloat16, cfg.d_model
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -2371,28 +2467,25 @@ def time_serve_kernels(dev, cfg, serve, seed=SEED + 6,
 
     rmsnorm_row = lambda rows: time_rmsnorm(randn, rows, d)
 
-    def flash_row(s, causal=True) -> dict:
+    def flash_row(s, causal=True, window=None) -> dict:
         q, k, v = randn(1, s, hq, hd), randn(1, s, hkv, hd), randn(1, s, hkv,
                                                                    hd)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         geom = FA.legalize(128, 128, s, hd, dt)
-        # 2 GEMMs over the S(S+1)/2 causal pairs, or all S^2
-        flops = 2.0 * hq * hd * (s * (s + 1) if causal else 2 * s * s)
+        flops = attention_flops(1, s, hq, hd, causal, window)
         row = {"shape": [1, s, hq, hkv, hd], "causal": causal,
-               "run": [geom.bq, geom.bk, geom.dp],
-               "ms": device_ms(lambda: FA.flash_attention(q, k, v, causal)),
+               "window": window, "run": [geom.bq, geom.bk, geom.dp],
+               "ms": device_ms(lambda: FA.flash_attention(q, k, v, causal,
+                                                          window)),
                "plain_ms": cuda_ms(lambda: FA.flash_attention_plain(
-                   q, k, v, causal, None, hd ** -0.5, geom), reps=1),
-               "library_ms": device_ms(
-                   lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=causal, enable_gqa=True)),
+                   q, k, v, causal, window, hd ** -0.5, geom), reps=1),
+               "library_ms": device_ms(sdpa_call(q, k, v, causal, window)),
                **bound(flops / BF16_FLOPS * 1e3,
                        2.0 * s * hd * (2 * hq + 2 * hkv)
                        / HBM_BYTES_PER_S * 1e3)}
         row["tflops"] = flops / row["ms"] / 1e9
         return row
 
-    # rmsnorm shapes by rows; flash shapes by (S, causal)
+    # rmsnorm shapes by rows; flash shapes by (S, causal, window)
     step_norms = norms_per_pass(cfg, prefill=False)
     enc_flashes = cfg.n_enc_layers if cfg.enc_dec else 0
     counts = {"rmsnorm": collections.Counter(), "flash_attention":
@@ -2400,11 +2493,14 @@ def time_serve_kernels(dev, cfg, serve, seed=SEED + 6,
     for n in serve["prompt_lens"]:
         s = cfg.vision_prefix + n
         counts["rmsnorm"][s] += step_norms
-        counts["flash_attention"][(s, True)] += (attention_layers(cfg)
-                                                 - enc_flashes)
+        for mixer, _ in cfg.layer_kinds():
+            if mixer in ("attn", "swa"):
+                counts["flash_attention"][(s, True, cfg.swa_window
+                                           if mixer == "swa" else None)] += 1
         if cfg.enc_dec:
             counts["rmsnorm"][cfg.enc_seq] += encoder_norms(cfg)
-            counts["flash_attention"][(cfg.enc_seq, False)] += enc_flashes
+            counts["flash_attention"][(cfg.enc_seq, False, None)] += \
+                enc_flashes
     counts["rmsnorm"][LM_SLOTS] += step_norms * serve["decodes"]
     kernels = []
     for name, row_fn in (("rmsnorm", rmsnorm_row),
@@ -3446,7 +3542,8 @@ def family_config(kind: str, dtype, gate: bool = False):
     jamba's width over HYBRID_GATE_PATTERN; whisper's gate is the whole
     model.  The served jamba is its first HYBRID_LAYERS layers, the
     served xlstm its first SSM_SERVE_LAYERS, the served moonshot its first
-    MOE_SERVE_LAYERS."""
+    MOE_SERVE_LAYERS, the served mixtral its first SWA_SERVE_LAYERS (its
+    gate its first SWA_GATE_LAYERS)."""
     from repro_torch.configs import get_config
     cfg = get_config(FAMILY_SERVE[kind][0]).with_(dtype=dtype,
                                                   param_dtype=dtype)
@@ -3455,14 +3552,12 @@ def family_config(kind: str, dtype, gate: bool = False):
                    else cfg.pattern[:HYBRID_LAYERS])
         return cfg.with_(pattern=pattern, n_layers=len(pattern))
     cut = {"moe": MOE_GATE_LAYERS, "ssm": SSM_GATE_LAYERS,
-           "vlm": VLM_GATE_LAYERS}
+           "vlm": VLM_GATE_LAYERS, "swa": SWA_GATE_LAYERS}
     if gate and kind in cut:
         return cfg.with_(n_layers=cut[kind])
-    if kind == "ssm":
-        return cfg.with_(n_layers=SSM_SERVE_LAYERS)
-    if kind == "moe":
-        return cfg.with_(n_layers=MOE_SERVE_LAYERS)
-    return cfg
+    served = {"ssm": SSM_SERVE_LAYERS, "moe": MOE_SERVE_LAYERS,
+              "swa": SWA_SERVE_LAYERS}
+    return cfg.with_(n_layers=served[kind]) if kind in served else cfg
 
 
 def _noise(params, cfg, prompts, dev, eps: float, frontends=None) -> float:
@@ -3664,7 +3759,15 @@ def phase_serve_family(dev, kind: str) -> dict:
             del params
             torch.cuda.empty_cache()
     serve = phase_serve(dev, params, cfg, tag, arch, n_requests, prompt, new,
-                        seed, max_len)
+                        seed, max_len, FIXED_PROMPTS.get(kind, ()))
+    if cfg.swa_window is not None:
+        serve["ring_cases"] = ring_cases(cfg, serve["prompt_lens"], new,
+                                         max_len)
+        log(f"{tag} the {min(max_len, cfg.swa_window)}-slot ring caches "
+            f"over the served prompts {serve['prompt_lens']}: "
+            f"{serve['ring_cases']}")
+        check(all(serve["ring_cases"].values()), f"{tag} the traffic missed "
+              f"a ring case: {serve['ring_cases']}")
     # a prefilled position: a prompt token, or a vision prefix's patch
     per_tok = [1e3 * t / (cfg.vision_prefix + n)
                for t, n in zip(serve["prefill_s"], serve["prompt_lens"])]
@@ -3709,6 +3812,20 @@ def phase_serve_family(dev, kind: str) -> dict:
             "decode_floor_ms": floor_ms, "weight_bytes": weight_bytes,
             "peak_mem_bytes": peak, "profile": profile,
             "kernels": dict(kernels)}
+
+
+def ring_cases(cfg, lens, new: int, max_len: int) -> dict:
+    """How the served prompts meet a sliding-window model's ring caches
+    (``min(max_len, window)`` slots a layer): a prompt whose decode steps
+    (positions n to n + new - 2) stay inside it never wraps it, one that
+    fits but whose decode passes it wraps it mid-request, and one longer
+    than it makes the prefill keep its last tokens rotated."""
+    c = min(max_len, cfg.swa_window)
+    out = {"no_wrap": 0, "wrap_in_decode": 0, "prefill_rotates": 0}
+    for n in lens:
+        out["prefill_rotates" if n > c else "wrap_in_decode"
+            if n + new - 2 >= c else "no_wrap"] += 1
+    return out
 
 
 def _leaves(tree):

@@ -103,9 +103,12 @@ class ShardedFlopCounter(FlopCounterMode):
     """``FlopCounterMode`` whose count divides each op's FLOPs by the
     largest model-axis factor among its tensor operands (module
     docstring).  ``factors``: (tensor, factor) pairs of the sharded
-    leaves; with none, the count is ``FlopCounterMode``'s."""
+    leaves; with none, the count is ``FlopCounterMode``'s.  ``record``:
+    a dict that, where given, gathers every tensor the run allocates
+    (those counted towards ``peak``) by (aten op, dtype, dims at the
+    per-device batch, model-axis factor) -> [bytes a device, count]."""
 
-    def __init__(self, factors=()):
+    def __init__(self, factors=(), record: Optional[dict] = None):
         super().__init__(display=False)
         self.factor = WeakIdKeyDictionary()
         self.weight = WeakIdKeyDictionary()    # parameters, views, casts
@@ -116,11 +119,12 @@ class ShardedFlopCounter(FlopCounterMode):
         self.n_ops = 0
         self.live = self.peak = 0.0
         self._owned = WeakIdKeyDictionary()
+        self.record = record
 
     def _free(self, nbytes: float) -> None:
         self.live -= nbytes
 
-    def _own(self, t: torch.Tensor, f: int) -> None:
+    def _own(self, t: torch.Tensor, f: int, op=None) -> None:
         """Count a tensor the run allocated (not a view, not an in-place
         result) as live, a device's share of it, until it is freed."""
         if t._base is not None or t in self._owned:
@@ -130,6 +134,11 @@ class ShardedFlopCounter(FlopCounterMode):
         self.live += nbytes
         self.peak = max(self.peak, self.live)
         weakref.finalize(t, self._free, nbytes)
+        if self.record is not None:
+            got = self.record.setdefault(
+                (str(op), t.dtype, tuple(t.shape), f), [0.0, 0])
+            got[0] += nbytes
+            got[1] += 1
 
     def _count_flops(self, func_packet, out, args, kwargs):
         self.n_ops += 1
@@ -163,7 +172,7 @@ class ShardedFlopCounter(FlopCounterMode):
             if ins and all(weights) and not dot:
                 self.weight[t] = True
             if not inplace:
-                self._own(t, f)
+                self._own(t, f, func_packet)
         return out
 
 
@@ -201,10 +210,14 @@ def _train_config(settings: Dict[str, Any]):
 
 
 def _count(cfg, shape: ShapeCell, mesh: SH.Mesh, rules, settings,
-           b_loc: int) -> Dict[str, float]:
+           b_loc: int, record: Optional[dict] = None,
+           tc=None) -> Dict[str, float]:
     """One counted run of the cell's step at per-device batch ``b_loc``
     on ``meta``: its dot FLOPs, the ops it dispatched and the peak bytes
-    of the tensors it allocated (a device's share of each)."""
+    of the tensors it allocated (a device's share of each).  ``record``
+    and ``tc`` (a training step's ``TrainConfig``, default
+    :func:`_train_config`'s) pass to :class:`ShardedFlopCounter` and
+    the step."""
     from repro_torch.train import steps as S
     params = T.abstract_params(cfg)
     sh = SH.param_shardings(params, mesh, cfg, rules)
@@ -212,20 +225,20 @@ def _count(cfg, shape: ShapeCell, mesh: SH.Mesh, rules, settings,
         SH.tree_leaves(params), SH.tree_leaves(sh))]
     spec = input_specs(cfg, shape, batch_override=b_loc)
     if shape.kind == "train":
-        tc = _train_config(settings)
+        tc = tc or _train_config(settings)
         opt = S.make_optimizer(tc, params)
         step = S.train_step_fn(cfg, tc, use_kernel=False)
-        with ShardedFlopCounter(factors) as fc:
+        with ShardedFlopCounter(factors, record) as fc:
             step(params, opt, spec)
     elif shape.kind == "prefill":
-        with torch.no_grad(), ShardedFlopCounter(factors) as fc:
+        with torch.no_grad(), ShardedFlopCounter(factors, record) as fc:
             T.prefill(params, spec, cfg, shape.seq, use_kernel=False)
     else:
         cache = spec["cache"]
         csh = SH.cache_shardings(cache, mesh, cfg, rules)
         factors += [(t, _tp_factor(s, rules.tp_axis)) for t, s in zip(
             SH.tree_leaves(cache), SH.tree_leaves(csh))]
-        with torch.no_grad(), ShardedFlopCounter(factors) as fc:
+        with torch.no_grad(), ShardedFlopCounter(factors, record) as fc:
             T.decode_step(params, cache, spec["tokens"], cfg,
                           use_kernel=False, kv_len=shape.seq)
     return {"dot_flops": float(fc.get_total_flops()), "n_ops": fc.n_ops,

@@ -23,7 +23,8 @@ bytes:
   * ``argument_size_in_bytes``: the step's inputs under their placements:
     the parameters (``param_bytes_per_device``), for training Adam's two
     moments placed as the parameters, the batch's share, for decode the
-    cache's share (``cache_shardings``);
+    cache's share (``cache_shardings``: the per-device batch's rows, the
+    kv heads over the model axis);
   * ``output_size_in_bytes``: what the step hands back: the updated
     parameters and moments (training), or the last logits (vocab-sharded
     by the LM head's placement) and the decode cache;
@@ -43,10 +44,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -68,19 +70,42 @@ def _bytes(tree) -> int:
                for t in SH.tree_leaves(tree))
 
 
+def local_dims(leaf, sharding: SH.NamedSharding,
+               batch_local: bool = False) -> Tuple[int, ...]:
+    """A leaf's dims on one device under its placement: each dim divided
+    by the product of its mesh axes.  ``batch_local``: the leaf is already
+    at the per-device batch (``input_specs(..., batch_override=b_loc)``),
+    so dim 0's data axes are not taken a second time."""
+    dims = [int(d) for d in leaf.shape]
+    for d, axes in enumerate(sharding.spec):
+        if not (batch_local and d == 0):
+            dims[d] //= SH.axis_size(sharding.mesh, axes)
+    return tuple(dims)
+
+
+def _local_bytes(tree, shardings, batch_local: bool = False) -> int:
+    return sum(math.prod(local_dims(t, s, batch_local)) * t.element_size()
+               for t, s in zip(SH.tree_leaves(tree),
+                               SH.tree_leaves(shardings)))
+
+
 def memory_estimate(cfg, shape, mesh: SH.Mesh, rules: SH.ShardingRules,
-                    b_loc: int, moment_bytes: int = 2) -> Dict[str, int]:
+                    b_loc: int, moment_bytes: Optional[int] = 2
+                    ) -> Dict[str, int]:
     """The artifact's argument and output bytes a device (module
-    docstring)."""
+    docstring).  ``moment_bytes``: the bytes of a moment's value, or None
+    for moments in each parameter's own dtype (``TrainConfig()``'s).  The
+    cache is built at the per-device batch ``b_loc``, so its placement
+    cuts only its other dims (the kv heads over the model axis)."""
     params = T.abstract_params(cfg)
     psh = SH.param_shardings(params, mesh, cfg, rules)
     p_bytes = SH.param_bytes_per_device(params, psh)
     spec = input_specs(cfg, shape, batch_override=b_loc)
     if shape.kind == "train":
-        n_local = sum(
+        moments = 2 * sum(
             int(np.prod(t.shape)) // SH.shard_factor(s)
+            * (moment_bytes or t.element_size())
             for t, s in zip(SH.tree_leaves(params), SH.tree_leaves(psh)))
-        moments = 2 * n_local * moment_bytes
         batch = _bytes(spec)
         return {"argument_size_in_bytes": p_bytes + moments + batch,
                 "output_size_in_bytes": p_bytes + moments}
@@ -88,8 +113,9 @@ def memory_estimate(cfg, shape, mesh: SH.Mesh, rules: SH.ShardingRules,
     logits = b_loc * cfg.vocab // m * 4
     cache = (T.init_cache(cfg, b_loc, shape.seq, device="meta")
              if shape.kind == "prefill" else spec["cache"])
-    c_bytes = SH.param_bytes_per_device(
-        cache, SH.cache_shardings(cache, mesh, cfg, rules))
+    c_bytes = _local_bytes(cache, SH.cache_shardings(cache, mesh, cfg,
+                                                      rules),
+                           batch_local=True)
     if shape.kind == "prefill":     # the cache is an output only
         return {"argument_size_in_bytes": p_bytes + _bytes(spec),
                 "output_size_in_bytes": logits + c_bytes}

@@ -507,11 +507,17 @@ def cross_attention_block(x: torch.Tensor, p: Params, cfg,
     block's norm (``use_kernel``: the RMSNorm kernel) and ``wq``, no rope;
     ``kv``: an encoder's (B, Sk, HKV, D) keys and values.  Non-causal,
     through :func:`chunked_attention` on every path (Sk is not q's
-    length).  Returns x + the attention output."""
+    length), DTensor operands on each rank's heads (:func:`local_heads`).
+    Returns x + the attention output."""
     b, s, _ = x.shape
     h = rmsnorm(x, p["ln"], use_kernel=use_kernel)
     q = heads(h, p, "q", cfg.n_heads, cfg.head_dim)
-    out = chunked_attention(q, *kv, causal=False, chunk=cfg.attn_chunk)
+
+    def attend(ql, kl, vl):
+        return chunked_attention(ql, kl, vl, causal=False,
+                                 chunk=cfg.attn_chunk)
+    out = (local_heads(attend, q, kv, cfg.n_heads, cfg.n_kv_heads)
+           if isinstance(q, DTensor) else attend(q, *kv))
     return x + dense(out.reshape(b, s, -1), p["wo"])
 
 

@@ -275,10 +275,17 @@ def init_mlstm_state(batch: int, n_heads: int, dh: int,
                      torch.full((batch, n_heads), NEG_INF, **f32))
 
 
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log(sigmoid(x)) as the reference computes it, -softplus(-x) with
+    softplus(y) = logaddexp(y, 0), from ops DTensor shards forward and
+    backward (``aten.log_sigmoid_backward`` has no sharding strategy)."""
+    return -torch.logaddexp(-x, torch.zeros_like(x))
+
+
 def _mlstm_step(st: LstmState, q, k, v, i_pre, f_pre):
     """One mLSTM cell step. q/k/v: (B,H,dh); i/f pre-activations: (B,H)."""
     dh = q.shape[-1]
-    f_log = F.logsigmoid(f_pre)
+    f_log = log_sigmoid(f_pre)
     m_new = torch.maximum(f_log + st.m, i_pre)
     i_g = torch.exp(i_pre - m_new)
     f_g = torch.exp(f_log + st.m - m_new)
@@ -387,7 +394,7 @@ def _slstm_step(p: Params, n_heads: int, st: SlstmState, x_t):
         return x_t[g] + rec + p[f"b{g}"]
 
     i_pre, f_pre, z_pre, o_pre = (gate(g) for g in "ifzo")
-    f_log = F.logsigmoid(f_pre)
+    f_log = log_sigmoid(f_pre)
     m_new = torch.maximum(f_log + st.m, i_pre)
     i_g = torch.exp(i_pre - m_new)
     f_g = torch.exp(f_log + st.m - m_new)

@@ -90,10 +90,7 @@ def sharded_steps(rank: int, world: int, tmp: str) -> dict:
     beside ``prefill`` / ``decode_step``."""
     from repro_torch.configs import get_config
     from repro_torch.dist import sharding as SH
-    from repro_torch.launch.mesh import make_device_mesh
-    from repro_torch.models import transformer as T
     from repro_torch.train import steps as S
-    from repro_torch.train.checkpoint import flatten
     cfg = _fp32(get_config("qwen2-1.5b", reduced=True))
     tcs = {n: S.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
                             grad_accum=n) for n in (1, 2)}
@@ -105,11 +102,32 @@ def sharded_steps(rank: int, world: int, tmp: str) -> dict:
               for _ in range(3)]
     max_len = 40
 
-    unsharded = {}
-    for n, tc in tcs.items():
-        p0 = T.init_params(0, cfg, device="cpu")
-        unsharded[n] = (p0, S.train_step_fn(cfg, tc)(
-            p0, S.make_optimizer(tc, p0), batch))
+    unsharded = {n: _unsharded_train(cfg, tc, batch)
+                 for n, tc in tcs.items()}
+    serve0 = _unsharded_serve(cfg, prompts, decode, max_len)
+    out = {}
+    for name, shape, rules_kw, accum in SHARDED_CASES:
+        out[name] = _sharded_vs_unsharded(
+            cfg, tcs[accum], shape, SH.ShardingRules(**rules_kw), batch,
+            prompts, decode, max_len, unsharded[accum], serve0)
+    return out
+
+
+def _unsharded_train(cfg, tc, batch) -> tuple:
+    """``init_params(0)`` after one unsharded ``train_step_fn`` step: the
+    parameters, the optimizer and the step's metrics."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as S
+    p0 = T.init_params(0, cfg, device="cpu")
+    opt = S.make_optimizer(tc, p0)
+    return p0, opt, S.train_step_fn(cfg, tc)(p0, opt, batch)
+
+
+def _unsharded_serve(cfg, prompts, decode, max_len) -> tuple:
+    """``init_params(0)``, and from it the unsharded prefill's logits and
+    a decode step's a token of ``decode``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as S
     p_init = T.init_params(0, cfg, device="cpu")
     logits0, cache0 = S.prefill_fn(cfg, max_len)(p_init, prompts)
     step0 = S.serve_step_fn(cfg)
@@ -117,45 +135,123 @@ def sharded_steps(rank: int, world: int, tmp: str) -> dict:
     for tok in decode:
         out, cache0 = step0(p_init, cache0, tok)
         dec0.append(out)
-    out = {}
-    for name, shape, rules_kw, accum in SHARDED_CASES:
-        mesh = make_device_mesh(shape, "cpu")
-        rules = SH.ShardingRules(**rules_kw)
-        tc, (p0, m0) = tcs[accum], unsharded[accum]
-        scale = max(float(t.detach().abs().max()) for _, t in flatten(p0))
-        make, sh = S.build_sharded_train_step(cfg, tc, mesh, rules)
-        p1 = SH.distribute_tree(T.init_params(0, cfg, device="cpu"),
-                                sh["params"], mesh)
-        opt = S.make_optimizer(tc, p1)
-        m1 = make(batch)(p1, opt, batch)
-        param_err, shapes_ok, moments_ok, sharded = 0.0, True, True, 0
-        for ((key, a), (_, b)), (_, ns), mu in zip(
-                zip(flatten(p0), flatten(p1)), flatten(sh["params"]),
-                opt.mu):
-            param_err = max(param_err, float(
-                (a.detach() - b.detach().full_tensor()).abs().max()) / scale)
-            want = [n // SH.axis_size(shape, ax)
-                    for n, ax in zip(a.shape, ns.spec)]
-            shapes_ok &= list(b.to_local().shape) == want
-            moments_ok &= tuple(mu.placements) == tuple(b.placements)
-            sharded += b.to_local().numel() < b.numel()
-        make_p, _ = S.build_sharded_prefill(cfg, mesh, max_len, rules)
-        p2 = SH.distribute_tree(p_init, sh["params"], mesh)
-        logits1, cache1 = make_p(prompts)(p2, prompts)
-        serve, _ = S.build_sharded_serve_step(cfg, mesh, rules, batch=4,
-                                              max_len=max_len)
-        dec_err = 0.0
-        for tok, want in zip(decode, dec0):
-            got, cache1 = serve(p2, cache1, tok)
-            dec_err = max(dec_err, _rel(got, want))
-        out[name] = {
-            "loss_rel": abs(float(m1["loss"]) / float(m0["loss"]) - 1),
+    return p_init, logits0, dec0
+
+
+def _sharded_vs_unsharded(cfg, tc, shape, rules, batch, prompts, decode,
+                          max_len, unsharded, serve0) -> dict:
+    """One ``build_sharded_train_step`` step, ``build_sharded_prefill`` and
+    a ``build_sharded_serve_step`` step a token of ``decode`` on ``shape``,
+    against the unsharded step (``unsharded``: the parameters, optimizer
+    and metrics :func:`_unsharded_train` gives) and the unsharded prefill's
+    and decode steps' logits (``serve0``: :func:`_unsharded_serve`'s), all
+    from the parameters ``init_params(0)``.
+
+    Beside the largest parameter error against the model's largest
+    parameter (``param_err``, at the leaf ``param_err_leaf``) it reports
+    the same over the elements whose unsharded gradient is at least
+    :data:`ADAM_WELL_POSED` x Adam's eps (``param_err_well_posed``):
+    below that, Adam's first update lr * g / (|g| + eps) moves by up to
+    lr / eps per unit of g, so the gradient's rounding is all that the
+    update shows."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as S
+    from repro_torch.train.checkpoint import flatten
+    p0, o0, m0 = unsharded
+    p_init, logits0, dec0 = serve0
+    mesh = make_device_mesh(shape, "cpu")
+    scale = max(float(t.detach().abs().max()) for _, t in flatten(p0))
+    make, sh = S.build_sharded_train_step(cfg, tc, mesh, rules)
+    p1 = SH.distribute_tree(T.init_params(0, cfg, device="cpu"),
+                            sh["params"], mesh)
+    opt = S.make_optimizer(tc, p1)
+    m1 = make(batch)(p1, opt, batch)
+    param_err, worst, shapes_ok, moments_ok, sharded = 0.0, "", True, True, 0
+    posed_err = 0.0
+    for ((key, a), (_, b)), (_, ns), mu, mu0 in zip(
+            zip(flatten(p0), flatten(p1)), flatten(sh["params"]), opt.mu,
+            o0.mu):
+        diff = (a.detach() - b.detach().full_tensor()).abs()
+        if float(diff.max()) / scale > param_err:
+            param_err, worst = float(diff.max()) / scale, key
+        posed = mu0.abs() >= (1 - o0.b1) * ADAM_WELL_POSED * o0.eps
+        if bool(posed.any()):
+            posed_err = max(posed_err, float(diff[posed].max()) / scale)
+        want = [n // SH.axis_size(shape, ax)
+                for n, ax in zip(a.shape, ns.spec)]
+        shapes_ok &= list(b.to_local().shape) == want
+        moments_ok &= tuple(mu.placements) == tuple(b.placements)
+        sharded += b.to_local().numel() < b.numel()
+    make_p, _ = S.build_sharded_prefill(cfg, mesh, max_len, rules)
+    p2 = SH.distribute_tree(p_init, sh["params"], mesh)
+    logits1, cache1 = make_p(prompts)(p2, prompts)
+    serve, _ = S.build_sharded_serve_step(cfg, mesh, rules,
+                                          batch=len(decode[0]),
+                                          max_len=max_len)
+    dec_err = 0.0
+    for tok, want in zip(decode, dec0):
+        got, cache1 = serve(p2, cache1, tok)
+        dec_err = max(dec_err, _rel(got, want))
+    return {"loss_rel": abs(float(m1["loss"]) / float(m0["loss"]) - 1),
             "grad_norm_rel": abs(float(m1["grad_norm"])
                                  / float(m0["grad_norm"]) - 1),
-            "param_err": param_err, "shapes_ok": shapes_ok,
-            "moments_ok": moments_ok, "sharded_leaves": sharded,
+            "param_err": param_err, "param_err_leaf": worst,
+            "param_err_well_posed": posed_err,
+            "shapes_ok": shapes_ok, "moments_ok": moments_ok,
+            "sharded_leaves": sharded,
             "prefill_rel": _rel(logits1, logits0), "decode_rel": dec_err}
-    return out
+
+
+# the gradients, in units of Adam's eps, from which its first update is
+# well posed (its sensitivity to the gradient lr * eps / (|g| + eps)^2 at
+# most lr / (10^4 eps))
+ADAM_WELL_POSED = 100
+
+# the families the sharded builders run beyond the dense one, reduced, on
+# mesh (2, 2): MoE (expert parallel), sliding window (window 16 under a
+# 24-token prompt: the ring cache rotates in the prefill and wraps in
+# decode), Mamba + attention + MoE, mLSTM/sLSTM, encoder-decoder (frames,
+# xk/xv caches), vision prefix (patches)
+FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "mixtral-8x22b",
+                "jamba-1.5-large-398b", "xlstm-1.3b", "whisper-base",
+                "internvl2-26b")
+FAMILY_MESH = {"data": 2, "model": 2}
+
+
+def sharded_families(rank: int, world: int, tmp: str, arch: str) -> dict:
+    """:func:`_sharded_vs_unsharded` on :data:`FAMILY_MESH` for ``arch``'s
+    reduced config in fp32: a train step on 4 x 32 tokens (behind
+    patches, beside frames, drawn from a seed), a prefill of 4 x 24
+    tokens and 3 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as SH
+    from repro_torch.train import steps as S
+    cfg = _fp32(get_config(arch, reduced=True))
+    tc = S.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    gen = torch.Generator().manual_seed(2)
+
+    def inputs(seq, labels):
+        out = {"tokens": torch.randint(0, cfg.vocab, (4, seq),
+                                       generator=gen)}
+        if labels:
+            out["labels"] = torch.randint(0, cfg.vocab, (4, seq),
+                                          generator=gen)
+        for key, n in (("patches", cfg.vision_prefix),
+                       ("frames", cfg.enc_seq if cfg.enc_dec else 0)):
+            if n:
+                out[key] = torch.randn((4, n, cfg.d_model), generator=gen)
+        return out
+
+    batch, prompts = inputs(32, True), inputs(24, False)
+    decode = [torch.randint(0, cfg.vocab, (4, 1), generator=gen)
+              for _ in range(3)]
+    max_len = cfg.vision_prefix + 40
+    return _sharded_vs_unsharded(
+        cfg, tc, FAMILY_MESH, SH.ShardingRules(), batch, prompts, decode,
+        max_len, _unsharded_train(cfg, tc, batch),
+        _unsharded_serve(cfg, prompts, decode, max_len))
 
 
 def compression(rank: int, world: int, tmp: str, inputs: str) -> dict:
@@ -287,4 +383,5 @@ def elastic_restore(rank: int, world: int, tmp: str, ckpt: str,
 
 
 JOBS = {"sharded_steps": sharded_steps, "compression": compression,
-        "mesh_trainer": mesh_trainer, "elastic_restore": elastic_restore}
+        "mesh_trainer": mesh_trainer, "elastic_restore": elastic_restore,
+        "sharded_families": sharded_families}

@@ -232,8 +232,9 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol):
     blocks and tails), the LM's prefill shape, the bf16 tensor-core
     kernel's head_dim templates, windows and ragged tails, every fp32
     template legalize can pick, q, k and v one value off 16 bytes or
-    with D % 4 != 0 (the 4-byte / scalar copies), and fp32 grids with and
-    without the KV split (the split's two kernels count as one launch).
+    with D % 4 != 0 (the 4-byte / scalar copies), fp32 grids with and
+    without the KV split (the split's two kernels count as one launch),
+    and a causal window of 4,096 over 4,608 tokens at head_dim 128.
     Each call launches once and agrees with the plain version, which
     walks the same geometry, to ``tol`` x max |plain|."""
     require_cuda()
@@ -264,6 +265,10 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol):
     cases += [(1, 973, 12, 2, 128, True, None, 128, 128),
               (1, 1000, 4, 2, 64, True, 100, 128, 128),
               (2, 600, 16, 4, 64, True, None, 128, 128)]
+    # past mixtral's 4,096-token window at its head_dim: whole KV tiles
+    # below the band are skipped (fp32 unsplit at 6 heads, split at 2)
+    cases += [(1, 4608, 6, 1, 128, True, 4096, 128, 128),
+              (1, 4608, 2, 1, 128, True, 4096, 128, 128)]
     ran, split = set(), set()
     for b, s, hq, hkv, d, causal, window, bq, bk, *offset in cases:
         def draw(h):

@@ -62,7 +62,8 @@ SLICE_MODULES = (
     "repro_torch.train.steps", "repro_torch.train.checkpoint",
     "repro_torch.train.trainer", "repro_torch.launch.train",
     "repro_torch.launch.mesh", "repro_torch.dist.sharding",
-    # the reference's drivers: examples, benchmarks, make_tables
+    # the reference's drivers: examples, benchmarks, make_tables,
+    # profile_hlo
     "repro_torch.examples", "repro_torch.examples.quickstart",
     "repro_torch.examples.tune_resnet18", "repro_torch.examples.serve_lm",
     "repro_torch.examples.train_lm",
@@ -72,7 +73,7 @@ SLICE_MODULES = (
     "repro_torch.benchmarks.serve_runs",
     "repro_torch.benchmarks.measure_throughput",
     "repro_torch.benchmarks.run", "repro_torch.tools",
-    "repro_torch.tools.make_tables")
+    "repro_torch.tools.make_tables", "repro_torch.tools.profile_hlo")
 
 # the fabric's modules: a spawned measurement worker or a worker daemon
 # loads them and must not pay a torch (or numpy) import; nor does a worker
