@@ -99,10 +99,13 @@ class PendingBatch:
                                         task=o.task,
                                         n=len(self._miss_idx)):
                     lat, feats, extras = self._inflight.collect()
-                for j, i in enumerate(self._miss_idx):
-                    o._remember(self._keys[i], float(lat[j]),
-                                np.asarray(feats[j], np.float32),
-                                extras[j] if extras else None)
+                with obs.current().span("records", cat="records",
+                                        task=o.task,
+                                        n=len(self._miss_idx)):
+                    for j, i in enumerate(self._miss_idx):
+                        o._remember(self._keys[i], float(lat[j]),
+                                    np.asarray(feats[j], np.float32),
+                                    extras[j] if extras else None)
             o.misses += len(self._miss_idx)
             o.hits += self._n_hits
             o.dedup += self._n_dedup

@@ -386,12 +386,14 @@ class Session:
         then runs other tasks' MAPPO/GBT work and only blocks when *all*
         remaining tasks are waiting on measurements.
         """
-        loops = [
-            ArcoLoop(t.space, self.cfg, oracle=self._make_oracle(t),
-                     gbt=shared_gbt if shared_gbt is not None else GBTModel(
-                         n_rounds=self.cfg.gbt_rounds, seed=self.cfg.seed),
-                     use_cs=self.use_cs, task=t.name, device=self.device)
-            for t in self.tasks]
+        loops = []
+        for t in self.tasks:
+            with obs.current().span("task-init", cat="session", task=t.name):
+                loops.append(ArcoLoop(
+                    t.space, self.cfg, oracle=self._make_oracle(t),
+                    gbt=shared_gbt if shared_gbt is not None else GBTModel(
+                        n_rounds=self.cfg.gbt_rounds, seed=self.cfg.seed),
+                    use_cs=self.use_cs, task=t.name, device=self.device))
         self._loops = loops  # live-status snapshots read the trackers
         # Seed all tasks first, collecting (and refitting) in task order;
         # the seed batches of all tasks share the worker pool.

@@ -15,15 +15,25 @@ a Python loop of small tensor ops on the task's device, sampling with the
 Gumbel-max trick on a seeded ``torch.Generator`` and reading nothing back
 to the host, and the PPO epochs use autograd.  On the card that loop
 launches many tiny kernels; its time is recorded, not optimized yet.
+
+Each episode records two spans on the ``mappo-episode`` lane of the ambient
+tracer: ``mappo-rollout`` and ``mappo-ppo`` (GAE and the PPO epochs).  On
+their own lane they leave the self time of the caller's span on the
+session's lane whole.  Their args (``task``, ``it``, ``episode``) come
+from :func:`episode_args`, so ``train_episode`` keeps the six arguments
+that code standing in for it by module attribute takes.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core import agents as A
 from repro_torch.core import cost_model as CM
 from repro_torch.core.design_space import AGENTS, DesignSpace, N_KNOBS
@@ -203,6 +213,21 @@ def ppo_loss(nets: A.MarlNets, traj: Trajectory, advs: torch.Tensor,
     return loss, {"pg": total_pg, "vloss": vloss, "entropy": total_ent}
 
 
+EPISODE_LANE = "mappo-episode"
+_episode_args: contextvars.ContextVar[dict] = contextvars.ContextVar(
+    "mappo_episode_args", default={})
+
+
+@contextlib.contextmanager
+def episode_args(**args):
+    """The span args of the ``train_episode`` calls inside the block."""
+    token = _episode_args.set(args)
+    try:
+        yield
+    finally:
+        _episode_args.reset(token)
+
+
 def make_optimizer(nets: A.MarlNets, hp: MappoConfig) -> Adam:
     return Adam(list(nets.parameters()), lr=hp.lr, grad_clip_norm=1.0)
 
@@ -214,16 +239,19 @@ def train_episode(nets: A.MarlNets, opt: Adam, gen: torch.Generator,
 
     Updates ``nets``/``opt`` in place; returns (visited configs
     (T*E, N_KNOBS) on the device, stats of the last epoch)."""
+    tracer, args = obs.current(), _episode_args.get()
     u = torch.rand((hp.n_envs, N_KNOBS), generator=gen, device=gen.device)
     config0 = (u * env.n_choices).long()
-    traj = rollout(nets, gen, env, forest, config0, hp)
-    advs, returns = gae(traj.rewards, traj.values, traj.last_value,
-                        hp.gamma, hp.gae_lambda)
-    for _ in range(hp.epochs):
-        loss, stats = ppo_loss(nets, traj, advs, returns, env, hp)
-        opt.zero_grad()
-        loss.backward()
-        opt.step()
+    with tracer.span("mappo-rollout", cat="mappo", tid=EPISODE_LANE, **args):
+        traj = rollout(nets, gen, env, forest, config0, hp)
+    with tracer.span("mappo-ppo", cat="mappo", tid=EPISODE_LANE, **args):
+        advs, returns = gae(traj.rewards, traj.values, traj.last_value,
+                            hp.gamma, hp.gae_lambda)
+        for _ in range(hp.epochs):
+            loss, stats = ppo_loss(nets, traj, advs, returns, env, hp)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
     stats = {k: v.detach() for k, v in stats.items()}
     stats.update(loss=loss.detach(), mean_reward=traj.rewards.mean())
     return traj.configs.reshape(-1, N_KNOBS), stats

@@ -184,21 +184,47 @@ class ArcoLoop:
         t_start = time.perf_counter()
         self.it += 1
         cfg = self.cfg
-        with obs.current().span("mappo-update", cat="mappo",
-                                task=self.track.task, it=self.it):
+        tracer, task = obs.current(), self.track.task
+        with tracer.span("forest-export", cat="surrogate", task=task,
+                         it=self.it):
             forest = self.gbt.to_forest(self.device)
-            pool = []
-            for _ in range(cfg.episodes_per_iter):
-                visited, _stats = mappo.train_episode(
-                    self.nets, self.opt, self.gen, self.env, forest,
-                    cfg.mappo)
+        pool = []
+        with tracer.span("mappo-update", cat="mappo", task=task, it=self.it):
+            for k in range(cfg.episodes_per_iter):
+                with mappo.episode_args(task=task, it=self.it, episode=k):
+                    visited, _stats = mappo.train_episode(
+                        self.nets, self.opt, self.gen, self.env, forest,
+                        cfg.mappo)
                 pool.append(visited)
+        # the pool's copy to the host waits for the episodes' device work
+        with tracer.span("pool-dedup", cat="select", task=task, it=self.it):
             pool_np = np.unique(torch.cat(pool).cpu().numpy(), axis=0)
 
         # Confidence Sampling over the explored pool (critic-scored)
-        scores = mappo.critic_scores(
-            self.nets, self.env,
-            torch.as_tensor(pool_np, device=self.device)).cpu().numpy()
+        with tracer.span("critic-score", cat="select", task=task,
+                         it=self.it):
+            scores = mappo.critic_scores(
+                self.nets, self.env,
+                torch.as_tensor(pool_np, device=self.device)).cpu().numpy()
+        with tracer.span("confidence-sampling", cat="select", task=task,
+                         it=self.it):
+            cand = self._select(pool_np, scores, budget)
+        if cand is None:  # search space exhausted
+            self.exhausted = True
+            self.track.add_active(time.perf_counter() - t_start)
+            return False
+
+        batch = self.oracle.measure_async(cand)
+        self.track.add_active(time.perf_counter() - t_start)
+        self._pending = (cand, batch)
+        return True
+
+    def _select(self, pool_np: np.ndarray, scores: np.ndarray,
+                budget: int) -> Optional[np.ndarray]:
+        """This iteration's batch: CS (or the uniform ablation) over the
+        pool, configs this run already measured dropped and topped up from
+        the pool by score; None once nothing new is left."""
+        cfg = self.cfg
         b_floor = max(cfg.b_measure // 8, 1)
         b_sched = max(b_floor, int(round(cfg.b_measure
                                          * cfg.b_growth ** (self.it - 1))))
@@ -212,7 +238,6 @@ class ArcoLoop:
                                      min(n_meas, len(pool_np)),
                                      replace=False)
             cand = pool_np[idx]
-        # drop configs this run already measured; top up from the pool
         cand_list = [c for c in cand if self.track.is_new(c)]
         if len(cand_list) < n_meas:
             seen = {tuple(c) for c in cand_list}
@@ -222,16 +247,9 @@ class ArcoLoop:
                     cand_list.append(c)
                 if len(cand_list) >= n_meas:
                     break
-        if not cand_list:  # search space exhausted
-            self.exhausted = True
-            self.track.add_active(time.perf_counter() - t_start)
-            return False
-        cand = np.asarray(cand_list[:n_meas], np.int64).reshape(-1, N_KNOBS)
-
-        batch = self.oracle.measure_async(cand)
-        self.track.add_active(time.perf_counter() - t_start)
-        self._pending = (cand, batch)
-        return True
+        if not cand_list:
+            return None
+        return np.asarray(cand_list[:n_meas], np.int64).reshape(-1, N_KNOBS)
 
     # -------------------------------------------------------------- result
     def report(self) -> TuneReport:
