@@ -77,11 +77,18 @@ training step, and the reference's examples as the port runs them.
    geometries, the GEMM count set to 0 just before (17 launches), logits
    within 2e-2 of max |logit| of the plain path in bf16; the distances to
    the fp32 forward and to cuDNN bf16 convolutions, the forward's ms
-   three ways and a profile, ungated; ``[time bf16]``: the bf16 GEMM (the
+   three ways and a profile, ungated; 16 of the 17 convs (all but conv1,
+   of 3 channels) take the GEMM's implicit mode, counted on
+   ``gemm.implicit_launches``; ``[time bf16]``: the bf16 GEMM (the
    tensor-core kernel) at the 8 shapes under the tuned geometries and
    ``GemmConfig()`` and at bert-gemm's four GEMM shapes, each held
    against the plain version, by device time beside ``torch.matmul``
-   bf16 and the bytes bound, and the forward's 17 GEMMs both ways;
+   bf16 and the bytes bound, and the forward's 17 GEMMs both ways; then
+   the implicit mode (``gemm.conv``) at the 7 conv shapes it takes under
+   the tuned geometries, each held against the plain version over im2col
+   and, bit for bit, against im2col + the GEMM, by device time beside a
+   cuDNN bf16 conv and a bound that reads x, not the patches, and the
+   forward's 17 GEMMs as it runs them;
 7. ``[baselines]``: random search, AutoTVM and CHAMELEON tune the same 8
    tasks at ARCO's budget and seed; tuning seconds and network latency
    (the analytical TPU v5e model) beside ARCO's; every task ends with the
@@ -1032,6 +1039,11 @@ def bf16_gemm_cases(per_shape) -> list:
     return cases
 
 
+def geometry_key(m, n, k, run, implicit) -> tuple:
+    """What a GEMM launch ran: its (M, N, K), run geometry and mode."""
+    return (m, n, k, tuple(sorted(run.items())), implicit)
+
+
 def phase_time_bf16(dev, per_shape) -> dict:
     """``[time bf16]``: the GEMM with bf16 operands and C (fp32
     accumulation, as the TPU kernel's MXU dot) at :func:`bf16_gemm_cases`.
@@ -1040,9 +1052,11 @@ def phase_time_bf16(dev, per_shape) -> dict:
     over one call, and the bound: the operands read once and C written
     once at 3.35 TB/s against 2 M N K operations at the bf16 tensor-core
     peak; the kernel's output is held against the plain version's at
-    BF16_TOL.  Then the device ms of the forward's 17 GEMMs under the
-    tuned geometries and under ``GemmConfig()``.  Returns the rows, those
-    totals and the (M, N, K, run geometry) set the checks held."""
+    BF16_TOL.  Then :func:`time_bf16_convs`' rows of the implicit mode,
+    and the device ms of the forward's 17 GEMMs under the tuned
+    geometries, under ``GemmConfig()`` and as the forward runs them (the
+    implicit mode where it takes the conv).  Returns the rows, those
+    totals and the :func:`geometry_key` set the checks held."""
     import torch
     from repro_torch.kernels import gemm as G
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -1058,7 +1072,7 @@ def phase_time_bf16(dev, per_shape) -> dict:
         diff, rel = rel_err(got, want)
         check(got.dtype == bf and rel <= BF16_TOL,
               f"gemm bf16 {name} {(m, n, k)} {run}: rel err {rel:.3g}")
-        checked.add((m, n, k, tuple(sorted(run.items()))))
+        checked.add(geometry_key(m, n, k, run, False))
         dev_ms = device_ms(lambda: G.gemm(a, b, cfg))
         lib_ms = device_ms(lambda: torch.matmul(a, b))
         flops = 2.0 * m * n * k
@@ -1082,11 +1096,16 @@ def phase_time_bf16(dev, per_shape) -> dict:
             f"torch.matmul bf16 {lib_ms:.4f} ms, plain {plain_ms:.1f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); vs plain "
             f"max_abs_err={diff:.3g} rel={rel:.3g}")
+    rows += time_bf16_convs(dev, per_shape, checked)
     resnet = {t for t, *_ in gemm_shapes()}
     total = {}
-    for label in ("tuned", "default"):
-        fwd = [r for r in rows if r["task"] in resnet
-               and r["geometry"] == label]
+    for label in ("tuned", "default", "implicit"):
+        fwd = {r["task"]: r for r in rows if r["task"] in resnet
+               and r["geometry"] == label}
+        if label == "implicit":   # conv1 keeps im2col + the tuned GEMM
+            fwd = {**{r["task"]: r for r in rows if r["task"] in resnet
+                      and r["geometry"] == "tuned"}, **fwd}
+        fwd = list(fwd.values())
         total[label] = {key: sum(r[key] * r["layers"] for r in fwd)
                         for key in ("device_ms", "library_device_ms",
                                     "plain_ms", "bound_ms")}
@@ -1098,9 +1117,89 @@ def phase_time_bf16(dev, per_shape) -> dict:
         f"{total['tuned']['device_ms']:.4f} ms at the tuned geometries, "
         f"{total['default']['device_ms']:.4f} ms at GemmConfig(); "
         f"torch.matmul bf16 {total['tuned']['library_device_ms']:.4f} ms; "
-        f"bound {total['tuned']['bound_ms']:.4f} ms; {len(checked)} "
+        f"bound {total['tuned']['bound_ms']:.4f} ms; as the forward runs "
+        f"them (implicit but conv1) {total['implicit']['device_ms']:.4f} "
+        f"ms, bound {total['implicit']['bound_ms']:.4f} ms; {len(checked)} "
         f"geometries held against the plain version (tol {BF16_TOL})")
     return {"rows": rows, "forward": total, "checked": checked}
+
+
+def time_bf16_convs(dev, per_shape, checked) -> list:
+    """``[time bf16]``'s rows of the implicit mode: ``gemm.conv`` at each
+    ResNet-18 conv shape of batch 8 that it takes (all but conv1's) under
+    the tuned geometry, on seeded card tensors.  Its output is held
+    against the plain version over im2col at BF16_TOL and must equal
+    im2col + the GEMM at the same geometry bit for bit; the launch must
+    count once on ``gemm.implicit_launches``.  Timed by ``device_ms``
+    beside one cuDNN bf16 conv (``F.conv2d`` on the NHWC tensors as a
+    channels-last view), the plain version by CUDA events; the bound
+    reads x, the filter and C once each (the patches are never in
+    memory) against 2 M N K operations.  Adds each run's
+    :func:`geometry_key` to ``checked``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.task import conv_tasks
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels.ops import im2col
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bf = torch.bfloat16
+    rows = []
+    for t in conv_tasks("resnet-18", batch=BATCH):
+        wl, cfg = t.space.workload, per_shape[t.name]
+        b, h, w, ci, co = wl["b"], wl["h"], wl["w"], wl["ci"], wl["co"]
+        kh, kw, s, p = wl["kh"], wl["kw"], wl["stride"], wl["pad"]
+        x = torch.randn((b, h, w, ci), generator=gen, device=dev).to(bf)
+        wt = (torch.randn((kh, kw, ci, co), generator=gen, device=dev)
+              * (2.0 / (kh * kw * ci)) ** 0.5).to(bf)
+        if not G.implicit_ok(x, wt):   # conv1: the explicit rows hold it
+            continue
+        before = G.gemm.implicit_launches
+        got = G.conv(x, wt, s, p, cfg)
+        check(G.gemm.implicit_launches == before + 1,
+              f"conv {t.name}: {G.gemm.implicit_launches - before} "
+              f"implicit launches, not 1")
+        run = G.gemm.last_geometry["run"]
+        patches, _ = im2col(x, kh, kw, s, p)
+        wm = wt.reshape(kh * kw * ci, co)
+        m, n, k = patches.shape[0], co, patches.shape[1]
+        got = got.reshape(m, n)
+        want, plain_ms = events_ms(lambda: G.gemm(patches, wm, cfg,
+                                                  use_kernel=False))
+        diff, rel = rel_err(got, want)
+        check(got.dtype == bf and rel <= BF16_TOL,
+              f"implicit conv {t.name} {(m, n, k)} {run}: rel err "
+              f"{rel:.3g}")
+        check(torch.equal(got, G.gemm(patches, wm, cfg)),
+              f"implicit conv {t.name} {(m, n, k)} {run}: not the bits "
+              f"of im2col + the GEMM")
+        checked.add(geometry_key(m, n, k, run, True))
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+        dev_ms = device_ms(lambda: G.conv(x, wt, s, p, cfg))
+        lib_ms = device_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw,
+                                            stride=s, padding=p))
+        flops = 2.0 * m * n * k
+        nbytes = 2.0 * (x.numel() + k * n + m * n)
+        row = {"task": t.name, "M": m, "N": n, "K": k,
+               "layers": t.multiplicity, "geometry": "implicit",
+               "requested": [cfg.block_m, cfg.block_n, cfg.block_k],
+               "run": [run["bm"], run["bn"], run["bk"]],
+               "split_k": run["split_k"], "vec": run["vec"],
+               "device_ms": dev_ms, "library_device_ms": lib_ms,
+               "plain_ms": plain_ms, "max_abs_err": diff, "rel_err": rel,
+               **bound(flops / BF16_FLOPS * 1e3,
+                       nbytes / HBM_BYTES_PER_S * 1e3),
+               "device_tflops": flops / dev_ms / 1e9}
+        rows.append(row)
+        log(f"[time bf16] {t.name} conv {b}x{h}x{w}x{ci} -> {co} "
+            f"{kh}x{kw}/{s} pad {p} M={m} N={n} K={k} x{t.multiplicity} "
+            f"implicit run={row['run']} split_k={row['split_k']}: device "
+            f"time {dev_ms:.4f} ms ({row['device_tflops']:.2f} TFLOP/s, "
+            f"{100 * row['bound_ms'] / dev_ms:.1f}% of bound), cuDNN bf16 "
+            f"conv {lib_ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); vs plain "
+            f"max_abs_err={diff:.3g} rel={rel:.3g}, bits of im2col + the "
+            f"GEMM")
+    return rows
 
 
 def cudnn_bf16_forward(net, x):
@@ -1132,15 +1231,17 @@ def cudnn_bf16_forward(net, x):
 def phase_deploy_bf16(dev, configs) -> dict:
     """``[deploy bf16]``: ResNet-18 at 224x224, batch 8, deployed in bf16
     (``net.to(torch.bfloat16)``, bf16 input) with the per-layer geometries
-    ``[tune]`` found.  The GEMM's launch count is set to 0 just before the
-    forward and must read 17 just after; the logits finite, of shape (8,
-    1000) and within DEPLOY_BF16_TOL of the plain path in bf16.  Printed,
+    ``[tune]`` found.  The GEMM's launch counts are set to 0 just before
+    the forward and must read 17, 16 of them implicit (every conv but
+    conv1, whose 3 channels the implicit mode does not take), just after;
+    the logits finite, of shape (8, 1000) and within DEPLOY_BF16_TOL of
+    the plain path in bf16.  Printed,
     not gated: the distance to the fp32 forward (the plain path, cuDNN
     fp32) and to a forward whose convs are cuDNN bf16 calls
     (:func:`cudnn_bf16_forward`); the forward's ms through the kernel, the
     plain path and cuDNN bf16 (CUDA events over Python calls); a profile
-    of the forward.  Returns those numbers and the (M, N, K, run
-    geometry) of each GEMM the forward ran."""
+    of the forward.  Returns those numbers and the :func:`geometry_key`
+    of each GEMM the forward ran."""
     import torch
     from repro_torch.kernels import gemm as G
     specs, layer_task, net, x = resnet_setup(dev)
@@ -1150,17 +1251,25 @@ def phase_deploy_bf16(dev, configs) -> dict:
     x = x.to(torch.bfloat16)
     mnk = {t: (m, n, k) for t, m, n, k, _ in gemm_shapes()}
     ran = set()
-    for s, cfg in zip(specs, configs):
+    for s, cfg, w in zip(specs, configs, net.conv_w):
         shape = mnk[layer_task[s.name]]
         geom = G.legalize(cfg, *shape, torch.bfloat16)
-        ran.add((*shape, tuple(sorted(dataclasses.asdict(geom).items()))))
+        # the mode the rule gives the layer's weights and a contiguous
+        # input of its shape, as the forward's are
+        xs = torch.empty((1, s.h, s.w, s.ci), dtype=torch.bfloat16,
+                         device=dev)
+        ran.add(geometry_key(*shape, dataclasses.asdict(geom),
+                             G.implicit_ok(xs, w)))
     with torch.no_grad():
-        G.gemm.launches = 0   # the bf16 deploy path starts here
-        logits = net(x, configs)
+        G.gemm.launches = G.gemm.implicit_launches = 0   # the bf16 deploy
+        logits = net(x, configs)                         # path starts here
         torch.cuda.synchronize()
         launches = G.gemm.launches   # and ends here
+        implicit = G.gemm.implicit_launches
         check(launches == 17, f"bf16 forward launched the kernel "
                               f"{launches} times, expected 17")
+        check(implicit == 16, f"bf16 forward took the implicit mode "
+                              f"{implicit} times, expected 16")
         plain = net(x, use_kernel=False)
         cudnn = cudnn_bf16_forward(net, x)
         cudnn_ms = cuda_ms(lambda: cudnn_bf16_forward(net, x), reps=5)
@@ -1174,7 +1283,8 @@ def phase_deploy_bf16(dev, configs) -> dict:
     _, rel32 = rel_err(logits, fp32)
     _, rel_cudnn = rel_err(logits, cudnn)
     log(f"[deploy bf16] ResNet-18 224x224 batch {BATCH} in bf16, tuned "
-        f"geometries: 17 kernel launches, logits max_abs_err {diff:.3g} "
+        f"geometries: 17 kernel launches ({implicit} implicit), logits "
+        f"max_abs_err {diff:.3g} "
         f"(rel {rel:.3g}, gate {DEPLOY_BF16_TOL}) vs the plain path (cuDNN "
         f"fp32 convolutions on the bf16 values, rounded to bf16 a layer); "
         f"rel {rel32:.3g} vs the fp32 forward, {rel_cudnn:.3g} vs cuDNN "
@@ -1188,7 +1298,8 @@ def phase_deploy_bf16(dev, configs) -> dict:
     with torch.no_grad():
         profile = profile_runs({"forward bf16": (3, lambda: net(x,
                                                                  configs))})
-    return {"launches": launches, "logits_max_abs_err": diff,
+    return {"launches": launches, "implicit_launches": implicit,
+            "logits_max_abs_err": diff,
             "logits_rel_err": rel, "logits_rel_err_vs_fp32": rel32,
             "logits_rel_err_vs_cudnn_bf16": rel_cudnn, "forward_ms": fwd_ms,
             "forward_plain_ms": plain_ms, "forward_cudnn_bf16_ms": cudnn_ms,
@@ -4023,6 +4134,7 @@ def main() -> int:
         "library_device_ms": total("library_device_ms"),
         "netopt_deploy_launches": netopt_deploy["launches"],
         "deploy_bf16_launches": deploy16["launches"],
+        "deploy_bf16_implicit_launches": deploy16["implicit_launches"],
         # bf16 operands (the tensor-core kernel): the forward's 17 GEMMs
         # at the tuned geometries, device time in CUDA graphs
         "bf16": {"ms": gemm16["forward"]["tuned"]["device_ms"],
@@ -4030,6 +4142,10 @@ def main() -> int:
                  "plain_ms": gemm16["forward"]["tuned"]["plain_ms"],
                  "bound_ms": gemm16["forward"]["tuned"]["bound_ms"],
                  "bound_by": gemm16["forward"]["tuned"]["bound_by"],
+                 # as the forward runs them: implicit for all but conv1
+                 "implicit_ms": gemm16["forward"]["implicit"]["device_ms"],
+                 "implicit_bound_ms":
+                     gemm16["forward"]["implicit"]["bound_ms"],
                  "library_ms":
                      gemm16["forward"]["tuned"]["library_device_ms"],
                  "max_abs_err": max(r["max_abs_err"]

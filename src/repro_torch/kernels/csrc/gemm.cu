@@ -49,6 +49,21 @@
 //   ring (conv1's B is 147 x 64, read by every block from L2).
 // - Split-K as above; a block's tile goes to C directly (fp32 or bf16,
 //   two adjacent columns a store where VEC) when K is not cut.
+// - An implicit-GEMM mode (IMPLICIT, instantiated with VEC only) for a
+//   conv: A is not a patch matrix in memory but gathered from the NHWC
+//   activation x (batch, H, W, CI) as the ring loads it.  Row r of A is
+//   the output pixel (n, oh, ow), r = (n * OH + oh) * OW + ow; column k
+//   is (kh, kw, ci), k = (kh * KW + kw) * CI + ci, the order of the HWIO
+//   filter's reshape (KH * KW * CI, CO), which is B.  A's 16-byte chunk
+//   (r, k..k+7) is one cp.async.cg from x[n, oh * s + kh - p, ow * s + kw
+//   - p, ci..ci+7]; a chunk in the padding, past M or past the slice is
+//   zero-filled by the same src-size 0 as the tails, so no padded copy
+//   of x is made.  CI % 8 == 0 keeps a chunk inside one (kh, kw), on
+//   16-byte boundaries of x.  A thread's chunks share one column, so it
+//   decomposes its rows into (n, oh, ow) once, before the K loop, and a
+//   step only advances its (kh, kw, ci) by BK.  The tile it lands is the
+//   patch matrix's tile, and the rest of the kernel is unchanged: the
+//   product is bit-identical to im2col + the GEMM at the same geometry.
 //
 // It is mma.sync and not wgmma/TMA: wgmma takes 64-row tiles, and ARCO's
 // 16- and 32-row templates do not give them; at these intensities the
@@ -85,7 +100,8 @@
 // threads with TM = 8 at BM 128 (else 4) and TN = 8 at BN 128 (else 4),
 // 32 to 256; dynamic shared memory 2 * BK * ((BM + 4) + BN) * 4 bytes, at
 // most 66,560.  bf16: BK in {32, 64} (64 or 128 bytes a row), for each
-// VEC 64 to 256 threads; dynamic shared memory kStages * (BM * (BK + 8) +
+// VEC, and the implicit mode beside VEC, 64 to 256 threads (a multiple of
+// BK / 8: a thread's A chunks share one column); dynamic shared memory kStages * (BM * (BK + 8) +
 // BK * (BN + 8)) * 2 bytes, at most 107,520 (128 x 128 x 64).  A launch
 // above 48 KB opts in once per template.  The wrapper maps a requested
 // GemmConfig onto these templates: per dimension, the largest template
@@ -176,14 +192,22 @@ constexpr int bf16_smem_bytes() {  // the ring of A [BM][BK+8], B [BK][BN+8]
   return kStages * (BM * (BK + 8) + BK * (BN + 8)) * 2;
 }
 
+// the conv whose patch matrix the implicit mode gathers as A: x is NHWC
+// (batch, h, w, ci), the output (batch, oh, ow, co), the filter kh x kw
+struct Conv {
+  int h, w, ci, oh, ow, kw, stride, pad;
+};
+
 // One (BM, BN) tile of C, or of slice blockIdx.z's fp32 partial in the
 // workspace, over K range [z * k_slice, min(K, (z + 1) * k_slice)).  C is
-// bf16 when out_bf16, else fp32 (always fp32 for the workspace).
-template <int BM, int BN, int BK, bool VEC>
+// bf16 when out_bf16, else fp32 (always fp32 for the workspace).  Where
+// IMPLICIT, A is the activation x of `cv` (read only then).
+template <int BM, int BN, int BK, bool VEC, bool IMPLICIT>
 __global__ void __launch_bounds__(Warps<BM, BN>::THREADS)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                  void* __restrict__ C, int M, int N, int K, int k_slice,
-                 int out_bf16) {
+                 int out_bf16, Conv cv) {
+  static_assert(VEC || !IMPLICIT, "the implicit mode gathers 16 bytes");
   using W = Warps<BM, BN>;
   constexpr int NT = W::THREADS;
   constexpr int LDA = BK + 8, LDB = BN + 8;  // padded rows (16 bytes)
@@ -200,6 +224,34 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   const int ke = min(K, kb + k_slice);
   const int n_steps = (ke - kb + BK - 1) / BK;
 
+  // IMPLICIT: chunk i of a step is A's row (tid + i * NT) / (BK / 8) and
+  // column ac (the same for all of a thread's chunks, as NT is a multiple
+  // of BK / 8); each row's pixel, before the K loop: the index in x's
+  // (batch * h * w) pixels of the filter's top left tap, which may lie in
+  // the padding (px_h, px_w: that tap's row and column; rows past M never
+  // fall in x).  32-bit, three registers a chunk: the element offset is
+  // widened at the load
+  constexpr int ACH = BM * BK / 8, AI = (ACH + NT - 1) / NT;
+  static_assert(NT % (BK / 8) == 0, "a thread's chunks share a column");
+  const int ac = (tid % (BK / 8)) * 8;
+  int px[IMPLICIT ? AI : 1], px_h[IMPLICIT ? AI : 1], px_w[IMPLICIT ? AI : 1];
+  int tap_h = 0, tap_w = 0, tap_c = 0;  // (kh, kw, ci) of the next load's k
+  if constexpr (IMPLICIT) {
+#pragma unroll
+    for (int i = 0; i < AI; ++i) {
+      const int r = row0 + (tid + i * NT) / (BK / 8);
+      const int n = r / (cv.oh * cv.ow), p = r - n * (cv.oh * cv.ow);
+      const int oh = p / cv.ow, ow = p - oh * cv.ow;
+      px_h[i] = r < M ? oh * cv.stride - cv.pad : -(1 << 29);
+      px_w[i] = ow * cv.stride - cv.pad;
+      px[i] = r < M ? (n * cv.h + px_h[i]) * cv.w + px_w[i] : 0;
+    }
+    const int k = kb + ac, kt = k / cv.ci;
+    tap_c = k - kt * cv.ci;
+    tap_h = kt / cv.kw;
+    tap_w = kt - tap_h * cv.kw;
+  }
+
   // step t's tiles into ring slot `slot`, zeros past M, N and the slice:
   // VEC both by cp.async; else B by single values (A: fetch and put)
   auto load = [&](int t, int slot) {
@@ -207,17 +259,33 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
     bf16* as = As + slot * BM * LDA;
     bf16* bs = Bs + slot * BK * LDB;
     if constexpr (VEC) {  // 16-byte chunks: whole chunks in or out
-      constexpr int ACH = BM * BK / 8, BCH = BK * BN / 8;
+      const bool k_in = k0 + ac < ke;
+      const int tap = tap_h * cv.w + tap_w;  // IMPLICIT: this step's pixel
 #pragma unroll
-      for (int i = 0; i < (ACH + NT - 1) / NT; ++i) {
-        const int e = tid + i * NT;
+      for (int i = 0; i < AI; ++i) {
+        const int e = tid + i * NT, r = e / (BK / 8);
         if (ACH % NT == 0 || e < ACH) {
-          const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
-          const bool in = row0 + r < M && k0 + c < ke;
-          cp_async_16(smem_addr(as + r * LDA + c),
-                      in ? A + (int64_t)(row0 + r) * K + k0 + c : A, in);
+          bool in;
+          const bf16* src;
+          if constexpr (IMPLICIT) {
+            in = k_in && (unsigned)(px_h[i] + tap_h) < (unsigned)cv.h &&
+                 (unsigned)(px_w[i] + tap_w) < (unsigned)cv.w;
+            src = A + (int64_t)(px[i] + tap) * cv.ci + tap_c;
+          } else {
+            in = k_in && row0 + r < M;
+            src = A + (int64_t)(row0 + r) * K + k0 + ac;
+          }
+          cp_async_16(smem_addr(as + r * LDA + ac), in ? src : A, in);
         }
       }
+      if constexpr (IMPLICIT) {  // steps load in order: the next one's tap
+        for (tap_c += BK; tap_c >= cv.ci; tap_c -= cv.ci)
+          if (++tap_w == cv.kw) {
+            tap_w = 0;
+            ++tap_h;
+          }
+      }
+      constexpr int BCH = BK * BN / 8;
 #pragma unroll
       for (int i = 0; i < (BCH + NT - 1) / NT; ++i) {
         const int e = tid + i * NT;
@@ -593,13 +661,15 @@ __global__ void splitk_sum_kernel(const V* __restrict__ ws, O* __restrict__ c,
 // ---------------------------------------------------------------- launch
 
 struct Args {
-  const void* a;
+  const void* a;  // A, or the implicit mode's x
   const void* b;
   void* c;
   float* ws;  // (split, M, N) fp32 partials: split > 1, or fp32 -> bf16
   int m, n, k, split, k_slice, vec;
   bool out_bf16;  // C in bf16 (else fp32)
   cudaStream_t stream;
+  bool implicit;  // bf16, vec: A gathered from the conv's x
+  Conv conv;
 };
 
 // above 48 KB a block's dynamic shared memory needs an opt-in; each
@@ -655,10 +725,10 @@ int launch_f32(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN, int BK, bool VEC>
+template <int BM, int BN, int BK, bool VEC, bool IMPLICIT>
 int launch_bf16_tiles(const Args& a) {
   constexpr int smem = bf16_smem_bytes<BM, BN, BK>();
-  auto kernel = gemm_bf16_kernel<BM, BN, BK, VEC>;
+  auto kernel = gemm_bf16_kernel<BM, BN, BK, VEC, IMPLICIT>;
   static const int opt_in = smem_opt_in(kernel, smem);
   if (opt_in) return opt_in;
   dim3 grid((a.n + BN - 1) / BN, (a.m + BM - 1) / BM, a.split);
@@ -666,14 +736,15 @@ int launch_bf16_tiles(const Args& a) {
   kernel<<<grid, Warps<BM, BN>::THREADS, smem, a.stream>>>(
       static_cast<const bf16*>(a.a), static_cast<const bf16*>(a.b),
       to_ws ? static_cast<void*>(a.ws) : a.c, a.m, a.n, a.k, a.k_slice,
-      !to_ws && a.out_bf16);
+      !to_ws && a.out_bf16, a.conv);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM, int BN, int BK>
 int launch_bf16(const Args& a) {
-  const int err = a.vec ? launch_bf16_tiles<BM, BN, BK, true>(a)
-                        : launch_bf16_tiles<BM, BN, BK, false>(a);
+  const int err = a.implicit ? launch_bf16_tiles<BM, BN, BK, true, true>(a)
+                  : a.vec    ? launch_bf16_tiles<BM, BN, BK, true, false>(a)
+                             : launch_bf16_tiles<BM, BN, BK, false, false>(a);
   if (err != 0 || a.split == 1) return err;
   if (a.out_bf16)
     launch_sum<__nv_bfloat16, bf16x4>(a);
@@ -720,6 +791,12 @@ int dispatch(int bm, int bn, int bk, const Args& a) {
   return -1;
 }
 
+// the slices a launch is given cover K, none empty, each whole bk steps
+bool bad_slices(int64_t k, int bk, int split, int k_slice) {
+  return split < 1 || k_slice < 1 || k_slice % bk != 0 ||
+         (int64_t)k_slice * (split - 1) >= k;
+}
+
 }  // namespace
 
 // dtype (the operands') and out_dtype (C's): 0 = float32, 1 = bfloat16.
@@ -731,15 +808,43 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c, void* ws,
                           int m, int n, int k, int dtype, int out_dtype,
                           int bm, int bn, int bk, int split, int k_slice,
                           int vec, void* stream) {
-  if (split < 1 || k_slice < 1 || k_slice % bk != 0 ||
-      (int64_t)k_slice * (split - 1) >= k || (out_dtype != 0 && out_dtype != 1))
+  if (bad_slices(k, bk, split, k_slice) || (out_dtype != 0 && out_dtype != 1))
     return -1;
   if ((split > 1 || (dtype == 0 && out_dtype == 1)) && ws == nullptr)
     return -1;
   const Args args{a, b, c, static_cast<float*>(ws), m, n, k, split,
                   k_slice, vec, out_dtype == 1,
-                  static_cast<cudaStream_t>(stream)};
+                  static_cast<cudaStream_t>(stream), false, Conv{}};
   if (dtype == 0) return dispatch<true>(bm, bn, bk, args);
   if (dtype == 1) return dispatch<false>(bm, bn, bk, args);
   return -1;
+}
+
+// The conv x (batch, h, w, ci) NHWC by the filter f (kh, kw, ci, co) HWIO
+// into C (batch * oh * ow, co), bf16 operands, by the bf16 kernel's
+// implicit mode: the GEMM (M, N, K) = (batch * oh * ow, co, kh * kw * ci)
+// with A gathered from x.  ci % 8 == 0, co % 8 == 0 and 16-byte aligned x
+// and f (the VEC copies), x's pixels (batch * h * w) within int32 (the
+// kernel's pixel index); the rest as repro_gemm.  Returns -1 where these
+// do not hold.
+extern "C" int repro_gemm_conv(const void* x, const void* f, void* c,
+                               void* ws, int batch, int h, int w, int ci,
+                               int co, int kh, int kw, int stride, int pad,
+                               int out_dtype, int bm, int bn, int bk,
+                               int split, int k_slice, void* stream) {
+  if (stride < 1 || pad < 0 || batch < 1) return -1;
+  const int oh = (h + 2 * pad - kh) / stride + 1;
+  const int ow = (w + 2 * pad - kw) / stride + 1;
+  const int64_t m = (int64_t)batch * oh * ow, k = (int64_t)kh * kw * ci;
+  if (ci % 8 != 0 || co % 8 != 0 || oh < 1 || ow < 1 || m > INT32_MAX ||
+      (int64_t)batch * h * w > INT32_MAX ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(f)) % 16 ||
+      bad_slices(k, bk, split, k_slice) || (out_dtype != 0 && out_dtype != 1) ||
+      (split > 1 && ws == nullptr))
+    return -1;
+  const Args args{x, f, c, static_cast<float*>(ws), (int)m, co, (int)k,
+                  split, k_slice, 1, out_dtype == 1,
+                  static_cast<cudaStream_t>(stream), true,
+                  Conv{h, w, ci, oh, ow, kw, stride, pad}};
+  return dispatch<false>(bm, bn, bk, args);
 }

@@ -25,7 +25,12 @@ partial tiles a second kernel sums in slice order.  ``parallel_m``/
 on a GPU every block runs in parallel, so they change nothing.
 
 ``gemm`` launches the CUDA kernel for CUDA tensors and counts each call
-once on ``gemm.launches`` (with the split-K sum, two kernels a call).  For
+once on ``gemm.launches`` (with the split-K sum, two kernels a call).
+``conv`` runs a bf16 conv as the same kernel in its implicit mode, which
+gathers im2col's patch matrix from the NHWC activation in its own loads
+instead of reading it from memory (:func:`implicit_ok` says which convs
+it takes); it counts on ``gemm.launches`` and ``gemm.implicit_launches``,
+and ``gemm.last_geometry["implicit"]`` says which of the two ran.  For
 CPU tensors, or with ``use_kernel=False``, it runs :func:`gemm_plain`,
 which walks the same run geometry in PyTorch, slices included.  As in the
 reference, ``out_dtype`` (fp32 or bf16) sets C's dtype, a's by default;
@@ -214,6 +219,39 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, geom: RunGeometry,
     return out
 
 
+def _refuse_grad(*ts: torch.Tensor) -> None:
+    # the kernel's output would carry no grad_fn: refuse, not cut
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "the gemm kernel is forward-only (the reference kernel has no "
+            "backward); call it under torch.no_grad() or on tensors that do "
+            "not require grad")
+
+
+def _launch(call, geom: RunGeometry, m: int, n: int, k: int,
+            dtype: torch.dtype, out_dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """C (m, n) in ``out_dtype`` from ``call(c, ws, stream)``, a call of
+    the library's entry given C's pointer, the workspace's (None where
+    the geometry needs none) and the current stream; raises where the
+    launch fails, else counts it on ``gemm.launches``."""
+    out = torch.empty((m, n), dtype=out_dtype, device=device)
+    # the slices' fp32 partials, or fp32 tiles whose C the sum writes bf16
+    use_ws = geom.split_k > 1 or (dtype == torch.float32
+                                  and out_dtype != dtype)
+    ws = (torch.empty((geom.split_k, m, n), dtype=torch.float32,
+                      device=device) if use_ws else None)
+    with torch.cuda.device(device):
+        rc = call(out.data_ptr(), None if ws is None else ws.data_ptr(),
+                  torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gemm kernel launch failed (code {rc}) for "
+                           f"{(m, n, k)} {dtype} -> {out_dtype} geometry "
+                           f"{geom}")
+    gemm.launches += 1
+    return out
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor,
          config: GemmConfig = GemmConfig(),
          out_dtype: Optional[torch.dtype] = None,
@@ -232,12 +270,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
     geom = legalize(config, m, n, k, a.dtype)
     on_kernel = a.device.type != "cpu" and use_kernel
     if on_kernel:
-        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-            # the kernel's output would carry no grad_fn: refuse, not cut
-            raise RuntimeError(
-                "the gemm kernel is forward-only (the reference kernel has "
-                "no backward); call it under torch.no_grad() or on tensors "
-                "that do not require grad")
+        _refuse_grad(a, b)
         if a.device.type != "cuda":
             raise ValueError(f"gemm kernel runs on CUDA tensors, got "
                              f"{a.device}")
@@ -247,34 +280,74 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
         if geom.vec and (a.data_ptr() | b.data_ptr()) % 16:
             geom = dataclasses.replace(geom, vec=False)  # unaligned views
     gemm.last_geometry = {"requested": dataclasses.asdict(config),
-                          "run": dataclasses.asdict(geom)}
+                          "run": dataclasses.asdict(geom),
+                          "implicit": False}
     if not on_kernel:
         return gemm_plain(a, b, geom, out_dtype)
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    # the slices' fp32 partials, or fp32 tiles whose C the sum writes bf16
-    use_ws = geom.split_k > 1 or (a.dtype == torch.float32
-                                  and out_dtype != a.dtype)
-    ws = (torch.empty((geom.split_k, m, n), dtype=torch.float32,
-                      device=a.device) if use_ws else None)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _lib().repro_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                               None if ws is None else ws.data_ptr(),
-                               m, n, k, _DTYPE_CODE[a.dtype],
-                               _DTYPE_CODE[out_dtype], geom.bm,
-                               geom.bn, geom.bk, geom.split_k,
-                               geom.slice_width(k),
-                               int(geom.vec), stream)
-    if rc != 0:
-        raise RuntimeError(f"gemm kernel launch failed (code {rc}) for "
-                           f"{(m, n, k)} {a.dtype} -> {out_dtype} geometry "
-                           f"{geom}")
-    gemm.launches += 1
-    return out
+    return _launch(
+        lambda c, ws, stream: _lib().repro_gemm(
+            a.data_ptr(), b.data_ptr(), c, ws, m, n, k, _DTYPE_CODE[a.dtype],
+            _DTYPE_CODE[out_dtype], geom.bm, geom.bn, geom.bk, geom.split_k,
+            geom.slice_width(k), int(geom.vec), stream),
+        geom, m, n, k, a.dtype, out_dtype, a.device)
 
 
 gemm.launches = 0
+gemm.implicit_launches = 0
 gemm.last_geometry = None
+
+
+def implicit_ok(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether :func:`conv` takes the conv of NHWC ``x`` by HWIO ``w``:
+    both bf16 CUDA tensors on one device, contiguous, 16-byte aligned,
+    with CI % 8 == 0 and CO % 8 == 0, so that each of A's 16-byte chunks
+    is 8 channels of one pixel of x and B's rows are whole chunks (the
+    VEC copies).  Reads only the tensors' device, dtype, shape, layout
+    and address."""
+    return (x.device.type == "cuda" and w.device == x.device
+            and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+            and x.ndim == 4 and w.ndim == 4 and w.shape[2] == x.shape[3]
+            and w.shape[2] % 8 == 0 and w.shape[3] % 8 == 0
+            and x.is_contiguous() and w.is_contiguous()
+            and (x.data_ptr() | w.data_ptr()) % 16 == 0)
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
+         config: GemmConfig = GemmConfig()) -> torch.Tensor:
+    """The conv of NHWC ``x`` (B, H, W, CI) by HWIO ``w`` (KH, KW, CI, CO)
+    as one launch of the bf16 kernel's implicit mode: the GEMM of im2col's
+    (M, N, K) = (B*OH*OW, CO, KH*KW*CI) at ``legalize``'s run geometry,
+    its A gathered from x in the kernel's loads.  Bit-identical to
+    ``gemm(im2col(x), w.reshape(K, CO), config)``.  Takes what
+    :func:`implicit_ok` accepts, else raises; counts on ``gemm.launches``
+    and ``gemm.implicit_launches``.  Returns (B, OH, OW, CO) in bf16."""
+    if not implicit_ok(x, w):
+        raise ValueError(
+            f"the implicit conv takes contiguous, 16-byte aligned bf16 CUDA "
+            f"tensors with CI % 8 == 0 and CO % 8 == 0, got x "
+            f"{tuple(x.shape)} {x.dtype} on {x.device} and w "
+            f"{tuple(w.shape)} {w.dtype}")
+    _refuse_grad(x, w)
+    b, h, wd, ci = x.shape
+    kh, kw, _, co = w.shape
+    oh = (h + 2 * pad - kh) // stride + 1
+    ow = (wd + 2 * pad - kw) // stride + 1
+    if oh < 1 or ow < 1 or b < 1:
+        raise ValueError(f"empty conv of {tuple(x.shape)} by {tuple(w.shape)}"
+                         f" at stride {stride}, pad {pad}")
+    m, n, k = b * oh * ow, co, kh * kw * ci
+    geom = legalize(config, m, n, k, x.dtype)
+    gemm.last_geometry = {"requested": dataclasses.asdict(config),
+                          "run": dataclasses.asdict(geom),
+                          "implicit": True}
+    out = _launch(
+        lambda c, ws, stream: _lib().repro_gemm_conv(
+            x.data_ptr(), w.data_ptr(), c, ws, b, h, wd, ci, co, kh, kw,
+            stride, pad, _DTYPE_CODE[x.dtype], geom.bm, geom.bn, geom.bk,
+            geom.split_k, geom.slice_width(k), stream),
+        geom, m, n, k, x.dtype, x.dtype, x.device)
+    gemm.implicit_launches += 1
+    return out.reshape(b, oh, ow, co)
 
 
 def build() -> str:
@@ -290,6 +363,9 @@ def _bind(lib) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.repro_gemm.restype = ctypes.c_int
+    lib.repro_gemm_conv.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+    lib.repro_gemm_conv.restype = ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:

@@ -5,7 +5,10 @@ reference's ``use_pallas``: True routes through the kernel's wrapper
 (:func:`repro_torch.kernels.gemm.gemm`,
 :func:`repro_torch.kernels.flash_attention.flash_attention`: the Hopper
 kernel on CUDA tensors, its plain version on CPU tensors); False runs the
-plain oracle in :mod:`repro_torch.kernels.ref`.
+plain oracle in :mod:`repro_torch.kernels.ref`.  ``conv2d`` gives a bf16
+conv on the card, where :func:`repro_torch.kernels.gemm.implicit_ok`
+holds, to the GEMM's implicit mode (:func:`repro_torch.kernels.gemm.conv`),
+and only the others to ``im2col`` + the GEMM.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import gemm as G
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import GemmConfig, gemm, gemm_config_from_knobs
@@ -46,9 +50,17 @@ def im2col(x: torch.Tensor, kh: int, kw: int, stride: int, pad: int
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
            config: GemmConfig = GemmConfig(),
            use_kernel: bool = True) -> torch.Tensor:
-    """Conv as im2col + the tunable GEMM core. x: NHWC, w: HWIO."""
+    """Conv on the tunable GEMM core. x: NHWC, w: HWIO.
+
+    Where :func:`gemm.implicit_ok` holds (bf16 CUDA tensors, contiguous
+    and aligned, CI and CO multiples of 8), the GEMM gathers the patches
+    in its own loads (:func:`gemm.conv`); every other conv (a first conv
+    of 3 channels, fp32, CPU tensors) runs as im2col + the GEMM.  Both
+    give the same bits at the same ``config``."""
     if not use_kernel:
         return ref.conv2d_ref(x, w, stride, pad)
+    if G.implicit_ok(x, w):
+        return G.conv(x, w, stride, pad, config)
     b = x.shape[0]
     kh, kw, ci, co = w.shape
     patches, (oh, ow) = im2col(x, kh, kw, stride, pad)

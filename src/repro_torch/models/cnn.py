@@ -1,11 +1,14 @@
 """Runnable NHWC forward pass of the paper's CNNs, conv layers on the GEMM.
 
-Every conv layer runs as im2col + the tunable GEMM (``kernels.ops``), so a
-tuned configuration is deployable on the model: ``apply`` takes one
-``GemmConfig`` per conv layer, the output of ARCO tuning.  Parameters live
-in a :class:`CNN` module; ``params_from_jax`` loads the reference's
-``init_params`` tree (converted to numpy) so both packages compute the
-same network.  The spec tables are in :mod:`repro_torch.models.specs`.
+Every conv layer runs on the tunable GEMM (``kernels.ops.conv2d``): in bf16
+on the card, where the channels allow it (all but a first conv of 3), as
+the GEMM's implicit mode, which gathers the patches itself; otherwise as
+im2col + the GEMM.  So a tuned configuration is deployable on the model:
+``apply`` takes one ``GemmConfig`` per conv layer, the output of ARCO
+tuning.  Parameters live in a :class:`CNN` module; ``params_from_jax``
+loads the reference's ``init_params`` tree (converted to numpy) so both
+packages compute the same network.  The spec tables are in
+:mod:`repro_torch.models.specs`.
 """
 from __future__ import annotations
 

@@ -71,3 +71,91 @@ def test_matmul_routes():
     assert TR.matmul_ref(a.bfloat16(), b.bfloat16()).dtype == torch.bfloat16
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+class _OnDevice:
+    """A tensor as :func:`TG.implicit_ok` sees it, placed on ``device`` at
+    address ``ptr`` (the rule reads device, dtype, shape, layout and
+    address only), so the CUDA side of the rule is checked on the CPU."""
+
+    def __init__(self, t, device="cuda", ptr=0, contiguous=None):
+        self._t, self._ptr, self._contiguous = t, ptr, contiguous
+        self.device, self.dtype = torch.device(device), t.dtype
+        self.shape, self.ndim = t.shape, t.ndim
+
+    def is_contiguous(self):
+        if self._contiguous is None:
+            return self._t.is_contiguous()
+        return self._contiguous
+
+    def data_ptr(self):
+        return self._ptr
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("contiguous", [True, False])
+@pytest.mark.parametrize("ci", [3, 8, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_implicit_rule(dtype, ci, contiguous, device):
+    """The implicit mode takes a conv only in bf16, on CUDA tensors, with
+    CI % 8 == 0 and contiguous operands; all else is im2col + the GEMM."""
+    x = torch.zeros((2, 9, 9, ci), dtype=dtype)
+    if not contiguous:
+        x = x.permute(0, 2, 1, 3)
+    w = torch.zeros((3, 3, ci, 16), dtype=dtype)
+    want = (device == "cuda" and dtype == torch.bfloat16 and ci % 8 == 0
+            and contiguous)
+    assert TG.implicit_ok(_OnDevice(x, device, ptr=256),
+                          _OnDevice(w, device, ptr=4096)) == want
+
+
+@pytest.mark.parametrize("case", ["x_unaligned", "w_unaligned", "co_36",
+                                  "w_not_contiguous", "w_fp32",
+                                  "w_elsewhere"])
+def test_implicit_rule_needs_whole_aligned_chunks(case):
+    """Each of the VEC copies' conditions alone sends a bf16 CUDA conv with
+    CI = 64 back to im2col: 16-byte aligned x and w, CO % 8 == 0, a
+    contiguous w of x's dtype on x's device."""
+    xt = torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16)
+    wt = torch.zeros((3, 3, 64, 32), dtype=torch.bfloat16)
+    assert TG.implicit_ok(_OnDevice(xt, ptr=512), _OnDevice(wt, ptr=1024))
+    x, w = {
+        "x_unaligned": (_OnDevice(xt, ptr=514), _OnDevice(wt, ptr=1024)),
+        "w_unaligned": (_OnDevice(xt, ptr=512), _OnDevice(wt, ptr=1026)),
+        "co_36": (_OnDevice(xt, ptr=512),
+                  _OnDevice(torch.zeros((3, 3, 64, 36), dtype=torch.bfloat16),
+                            ptr=1024)),
+        "w_not_contiguous": (_OnDevice(xt, ptr=512),
+                             _OnDevice(wt, ptr=1024, contiguous=False)),
+        "w_fp32": (_OnDevice(xt, ptr=512), _OnDevice(wt.float(), ptr=1024)),
+        "w_elsewhere": (_OnDevice(xt, ptr=512),
+                        _OnDevice(wt, "cuda:1", ptr=1024)),
+    }[case]
+    assert not TG.implicit_ok(x, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_cpu_conv_takes_the_explicit_path(dtype):
+    """On CPU tensors a conv the rule would take on the card (CI 16, CO 24)
+    still runs im2col + the GEMM's plain version: no launch, no implicit
+    count, ``last_geometry`` says so; fp32 matches the reference's conv,
+    bf16 the explicit path's bits; ``gemm.conv`` itself refuses CPU
+    tensors."""
+    x, w = _xw(3, seed=21, shape=(2, 11, 11, 16), co=24)
+    tx, tw = torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype)
+    cfg = TG.GemmConfig(32, 32, 64)
+    launches, implicit = TG.gemm.launches, TG.gemm.implicit_launches
+    got = TO.conv2d(tx, tw, 2, 1, cfg)
+    assert (TG.gemm.launches, TG.gemm.implicit_launches) == (launches,
+                                                             implicit)
+    assert TG.gemm.last_geometry["implicit"] is False
+    assert got.dtype == dtype and got.shape == (2, 6, 6, 24)
+    patches, (oh, ow) = TO.im2col(tx, 3, 3, 2, 1)
+    assert torch.equal(got, TG.gemm(patches, tw.reshape(-1, 24), cfg)
+                       .reshape(2, oh, ow, 24))
+    if dtype == torch.float32:
+        want = np.asarray(JO.conv2d(jnp.asarray(x), jnp.asarray(w), 2, 1,
+                                    JGemmConfig(32, 32, 64)))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):
+        TG.conv(tx, tw, 2, 1, cfg)

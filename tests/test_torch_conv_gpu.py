@@ -1,0 +1,168 @@
+"""The bf16 GEMM's implicit mode on the card: a conv whose patches the
+kernel gathers from the NHWC activation in its own loads gives the same
+bits as im2col + the GEMM at the same ``GemmConfig``, on every conv of
+VGG-16 D and ResNet-18 at the geometries their tuning records give, and
+on edge cases (strides, paddings, a 7x7 filter over 8 channels, M tails,
+split-K); the convs the rule leaves out take im2col, and the counters say
+which path ran.  Every test here carries the ``gpu`` marker and skips
+where torch sees no CUDA device; the file imports neither jax nor the
+reference package:
+
+    python -m pytest -q -m gpu tests/test_torch_conv_gpu.py
+"""
+import json
+import os
+
+import pytest
+import torch
+
+from _torch_support import require_cuda
+from repro_torch.kernels import gemm as TG
+from repro_torch.kernels import ops, ref
+from repro_torch.models import cnn
+from repro_torch.models.specs import conv_specs
+
+CONFIGS = os.path.join(os.path.dirname(__file__), os.pardir, "dcoc_bench",
+                       "configs")
+
+
+def _tuned_cases():
+    """(batch, h, w, ci, co, k, stride, pad, GemmConfig) of every conv of
+    VGG-16 D (at batch 2) and ResNet-18 (batch 1), each at the geometry
+    its tuning record maps to, as the deployed forward maps it."""
+    cases = []
+    for record, model, batch in (("vgg-16-gap.tuned-b64.json", "vgg-16", 2),
+                                 ("resnet-18.tuned-b1.json", "resnet-18",
+                                  1)):
+        with open(os.path.join(CONFIGS, record)) as f:
+            tasks = json.load(f)["tasks"]
+        knobs = {layer: t["knobs"] for t in tasks for layer in t["layers"]}
+        for s in conv_specs(model):
+            k = knobs[s.name]
+            cfg = TG.gemm_config_from_knobs(
+                tile_m=k["tile_b"] * k["tile_h"] * k["tile_w"],
+                tile_n=k["tile_co"], tile_k=k["tile_ci"] * s.kh * s.kw,
+                h_threading=k["h_threading"], oc_threading=k["oc_threading"])
+            cases.append(pytest.param(batch, s.h, s.w, s.ci, s.co, s.kh,
+                                      s.stride, s.pad, cfg,
+                                      id=f"{model}-{s.name}"))
+    return cases
+
+
+# strides, paddings and filters beside the networks': a strided 1x1 on a
+# 15 x 17 map, pad 0, a 7x7 over 8 channels at pad 3 (eight taps a bk step,
+# a K tail), CI 24 with an M tail (99 rows), deep split-K with a short last
+# slice (as ResNet-18's convs from conv2a on, split 2 to 15 at batch 1),
+# and CO 36, which the rule sends to im2col
+EDGE_CASES = [
+    pytest.param(3, 15, 17, 16, 24, 1, 2, 0, TG.GemmConfig(64, 128, 128),
+                 id="1x1-stride2-pad0"),
+    pytest.param(2, 20, 20, 32, 64, 3, 1, 0, TG.GemmConfig(128, 128, 128),
+                 id="3x3-pad0"),
+    pytest.param(2, 30, 30, 8, 64, 7, 2, 3, TG.GemmConfig(128, 128, 128),
+                 id="7x7-ci8-stride2-pad3"),
+    pytest.param(1, 9, 11, 24, 40, 3, 1, 1, TG.GemmConfig(64, 128, 128),
+                 id="ci24-m-tail"),
+    pytest.param(1, 7, 7, 512, 512, 3, 1, 1, TG.GemmConfig(16, 128, 128),
+                 id="split-k"),
+    pytest.param(1, 10, 10, 16, 36, 3, 1, 1, TG.GemmConfig(32, 64, 128),
+                 id="co36-im2col"),
+]
+
+
+def _operands(b, h, w, ci, co, k, seed, x=None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if x is None:
+        x = torch.randn((b, h, w, ci), generator=gen, device="cuda")
+    wt = (torch.randn((k, k, ci, co), generator=gen, device="cuda")
+          * (2.0 / (k * k * ci)) ** 0.5)
+    return x.bfloat16(), wt.bfloat16()
+
+
+def _explicit(x, wt, stride, pad, cfg):
+    """im2col + the GEMM, the path the implicit mode replaces."""
+    kh, kw, ci, co = wt.shape
+    patches, (oh, ow) = ops.im2col(x, kh, kw, stride, pad)
+    return TG.gemm(patches, wt.reshape(kh * kw * ci, co),
+                   cfg).reshape(x.shape[0], oh, ow, co)
+
+
+def _check(x, wt, stride, pad, cfg):
+    """conv2d takes the implicit path exactly where the rule holds, counts
+    one launch either way and one implicit launch where it holds, and
+    gives the explicit path's bits, both within bf16's step of the fp32
+    conv."""
+    taken = TG.implicit_ok(x, wt)
+    launches, implicit = TG.gemm.launches, TG.gemm.implicit_launches
+    with torch.no_grad():
+        got = ops.conv2d(x, wt, stride, pad, cfg)
+        assert TG.gemm.launches == launches + 1
+        assert TG.gemm.implicit_launches == implicit + taken
+        assert TG.gemm.last_geometry["implicit"] is taken
+        want = _explicit(x, wt, stride, pad, cfg)
+        assert TG.gemm.implicit_launches == implicit + taken
+        conv = ref.conv2d_ref(x.float(), wt.float(), stride, pad)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    err = (got.float() - conv).abs().max() / conv.abs().max()
+    assert float(err) <= 1e-2
+    return taken
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,ci,co,k,stride,pad,cfg",
+                         _tuned_cases() + EDGE_CASES)
+def test_implicit_conv_equals_im2col_on_card(b, h, w, ci, co, k, stride, pad,
+                                             cfg):
+    """Bit-identical to im2col + the GEMM at the same geometry; every conv
+    with CI and CO multiples of 8 takes the implicit mode (all but the
+    networks' first convs, of 3 channels, and CO 36)."""
+    require_cuda()
+    x, wt = _operands(b, h, w, ci, co, k, seed=h * 31 + ci + co)
+    assert _check(x, wt, stride, pad, cfg) == (ci % 8 == 0 and co % 8 == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["unaligned", "not-contiguous"])
+def test_views_of_x_take_im2col_on_card(layout):
+    """An x 2 bytes off 16-byte alignment, or an NHWC view of an NCHW
+    tensor, goes to im2col + the GEMM with the same bits; ``gemm.conv``
+    itself refuses both."""
+    require_cuda()
+    b, h, w, ci, co = 2, 12, 12, 32, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    if layout == "unaligned":
+        flat = torch.randn(b * h * w * ci + 1, generator=gen,
+                           device="cuda").bfloat16()
+        x = flat[1:].view(b, h, w, ci)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    else:
+        x = torch.randn((b, ci, h, w), generator=gen,
+                        device="cuda").bfloat16().permute(0, 2, 3, 1)
+        assert not x.is_contiguous()
+    x, wt = _operands(b, h, w, ci, co, 3, seed=6, x=x)
+    cfg = TG.GemmConfig(64, 64, 128)
+    assert not _check(x, wt, 1, 1, cfg)
+    with pytest.raises(ValueError):
+        TG.conv(x, wt, 1, 1, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,convs", [("vgg-16", 13), ("resnet-18", 17)])
+def test_forward_counts_implicit_launches_on_card(model, convs):
+    """A bf16 forward on the card counts one GEMM launch a conv, and an
+    implicit launch for every conv but the first (CI 3): the pools and the
+    skips leave each conv's input contiguous."""
+    require_cuda()
+    net = cnn.init_params(0, model, device="cuda").to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((2, 32, 32, 3), generator=gen,
+                    device="cuda").bfloat16()
+    launches, implicit = TG.gemm.launches, TG.gemm.implicit_launches
+    with torch.no_grad():
+        out = net(x)
+    torch.cuda.synchronize()
+    assert TG.gemm.launches - launches == convs
+    assert TG.gemm.implicit_launches - implicit == convs - 1
+    assert out.shape == (2, 1000) and bool(torch.isfinite(out).all())

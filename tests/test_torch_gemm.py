@@ -321,7 +321,8 @@ def test_plain_version_walks_tails_and_records_geometry():
         "requested": {"block_m": 16, "block_n": 32, "block_k": 16,
                       "parallel_m": False, "parallel_n": True},
         "run": {"bm": 16, "bn": 32, "bk": 16, "split_k": 1, "vec": False,
-                "dtype": "float32"}}
+                "dtype": "float32"},
+        "implicit": False}
     geom = TG.RunGeometry(16, 32, 16)
     np.testing.assert_allclose(TG.gemm_plain(ta, tb, geom).numpy(),
                                a @ b, rtol=1e-5, atol=1e-5)
