@@ -253,6 +253,15 @@ the pairs inside the band counted), and the CUDA kernels the profiler
 sees SDPA fp32 run;
 ``--flash-fp32`` runs that phase alone at the gates' shapes without the
 gates, and with ``--tree DIR`` on another checkout's kernel;
+then ``[moonlight]``: moonlight-16b-a3b's kernels at its shapes, the MLA
+decode kernel against its plain version at 64 slots of 2,048-4,096
+cached positions (a KV split) and at 600 slots of up to 100 (none), the
+flash kernel's dp=192 template against its plain version on a
+4,096-token causal prompt (V zero-padded from 128), each within 1e-2 of
+max and timed beside its bound, then the published config whole (15.96 B
+parameters, bf16) and one decode step of 64 slots with the launch counts
+set to 0 just before: MLA decode 27, RMSNorm 82, flash and GEMM 0;
+``--moonlight`` runs that phase alone;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
 times; every kernel's with the mesh phases' and ``[drivers]``'
@@ -3950,6 +3959,186 @@ def _leaves(tree):
         yield tree
 
 
+# [moonlight]: moonlight-16b-a3b (MLA, the grouped MoE) at published widths
+MOONLIGHT_ARCH = "moonlight-16b-a3b"
+# (slots, shortest and longest cache) of the MLA decode kernel's checks:
+# the cell's 64 conversations at 2,048-4,096 positions (a KV split), and
+# 600 slots of up to 100, which fill the card unsplit
+MLA_CASES = ((64, 2048, 4096), (600, 1, 100))
+MOONLIGHT_PROMPT = 4096     # the dp=192 flash template's prefill shape
+
+
+def check_mla_decode(randn, g, cfg, b, lo, hi) -> dict:
+    """The MLA decode kernel at ``b`` slots of ``lo``-``hi`` cached
+    positions (the first slot ``hi``, the last ``lo``) against its plain
+    version at BF16_TOL (P rounded against the running max in the kernel,
+    the final one in the plain version), one launch, timed by device_ms
+    beside the plain version and the bound: the cache read once at each
+    slot's length."""
+    import torch
+    from repro_torch.kernels import mla_decode as MK
+    h, r, pe = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    scale = cfg.qk_head_dim ** -0.5
+    q, ckv, kpe = randn(b, h, r + pe), randn(b, hi, r), randn(b, hi, pe)
+    lens = torch.randint(lo, hi + 1, (b,), generator=g, device=q.device,
+                         dtype=torch.int32)
+    lens[0], lens[-1] = hi, lo
+    call = lambda: MK.mla_attention(q, ckv, kpe, lens, scale, hi)
+    plain = lambda: MK.mla_attention_plain(q, ckv, kpe, lens, scale, hi)
+    n0 = MK.mla_attention.launches
+    got = call()
+    torch.cuda.synchronize()
+    check(MK.mla_attention.launches == n0 + 1,
+          f"[moonlight] MLA decode at {b} x {hi}: "
+          f"{MK.mla_attention.launches - n0} launches, not 1")
+    err, rel = rel_err(got, plain())
+    splits = MK.kv_split(b, hi)[1]
+    check(rel < BF16_TOL, f"[moonlight] MLA decode at {b} slots of {lo}-"
+                          f"{hi} ({splits} splits): {rel:.3e} of max")
+    positions = float(lens.sum())
+    row = {"shape": [b, lo, hi], "splits": splits, "max_abs_err": err,
+           "rel_err": rel, "ms": device_ms(call),
+           "plain_ms": cuda_ms(plain, reps=3),
+           **bound(2.0 * positions * h * (r + pe + r) / BF16_FLOPS * 1e3,
+                   2.0 * (positions * (r + pe) + b * h * (r + pe + r))
+                   / HBM_BYTES_PER_S * 1e3)}
+    log(f"[moonlight] MLA decode {b} slots of {lo}-{hi} positions, "
+        f"{splits} splits: {rel:.3e} of max (< {BF16_TOL}); kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; the kernel at "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+    return row
+
+
+def check_flash_dp192(randn, cfg, s) -> dict:
+    """MLA's prefill attention through the flash kernel's dp=192 template:
+    q, k (1, s, 16, 192), v (1, s, 16, 128) zero-padded to 192, causal,
+    against the plain version of the same geometry at BF16_TOL, the padded
+    columns exactly 0; timed by device_ms beside SDPA on the unpadded
+    values and the operations bound (V's 128 columns counted)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    h, dk, dv = cfg.n_heads, cfg.qk_head_dim, cfg.v_head_dim
+    q, k, v = randn(1, s, h, dk), randn(1, s, h, dk), randn(1, s, h, dv)
+    vp = F.pad(v, (0, dk - dv))
+    n0 = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, vp)
+    torch.cuda.synchronize()
+    geom = FA.flash_attention.last_geometry["run"]
+    check(FA.flash_attention.launches == n0 + 1 and geom["dp"] == 192,
+          f"[moonlight] flash at head_dim {dk}: ran {geom}")
+    err, rel = rel_err(got, FA.flash_attention(q, k, vp, use_kernel=False))
+    check(rel < BF16_TOL and got[..., dv:].abs().max() == 0,
+          f"[moonlight] flash dp=192 at {s} tokens: {rel:.3e} of max")
+    pairs = s * (s + 1) / 2
+    row = {"shape": [1, s, h, dk], "geometry": geom, "max_abs_err": err,
+           "rel_err": rel, "ms": device_ms(lambda: FA.flash_attention(
+               q, k, vp)),
+           "library_ms": device_ms(sdpa_call(q, k, v, True, None)),
+           **bound(2.0 * pairs * h * (dk + dv) / BF16_FLOPS * 1e3,
+                   2.0 * s * h * (2 * dk + 2 * dv) / HBM_BYTES_PER_S * 1e3)}
+    log(f"[moonlight] flash dp=192 (1, {s}, {h}, {dk}) causal, V padded "
+        f"from {dv}, bq {geom['bq']} bk {geom['bk']}: {rel:.3e} of max "
+        f"(< {BF16_TOL}); kernel {row['ms']:.4f} ms, SDPA "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}; the kernel at "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+    return row
+
+
+def phase_moonlight(dev) -> dict:
+    """``[moonlight]``: the kernels moonlight-16b-a3b adds, held and
+    timed at its shapes (:func:`check_mla_decode` at each of
+    :data:`MLA_CASES`, :func:`check_flash_dp192` at a
+    :data:`MOONLIGHT_PROMPT`-token prompt), then the published config
+    whole on the card (bf16, seeded weights, 15.96 B parameters) and one
+    ``decode_step`` of the cell's 64 slots at 2,048-4,096 positions, the
+    launch counts set to 0 just before: the MLA decode kernel once a
+    layer (27), RMSNorm three times a layer and once more (82), flash
+    never; finite logits, the step's ms and peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mla_decode as MK
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    _build.build("mla_decode")
+    log(f"[moonlight] build mla_decode {time.perf_counter() - t0:.1f} s")
+    for r in _build.ptxas_report("mla_decode") + [
+            r for r in _build.ptxas_report("flash_attention")
+            if r["kernel"].endswith(", 192>")]:
+        log(f"[moonlight] ptxas {r['kernel']}: {r['registers']} registers, "
+            f"spill stores {r['spill_stores']} B, loads "
+            f"{r['spill_loads']} B")
+    cfg = get_config(MOONLIGHT_ARCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    randn = lambda *shape: torch.randn(shape, generator=g,
+                                       device=dev).bfloat16()
+    out = {"mla_decode": [check_mla_decode(randn, g, cfg, *c)
+                          for c in MLA_CASES],
+           "flash_dp192": check_flash_dp192(randn, cfg, MOONLIGHT_PROMPT)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    b, lo, hi = MLA_CASES[0]
+    params = T.init_params(SEED, cfg, device=dev)
+    cache = T.init_cache(cfg, b, hi + 64, device=dev)
+    cache["pos"] = torch.randint(lo, hi, (b,), generator=g, device=dev,
+                                 dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev)
+    step = lambda: T.decode_step(params, cache, toks, cfg)
+    with torch.no_grad():
+        step()                              # warm; writes the same rows
+        torch.cuda.synchronize()
+        zero_counts()
+        MK.mla_attention.launches = 0
+        logits, _ = step()
+        torch.cuda.synchronize()
+        launches = dict(launch_counts(), mla_decode=MK.mla_attention.launches)
+        want = {"gemm": 0, "rmsnorm": 3 * cfg.n_layers + 1,
+                "flash_attention": 0, "mla_decode": cfg.n_layers}
+        check(launches == want, f"[moonlight] a decode step launched "
+                                f"{launches}, not {want}")
+        check(bool(torch.isfinite(logits).all()),
+              "[moonlight] a decode step's logits are not finite")
+        step_ms = cuda_ms(step, reps=5)
+    out["decode_step"] = {"slots": b, "positions": [lo, hi],
+                          "launches": launches, "ms": step_ms,
+                          "peak_mem_bytes":
+                              torch.cuda.max_memory_allocated(dev)}
+    log(f"[moonlight] {MOONLIGHT_ARCH} whole: a decode step of {b} slots "
+        f"at {lo}-{hi} positions launches {launches}; {step_ms:.2f} ms "
+        f"(host and device), peak "
+        f"{out['decode_step']['peak_mem_bytes'] / 1e9:.1f} GB")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def moonlight_main() -> int:
+    """``python3 chip_smoke.py --moonlight``: the card's line, the flash
+    and RMSNorm kernels built, then ``[moonlight]`` alone and its result
+    as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs one GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase_card()
+    t0 = time.perf_counter()
+    _build.build_all(("flash_attention", "rmsnorm"))
+    log(f"[build] flash_attention, rmsnorm in "
+        f"{time.perf_counter() - t0:.1f} s")
+    moon, moon_s = timed(lambda: phase_moonlight(dev))
+    log(f"[moonlight] phase {moon_s:.1f} s")
+    print(json.dumps({"moonlight": moon}), flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -4057,6 +4246,9 @@ def main() -> int:
     flash_fp32, flash32_s = timed(lambda: phase_time_flash_fp32(dev,
                                                                 flash32))
     log(f"[time flash fp32] phase {flash32_s:.1f} s")
+    torch.cuda.empty_cache()
+    moon, moon_s = timed(lambda: phase_moonlight(dev))
+    log(f"[moonlight] phase {moon_s:.1f} s")
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -4073,6 +4265,7 @@ def main() -> int:
                     "netopt_deploy": netopt_deploy,
                     "deploy_bf16": deploy16, "gemm_bf16": gemm16,
                     "flash_fp32_gates": flash_fp32,
+                    "moonlight": moon,
                     "phase_s": {"deploy_bf16": deploy16_s,
                                 "time_bf16": time16_s,
                                 "time_flash_fp32": flash32_s,
@@ -4089,7 +4282,8 @@ def main() -> int:
                                 **{f"train_{k}": v
                                    for k, v in train_fam_s.items()},
                                 "autotune": autotune_s,
-                                "drivers": drivers_s},
+                                "drivers": drivers_s,
+                                "moonlight": moon_s},
                     "train": train, "train_faults": faults,
                     **{k: {key: v for key, v in ph.items()
                            if key != "launches"}
@@ -4198,4 +4392,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(flash_fp32_main(sys.argv[2:]) if sys.argv[1:2] == ["--flash-fp32"]
+             else moonlight_main() if sys.argv[1:2] == ["--moonlight"]
              else main())

@@ -4,7 +4,10 @@ Each module defines the exact published CONFIG plus a ``reduced()`` smoke
 variant of the same family (same block pattern, tiny dims), as data: the
 same names and values as the reference's ``repro.configs``, on the port's
 :class:`~repro_torch.models.transformer.ArchConfig` (torch dtypes).  The
-port's model runs every one of them.
+port's model runs every one of them.  :data:`ARCH_NAMES` lists those ten;
+:data:`PORT_ARCH_NAMES` the port's own, which the reference has no
+counterpart of (``moonlight-16b-a3b``); :func:`get_config` resolves
+either.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from repro_torch.configs import (  # noqa: E402
     jamba_1_5_large_398b,
     minitron_4b,
     mixtral_8x22b,
+    moonlight_16b_a3b,
     moonshot_v1_16b_a3b,
     qwen1_5_4b,
     qwen2_1_5b,
@@ -38,12 +42,18 @@ _MODULES = {
     "whisper-base": whisper_base,
 }
 
+_PORT_MODULES = {
+    "moonlight-16b-a3b": moonlight_16b_a3b,
+}
+
 ARCH_NAMES: List[str] = list(_MODULES)
+PORT_ARCH_NAMES: List[str] = list(_PORT_MODULES)
 
 
 def get_config(name: str, reduced: bool = False) -> ArchConfig:
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; one of {ARCH_NAMES}")
-    mod = _MODULES[name]
+    mod = _MODULES.get(name) or _PORT_MODULES.get(name)
+    if mod is None:
+        raise KeyError(f"unknown arch {name!r}; one of "
+                       f"{ARCH_NAMES + PORT_ARCH_NAMES}")
     return mod.reduced() if reduced else mod.CONFIG
 

@@ -85,7 +85,9 @@
 //   wrapper counts the pair as one launch.
 //
 // Templates (the "run geometry").  bf16: BQ and BK in {16, 32, 64}, DP
-// (head_dim padded up) in {16, 32, 64, 128}, all 36 compiled.  fp32: the
+// (head_dim padded up) in {16, 32, 64, 128, 192} (192: MLA's 128 + 64
+// keys), the 42 that fit the wrapper's shared-memory budget compiled (at
+// DP 192 only BK 16 and 32).  fp32: the
 // 17 (BQ, BK, DP) of dispatch_f32 below, BQ and BK in {16, 32, 64}, DP in
 // {32, 64, 128}, those whose shared memory lets an SM hold at least 8
 // warps.  The Python wrapper (repro_torch/kernels/flash_attention.py::
@@ -792,6 +794,10 @@ int dispatch_mma_dp(int dp, const Args& a) {
     case 32: return launch_mma<BQ, BK, 32>(a);
     case 64: return launch_mma<BQ, BK, 64>(a);
     case 128: return launch_mma<BQ, BK, 128>(a);
+    case 192:
+      // BK 64 at DP 192 is past SMEM_BUDGET: legalize never picks it
+      if constexpr (BK <= 32) return launch_mma<BQ, BK, 192>(a);
+      return -1;
   }
   return -1;
 }

@@ -35,7 +35,8 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 BQ_TEMPLATES = (16, 32, 64)
 BK_TEMPLATES = (16, 32, 64)
-DP_TEMPLATES = (16, 32, 64, 128)     # head_dim, padded up (bf16)
+# head_dim, padded up (bf16); 192 for MLA's (nope 128 + rope 64) keys
+DP_TEMPLATES = (16, 32, 64, 128, 192)
 F32_DP_TEMPLATES = (32, 64, 128)     # fp32: 8 threads x a float4 a row
 SMEM_BUDGET = 100 * 1024             # bf16: two blocks an SM (227 KB each)
 # fp32: the H100's shared memory an SM (228 KB, of which a block takes at
@@ -105,16 +106,18 @@ def legalize(block_q: int, block_k: int, s: int, d: int,
     template runs.  As the reference clamps each block to the sequence
     (``min(block, s)``), each run tile is the largest template not above
     it (else the smallest, with the tail masked); dp is the smallest
-    template of the dtype that holds head_dim.  bf16 keeps these (its
-    tiles always fit :data:`SMEM_BUDGET`).  fp32: bk halves until an SM
+    template of the dtype that holds head_dim.  bf16 keeps these where its
+    tiles fit :data:`SMEM_BUDGET` (every dp up to 128); at dp 192 bk
+    halves until they do.  fp32: bk halves until an SM
     holds :data:`F32_MIN_WARPS` warps of the template, and where bk 16
     still does not (dp 128 at bq 16), bq doubles."""
-    if d > DP_TEMPLATES[-1]:
-        raise ValueError(f"flash attention kernel takes head_dim <= "
-                         f"{DP_TEMPLATES[-1]}, got {d}")
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"attention takes float32 or bfloat16, got {dtype}")
     f32 = dtype == torch.float32
+    top = (F32_DP_TEMPLATES if f32 else DP_TEMPLATES)[-1]
+    if d > top:
+        raise ValueError(f"flash attention kernel takes head_dim <= {top} "
+                         f"in {dtype}, got {d}")
     dp = next(t for t in (F32_DP_TEMPLATES if f32 else DP_TEMPLATES)
               if t >= d)
     geom = RunGeometry(_pick(BQ_TEMPLATES, block_q, s),

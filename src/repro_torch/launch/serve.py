@@ -19,9 +19,10 @@ geometries on idle decode slots (``--autotune``, see
 drained.  With ``--rate`` the trace replays Poisson arrivals against the
 wall clock (idle gaps fast-forwarded), which is what gives ``--autotune``
 idle windows to measure in.  Weights are random, drawn from ``--seed``.
-Every ``--arch`` of ``repro_torch.configs`` serves: whisper-base's encoder
-runs over zero frames and internvl2-26b's prompts follow zero patches (the
-frontends are stubs, as in the reference's server).  Every RMSNorm runs
+Every ``--arch`` of ``repro_torch.configs`` serves (the port's own
+``moonlight-16b-a3b`` too): whisper-base's encoder runs over zero frames
+and internvl2-26b's prompts follow zero patches (the frontends are stubs,
+as in the reference's server).  Every RMSNorm runs
 through the RMSNorm kernel and prefill self attention through the flash
 kernel.  Without a GPU and without ``--device cpu`` it raises.
 
@@ -38,7 +39,7 @@ import time
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, PORT_ARCH_NAMES, get_config
 from repro_torch.models import transformer as T
 from repro_torch.train.server import Request, Server
 
@@ -72,7 +73,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         description="continuous-batching LM server over synthetic "
                     "requests, with optional online geometry tuning")
-    ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen2-1.5b")
+    ap.add_argument("--arch", choices=ARCH_NAMES + PORT_ARCH_NAMES,
+                    default="qwen2-1.5b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

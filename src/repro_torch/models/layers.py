@@ -163,18 +163,34 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def rope_tables(positions: torch.Tensor, d: int, theta: float, dtype,
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin (..., S, 1, d / 2) of rotary embedding at ``positions``
+    (..., S), computed in fp32 (on ``device``, default the positions')
+    and cast to ``dtype``."""
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=device or positions.device)
+                      / half)
+    ang = positions[..., None].float() * freqs           # (..., S, half)
+    return (torch.cos(ang)[..., None, :].to(dtype),
+            torch.sin(ang)[..., None, :].to(dtype))
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) rotated by :func:`rope_tables`' cos and sin: the
+    first half of D with the second."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding. x: (..., S, H, D), positions: (..., S)."""
-    d = x.shape[-1]
-    half = d // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    ang = positions[..., None].float() * freqs           # (..., S, half)
-    cos = torch.cos(ang)[..., None, :].to(x.dtype)
-    sin = torch.sin(ang)[..., None, :].to(x.dtype)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta,
+                                      x.dtype, x.device))
 
 
 def sinusoidal_positions(s: int, d: int, dtype=torch.float32,
@@ -232,8 +248,8 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, variant: str,
 
 
 def mlp(x: torch.Tensor, p: Params, variant: str = "swiglu",
-        use_kernel: bool = True) -> torch.Tensor:
-    h = rmsnorm(x, p["ln"], use_kernel=use_kernel)
+        use_kernel: bool = True, eps: float = 1e-6) -> torch.Tensor:
+    h = rmsnorm(x, p["ln"], eps, use_kernel=use_kernel)
     if variant == "swiglu":
         g = F.silu(dense(h, p["w_gate"]))
         u = dense(h, p["w_up"])

@@ -16,6 +16,22 @@ The norm goes through the RMSNorm kernel (``use_kernel``); the expert
 einsums are ``torch.einsum``, as they are outside any Pallas kernel in the
 reference.  Each function returns ``(x + out, aux)``: aux is the
 Switch-style load-balancing loss the trainer weights.
+
+DeepSeek-V3's MoE (``cfg.moe_scoring == "sigmoid"``, the port's own; see
+:class:`repro_torch.models.transformer.MLAConfig`) routes by sigmoid
+scores: the top-k are chosen on score plus a per-expert correction bias
+(``bias``, fp32, used for the choice only), weighted by their scores
+normalised to sum to 1 and times ``cfg.routed_scaling``; a shared SwiGLU
+(``ws_gate``/``ws_up``/``ws_down``, width ``n_shared_experts * d_ff``)
+computes every token beside them.  It runs ``dense`` (the exact top-k
+math, as above) or ``grouped``: a dropless dispatch that sorts the
+token-expert pairs by expert, runs each expert's rows as one group of a
+grouped matrix product (``torch._grouped_mm`` in bfloat16, else a loop
+over the experts that have rows), and sums each token's k outputs
+weighted.  With the ambient ``repro_torch.obs`` tracer on, ``grouped``
+counts ``moe.experts_touched`` (experts with a row, a layer a call) and
+``moe.tokens_dropped`` (pairs that reached no expert's group: 0), as
+device scalars that a reader turns into numbers after a synchronize.
 """
 from __future__ import annotations
 
@@ -24,6 +40,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.models.layers import Params, _winit, rmsnorm
 
 # leaves kept in fp32 whatever the model's param dtype (the reference's)
@@ -62,6 +79,19 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
         "w_down": _experts(gen, n_experts, (d_ff, d_model), d_ff, dtype,
                            device),
     }
+
+
+def init_deepseek_extras(gen: torch.Generator, cfg, dtype, device
+                         ) -> Params:
+    """DeepSeek-V3's leaves beside :func:`init_moe`'s: the correction
+    bias (fp32, normal with std ``cfg.route_bias_std``) and the shared
+    SwiGLU of width ``n_shared_experts * d_ff``."""
+    d, f = cfg.d_model, cfg.n_shared_experts * cfg.d_ff
+    bias = torch.randn((cfg.n_experts,), generator=gen, device=device)
+    return {"bias": bias * cfg.route_bias_std,
+            "ws_gate": _winit(gen, (d, f), d, dtype, device),
+            "ws_up": _winit(gen, (d, f), d, dtype, device),
+            "ws_down": _winit(gen, (f, d), f, dtype, device)}
 
 
 def _top_k(probs: torch.Tensor, k: int
@@ -160,8 +190,112 @@ def moe_dropping(x: torch.Tensor, p: Params, top_k: int,
     return x + out, aux
 
 
+def route_sigmoid(h: torch.Tensor, p: Params, cfg
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's router (``noaux_tc``, one group) on tokens h (N, D):
+    returns (weights (N, k) fp32, expert ids (N, k)).  The choice is the
+    top-k of sigmoid score + correction bias; the weights are the chosen
+    scores over their sum, times ``cfg.routed_scaling``."""
+    scores = torch.sigmoid(torch.matmul(h.float(), p["router"]))
+    idx = torch.topk(scores + p["bias"], cfg.moe_top_k, dim=-1).indices
+    if route_replay is not None:
+        idx = route_replay.pop(0).reshape(idx.shape).to(idx.device)
+    if route_log is not None:
+        route_log.append(idx.sort(dim=-1).values)
+    w = scores.gather(-1, idx)
+    w = w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.routed_scaling
+    return w, idx
+
+
+def swiglu(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    dt = h.dtype
+    g = F.silu(torch.matmul(h, w_gate.to(dt)))
+    return torch.matmul(g * torch.matmul(h, w_up.to(dt)), w_down.to(dt))
+
+
+def shared_expert(h: torch.Tensor, p: Params) -> torch.Tensor:
+    """The shared experts' SwiGLU on every token."""
+    return swiglu(h, p["ws_gate"], p["ws_up"], p["ws_down"])
+
+
+def _grouped_mm(xs: torch.Tensor, w: torch.Tensor,
+                offs: torch.Tensor) -> torch.Tensor:
+    """Rows ``offs[e-1]:offs[e]`` of xs times w[e], for every expert e:
+    ``torch._grouped_mm`` in bfloat16, else one product an expert that
+    has rows (the group ends read on the host)."""
+    if xs.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        return torch._grouped_mm(xs, w.to(xs.dtype), offs=offs)
+    out = xs.new_empty((xs.shape[0], w.shape[-1]))
+    start = 0
+    for e, end in enumerate(offs.tolist()):
+        if end > start:
+            out[start:end] = torch.matmul(xs[start:end], w[e].to(xs.dtype))
+        start = end
+    return out
+
+
+def experts_grouped(h: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                    p: Params) -> torch.Tensor:
+    """The routed experts' output (N, D) for tokens h (N, D), dropless:
+    the N k token-expert pairs sorted by expert, one group an expert, each
+    token's k outputs summed with its weights w (N, k) in fp32.  The
+    groups' ends come from a search of the sorted experts, on the device
+    (``bincount`` would read its input's largest value on the host, a
+    synchronization a layer)."""
+    n, k = idx.shape
+    e = p["w_gate"].shape[0]
+    experts, order = idx.reshape(-1).sort(stable=True)
+    offs = torch.searchsorted(experts, torch.arange(e, device=idx.device),
+                              right=True, out_int32=True)
+    xs = h[order // k]
+    y = _grouped_mm(F.silu(_grouped_mm(xs, p["w_gate"], offs))
+                    * _grouped_mm(xs, p["w_up"], offs), p["w_down"], offs)
+    out = (y[order.argsort()].view(n, k, -1).float()
+           * w[..., None]).sum(dim=1)
+    tr = obs.current()
+    if tr.enabled:
+        rows = torch.diff(offs, prepend=offs.new_zeros(1))
+        tr.metrics.counter("moe.experts_touched").inc((rows > 0).sum())
+        tr.metrics.counter("moe.tokens_dropped").inc(n * k - offs[-1])
+    return out.to(h.dtype)
+
+
+def experts_dense(h: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                  p: Params) -> torch.Tensor:
+    """The same sum with every expert computing every token (exact top-k
+    math: the unchosen experts weigh 0)."""
+    dt = h.dtype
+    e = p["w_gate"].shape[0]
+    dense_w = torch.zeros(h.shape[:-1] + (e,), device=h.device).scatter(
+        -1, idx, w)
+    g = F.silu(torch.einsum("nd,edf->nef", h, p["w_gate"].to(dt)))
+    u = torch.einsum("nd,edf->nef", h, p["w_up"].to(dt))
+    y = torch.einsum("nef,efd->ned", g * u, p["w_down"].to(dt))
+    return torch.einsum("ned,ne->nd", y.float(), dense_w).to(dt)
+
+
+def moe_deepseek(x: torch.Tensor, p: Params, cfg, use_kernel: bool = True
+                 ) -> Tuple[torch.Tensor, None]:
+    """DeepSeek-V3's MoE layer: x + routed experts + shared experts.
+    Returns (x, None): it has no load-balance loss (``noaux_tc`` balances
+    by the correction bias)."""
+    if cfg.moe_impl not in ("dense", "grouped"):
+        raise ValueError(f"{cfg.name}: sigmoid routing runs moe_impl dense "
+                         f"or grouped, not {cfg.moe_impl!r}")
+    shape = x.shape
+    h = rmsnorm(x, p["ln"], cfg.rms_norm_eps,
+                use_kernel=use_kernel).reshape(-1, shape[-1])
+    w, idx = route_sigmoid(h, p, cfg)
+    experts = experts_grouped if cfg.moe_impl == "grouped" else experts_dense
+    out = experts(h, w, idx, p) + shared_expert(h, p)
+    return x + out.reshape(shape), None
+
+
 def moe_block(x: torch.Tensor, p: Params, cfg, use_kernel: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if cfg.moe_scoring == "sigmoid":
+        return moe_deepseek(x, p, cfg, use_kernel=use_kernel)
     if cfg.moe_impl == "dense":
         return moe_dense(x, p, cfg.moe_top_k, use_kernel=use_kernel)
     return moe_dropping(x, p, cfg.moe_top_k, cfg.moe_capacity_factor,

@@ -4,7 +4,10 @@ The counterpart of the reference's ``repro.models.transformer`` for all
 ten architectures.  An architecture is a period pattern of (mixer, ffn)
 pairs: mixers ``attn``/``swa``/``mamba``/``mlstm``/``slstm``/``none`` and
 FFNs ``mlp``/``moe``/``gelu``/``none`` (``repro_torch.models.moe`` and
-``repro_torch.models.ssm``).  Two structures sit around the stack:
+``repro_torch.models.ssm``); the port's own ``mla`` mixer (DeepSeek-V3's
+multi-head latent attention, ``repro_torch.models.mla``) runs under an
+:class:`MLAConfig`, which the reference has no counterpart of.  Two
+structures sit around the stack:
 
   encoder-decoder (``cfg.enc_dec``, whisper): ``batch["frames"]`` (B, F,
       D) plus sinusoidal positions go through a non-causal, rope-free
@@ -25,10 +28,11 @@ list of ``n_layers`` per-layer dicts, layer ``r * period + p`` being repeat
 r of period position p (:func:`params_from_jax` unstacks a reference
 tree that way).  The decode cache is ``{"pos": (B,) int32, "layers":
 [per-layer entry]}``: an attention layer's entry is {"k", "v"}, each
-(B, C, HKV, D); a recurrent mixer's is its state's fields (Mamba {"h",
-"conv"}, mLSTM {"c", "n", "m"}, sLSTM {"c", "n", "m", "h"}), each with the
-batch on axis 0.  Decode writes it in place (the reference donates it to
-its jitted step instead).
+(B, C, HKV, D); an MLA layer's is its latent cache {"ckv" (B, C,
+kv_lora_rank), "kpe" (B, C, qk_rope_head_dim)}; a recurrent mixer's is its
+state's fields (Mamba {"h", "conv"}, mLSTM {"c", "n", "m"}, sLSTM {"c",
+"n", "m", "h"}), each with the batch on axis 0.  Decode writes it in
+place (the reference donates it to its jitted step instead).
 
 Every RMSNorm goes through the RMSNorm kernel (one a mixer, one a cross
 part and one an FFN that the layer has, the encoder's layers and
@@ -60,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
@@ -72,7 +77,7 @@ Params = Dict[str, Any]
 set_batch_axes = L.set_batch_axes
 constrain_batch = L.constrain_batch
 
-_MIXERS = ("attn", "swa", "mamba", "mlstm", "slstm", "none")
+_MIXERS = ("attn", "swa", "mla", "mamba", "mlstm", "slstm", "none")
 _FFNS = ("mlp", "moe", "gelu", "none")
 # the recurrent mixers: block function and state type
 _RECURRENT = {"mamba": (SSM.mamba_block, SSM.MambaState),
@@ -147,6 +152,62 @@ class ArchConfig:
         """(mixer, ffn) of every layer, in order."""
         return [self.pattern[i % self.period] for i in range(self.n_layers)]
 
+    # Settings the reference's configs leave at one value; properties, so
+    # that they stay out of the dataclass's fields (the configs hold the
+    # reference's data field by field).  :class:`MLAConfig` makes them
+    # fields of its own.
+    @property
+    def rms_norm_eps(self) -> float:
+        """Every RMSNorm's epsilon (the RMSNorm kernel's default)."""
+        return 1e-6
+
+    @property
+    def moe_scoring(self) -> str:
+        """The router's scores: ``softmax`` over the experts."""
+        return "softmax"
+
+    def ffn_width(self, ffn: str) -> int:
+        """The hidden width of an FFN of kind ``ffn``."""
+        return self.d_ff
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(ArchConfig):
+    """A DeepSeek-V3 block (arXiv:2412.19437): multi-head latent attention
+    (``mla`` mixer, :mod:`repro_torch.models.mla`) with no query
+    low-rank, then a leading ``first_k_dense`` dense SwiGLU layers of
+    ``dense_d_ff`` and MoE layers of ``n_experts`` routed experts of
+    ``d_ff`` beside ``n_shared_experts`` shared ones (one SwiGLU of
+    ``n_shared_experts * d_ff``).  The router scores by ``moe_scoring``
+    (``sigmoid``), chooses the top-k on score plus a per-expert correction
+    bias (drawn with std ``route_bias_std``), and weighs the chosen scores
+    normalised to 1 times ``routed_scaling``.  ``n_kv_heads`` is
+    ``n_heads``: every head has its own keys and values, expanded from one
+    latent.  Only the port has it; no reference config instantiates it."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_shared_experts: int = 2
+    first_k_dense: int = 1
+    dense_d_ff: int = 11264
+    moe_scoring: str = "sigmoid"
+    routed_scaling: float = 2.446
+    route_bias_std: float = 0.05
+    rms_norm_eps: float = 1e-5
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def layer_kinds(self) -> List[Tuple[str, str]]:
+        return [(self.pattern[i % self.period][0], "mlp")
+                if i < self.first_k_dense else self.pattern[i % self.period]
+                for i in range(self.n_layers)]
+
+    def ffn_width(self, ffn: str) -> int:
+        return self.dense_d_ff if ffn == "mlp" else self.d_ff
+
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``ValueError`` for a block the port does not know."""
@@ -171,6 +232,8 @@ def _init_one_layer(gen: torch.Generator, cfg: ArchConfig, mixer: str,
         p["mix"] = L.init_attention(gen, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.head_dim,
                                     cfg.qkv_bias, dt, device)
+    elif mixer == "mla":
+        p["mix"] = MLA.init_mla(gen, cfg, dt, device)
     elif mixer == "mamba":
         p["mix"] = SSM.init_mamba(gen, cfg.d_model, cfg.d_state, dtype=dt,
                                   device=device)
@@ -185,9 +248,12 @@ def _init_one_layer(gen: torch.Generator, cfg: ArchConfig, mixer: str,
     if ffn == "moe":
         p["ffn"] = MOE.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
                                 dt, device)
+        if cfg.moe_scoring == "sigmoid":
+            p["ffn"].update(MOE.init_deepseek_extras(gen, cfg, dt, device))
     elif ffn in ("mlp", "gelu"):
         variant = "swiglu" if ffn == "mlp" else "gelu"
-        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, variant, dt, device)
+        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.ffn_width(ffn), variant,
+                              dt, device)
     return p
 
 
@@ -283,7 +349,7 @@ def _ffn(x, p, cfg: ArchConfig, ffn: str, use_kernel: bool
         return MOE.moe_block(x, p["ffn"], cfg, use_kernel=use_kernel)
     if ffn in ("mlp", "gelu"):
         x = L.mlp(x, p["ffn"], "swiglu" if ffn == "mlp" else "gelu",
-                  use_kernel=use_kernel)
+                  use_kernel=use_kernel, eps=cfg.rms_norm_eps)
     return x, None
 
 
@@ -301,6 +367,13 @@ def _apply_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, positions,
         x, cache["k"], cache["v"] = L.attention_block(
             x, p["mix"], cfg, positions, causal=causal, window=window,
             use_kernel=use_kernel, train=train)
+    elif mixer == "mla":
+        with MLA.span("mla"):
+            x, cache["ckv"], cache["kpe"] = MLA.mla_block(
+                x, p["mix"], cfg, positions, use_kernel=use_kernel)
+        with MLA.span(ffn):
+            x, aux = _ffn(x, p, cfg, ffn, use_kernel)
+        return x, aux, cache
     elif mixer in _RECURRENT:
         x, st = _RECURRENT[mixer][0](x, p["mix"], cfg,
                                      use_kernel=use_kernel)
@@ -453,8 +526,8 @@ def hidden_states(params: Params, batch: Dict[str, torch.Tensor],
                if cfg.enc_dec else None)
     x, aux, caches = _run_stack(x, params["layers"], cfg, positions, True,
                                 use_kernel, train, enc_out)
-    return (L.rmsnorm(x, params["final_ln"], use_kernel=use_kernel), aux,
-            caches)
+    return (L.rmsnorm(x, params["final_ln"], cfg.rms_norm_eps,
+                      use_kernel=use_kernel), aux, caches)
 
 
 def _xent_chunk(h: torch.Tensor, lm_head: torch.Tensor,
@@ -551,6 +624,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                      cfg.n_kv_heads, cfg.head_dim)
             entry["k"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
             entry["v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        elif mixer == "mla":
+            entry = MLA.init_latent_cache(cfg, batch, max_len, dev)
         elif mixer == "mamba":            # d_inner: expand 2
             entry = SSM.init_mamba_state(batch, 2 * cfg.d_model, cfg.d_state,
                                          cfg.dtype, device=dev)._asdict()
@@ -570,12 +645,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
-                  kv_len: int, use_kernel: bool):
+                  kv_len: int, use_kernel: bool, mla_step=None):
     """One-token block. x: (B,1,D).  Writes the cache entry (KV or
     recurrent state) in place and returns x; an encoder-decoder's cross
     part attends to the entry's ``xk``/``xv`` over all ``enc_seq``.
     ``kv_len``: an upper bound of every slot's cache length (decode
-    attention reads no further; the mask hides the rest anyway)."""
+    attention reads no further; the mask hides the rest anyway).
+    ``mla_step``: what an MLA layer shares with the step's others
+    (:func:`repro_torch.models.mla.decode_state`)."""
     if mixer in ("attn", "swa"):
         b = x.shape[0]
         window = cfg.swa_window if mixer == "swa" else None
@@ -590,6 +667,12 @@ def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
         out = L.cached_attention(q, k, v, entry["k"], entry["v"], pos,
                                  kv_len, cfg, ring=ring, window=window)
         x = x + L.dense(out.reshape(b, 1, -1), p["mix"]["wo"])
+    elif mixer == "mla":
+        with MLA.span("mla"):
+            x = MLA.mla_decode(x, p["mix"], cfg, entry, mla_step, kv_len,
+                               use_kernel=use_kernel)
+        with MLA.span(ffn):
+            return _ffn(x, p, cfg, ffn, use_kernel)[0]
     elif mixer in _RECURRENT:
         block, state = _RECURRENT[mixer]
         x, st = block(x, p["mix"], cfg, state(**entry), decode=True,
@@ -619,11 +702,14 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     x = embed(params["embed"], tokens, cfg.dtype)
     if kv_len is None:
         kv_len = int(SH.whole(pos).max()) + 1
+    mla_step = (MLA.decode_state(pos, cache["layers"][0]["ckv"].shape[1],
+                                 cfg) if isinstance(cfg, MLAConfig) else None)
     for p, (mixer, ffn), entry in zip(params["layers"], cfg.layer_kinds(),
                                       cache["layers"]):
         x = _decode_block(x, p, cfg, mixer, ffn, entry, pos, kv_len,
-                          use_kernel)
-    h = L.rmsnorm(x, params["final_ln"], use_kernel=use_kernel)
+                          use_kernel, mla_step)
+    h = L.rmsnorm(x, params["final_ln"], cfg.rms_norm_eps,
+                  use_kernel=use_kernel)
     return logits_last(params, h, cfg), {"pos": pos + 1,
                                          "layers": cache["layers"]}
 
@@ -649,6 +735,9 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                 idx = (torch.arange(c, device=k.device) - s % c) % c
                 entry = dict(entry, k=k[:, s - c:][:, idx],
                              v=v[:, s - c:][:, idx])
+        elif mixer == "mla":   # zeros after the prompt, up to max_len
+            entry = {key: F.pad(t, (0, 0, 0, max_len - s))
+                     for key, t in entry.items()}
         layers.append(entry)
     logits = logits_last(params, h, cfg)
     pos = torch.full((b,), s, dtype=torch.int32, device=h.device)

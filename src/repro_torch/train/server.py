@@ -15,13 +15,14 @@ only when the queue is empty and at least one decode slot is free.
 
 The cache lives on the device of the weights and is updated in place: a
 prefill's cache is copied into its slot (every entry with the batch on
-axis 0: KV, recurrent state, an encoder-decoder's cross ``xk``/``xv``),
-and each decode step writes one token per slot (the reference donates the
-cache to its jitted step).  As in the reference, ``max_len`` counts the
+axis 0: KV, an MLA layer's latent ``ckv``/``kpe``, recurrent state, an
+encoder-decoder's cross ``xk``/``xv``), and each decode step writes one
+token per slot (the reference donates the cache to its jitted step).  As in the reference, ``max_len`` counts the
 prompt only, never a vision prefix ahead of it (``submit`` and the
 ``too_long`` rule): a prefix plus prompt past ``max_len`` keeps the last
 ``max_len`` positions in the cache, and decode writes at a position
-clamped into it.
+clamped into it.  ``last_logits`` holds the last decode step's logits
+(one row a slot) until the next step, for a caller that checks them.
 """
 from __future__ import annotations
 
@@ -112,6 +113,8 @@ class Server:
         self.rejected: List[Request] = []
         self.abandoned: List[Request] = []
         self.best_effort = best_effort
+        # the last decode step's logits (n_slots, V), on the device
+        self.last_logits: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------- intake
     def submit(self, req: Request) -> Request:
@@ -188,6 +191,7 @@ class Server:
         tokens = torch.as_tensor(self.last_tok, device=self.device)
         logits, self.cache = T.decode_step(self.params, self.cache, tokens,
                                            self.cfg)
+        self.last_logits = logits
         toks = torch.argmax(logits, dim=-1).cpu().numpy()
         done: List[Request] = []
         for slot, req in list(self.active.items()):
