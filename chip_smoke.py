@@ -260,7 +260,11 @@ flash kernel's dp=192 template against its plain version on a
 4,096-token causal prompt (V zero-padded from 128), each within 1e-2 of
 max and timed beside its bound, then the published config whole (15.96 B
 parameters, bf16) and one decode step of 64 slots with the launch counts
-set to 0 just before: MLA decode 27, RMSNorm 82, flash and GEMM 0;
+set to 0 just before: MLA decode 27, RMSNorm 82, flash and GEMM 0; and
+the same step replayed as CUDA graphs, bit for bit the eager step at the
+cache's length and timed beside it, a replay's kernels counted by
+``torch.profiler`` (MLA decode and its combine 27 each, RMSNorm 82, as
+the eager step's) and the activities whose counts differ logged;
 ``--moonlight`` runs that phase alone;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
@@ -3961,25 +3965,30 @@ def _leaves(tree):
 
 # [moonlight]: moonlight-16b-a3b (MLA, the grouped MoE) at published widths
 MOONLIGHT_ARCH = "moonlight-16b-a3b"
-# (slots, shortest and longest cache) of the MLA decode kernel's checks:
-# the cell's 64 conversations at 2,048-4,096 positions (a KV split), and
-# 600 slots of up to 100, which fill the card unsplit
-MLA_CASES = ((64, 2048, 4096), (600, 1, 100))
+# (slots, shortest and longest cache, the cache's capacity) of the MLA
+# decode kernel's checks: the cell's 64 conversations at 2,048-4,096
+# positions in its 8,192-position cache (a KV split; the step's CUDA
+# graphs read the capacity), and 600 slots of up to 100, which fill the
+# card unsplit
+MLA_CASES = ((64, 2048, 4096, 8192), (600, 1, 100, 100))
 MOONLIGHT_PROMPT = 4096     # the dp=192 flash template's prefill shape
 
 
-def check_mla_decode(randn, g, cfg, b, lo, hi) -> dict:
+def check_mla_decode(randn, g, cfg, b, lo, hi, cap) -> dict:
     """The MLA decode kernel at ``b`` slots of ``lo``-``hi`` cached
-    positions (the first slot ``hi``, the last ``lo``) against its plain
-    version at BF16_TOL (P rounded against the running max in the kernel,
-    the final one in the plain version), one launch, timed by device_ms
-    beside the plain version and the bound: the cache read once at each
-    slot's length."""
+    positions (the first slot ``hi``, the last ``lo``) of a ``cap``-
+    position cache against its plain version at BF16_TOL (P rounded
+    against the running max in the kernel, the final one in the plain
+    version), one launch, timed by device_ms beside the plain version and
+    the bound: the cache read once at each slot's length; and timed again
+    at ``kv_len`` = ``cap``, as the decode step's CUDA graphs call it (the
+    split set by the capacity; the result within BF16_TOL too, and bit
+    for bit the ``hi`` call's where both make as many splits)."""
     import torch
     from repro_torch.kernels import mla_decode as MK
     h, r, pe = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
     scale = cfg.qk_head_dim ** -0.5
-    q, ckv, kpe = randn(b, h, r + pe), randn(b, hi, r), randn(b, hi, pe)
+    q, ckv, kpe = randn(b, h, r + pe), randn(b, cap, r), randn(b, cap, pe)
     lens = torch.randint(lo, hi + 1, (b,), generator=g, device=q.device,
                          dtype=torch.int32)
     lens[0], lens[-1] = hi, lo
@@ -3995,9 +4004,21 @@ def check_mla_decode(randn, g, cfg, b, lo, hi) -> dict:
     splits = MK.kv_split(b, hi)[1]
     check(rel < BF16_TOL, f"[moonlight] MLA decode at {b} slots of {lo}-"
                           f"{hi} ({splits} splits): {rel:.3e} of max")
+    at_cap = lambda: MK.mla_attention(q, ckv, kpe, lens, scale, cap)
+    got_cap, cap_splits = at_cap(), MK.kv_split(b, cap)[1]
+    _, rel_cap = rel_err(got_cap, plain())
+    check(rel_cap < BF16_TOL, f"[moonlight] MLA decode at kv_len {cap}: "
+                              f"{rel_cap:.3e} of max")
+    # each sequence's blocks share its own length: the same split count
+    # gives the same runs, whatever kv_len
+    check(cap_splits != splits or torch.equal(got_cap, got),
+          f"[moonlight] MLA decode at kv_len {cap} and {hi}, both "
+          f"{splits} splits, differ")
     positions = float(lens.sum())
-    row = {"shape": [b, lo, hi], "splits": splits, "max_abs_err": err,
+    row = {"shape": [b, lo, hi, cap], "splits": splits, "max_abs_err": err,
            "rel_err": rel, "ms": device_ms(call),
+           "capacity_splits": cap_splits,
+           "capacity_ms": device_ms(at_cap), "capacity_rel_err": rel_cap,
            "plain_ms": cuda_ms(plain, reps=3),
            **bound(2.0 * positions * h * (r + pe + r) / BF16_FLOPS * 1e3,
                    2.0 * (positions * (r + pe) + b * h * (r + pe + r))
@@ -4006,7 +4027,9 @@ def check_mla_decode(randn, g, cfg, b, lo, hi) -> dict:
         f"{splits} splits: {rel:.3e} of max (< {BF16_TOL}); kernel "
         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}; the kernel at "
-        f"{100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of it); at kv_len {cap} "
+        f"({row['capacity_splits']} splits) {row['capacity_ms']:.4f} ms, "
+        f"{rel_cap:.3e} of max")
     return row
 
 
@@ -4053,10 +4076,15 @@ def phase_moonlight(dev) -> dict:
     :data:`MLA_CASES`, :func:`check_flash_dp192` at a
     :data:`MOONLIGHT_PROMPT`-token prompt), then the published config
     whole on the card (bf16, seeded weights, 15.96 B parameters) and one
-    ``decode_step`` of the cell's 64 slots at 2,048-4,096 positions, the
-    launch counts set to 0 just before: the MLA decode kernel once a
-    layer (27), RMSNorm three times a layer and once more (82), flash
-    never; finite logits, the step's ms and peak memory."""
+    ``decode_step`` of the cell's 64 slots at 2,048-4,096 positions of
+    its 8,192-position cache, the launch counts set to 0 just before: the
+    MLA decode kernel once a layer (27), RMSNorm three times a layer and
+    once more (82), flash never; finite logits, the step's ms and peak memory.  Then the step
+    as a server replays it (CUDA graphs, :mod:`repro_torch.models.
+    decode_graphs`, at ``kv_len`` the cache's length): its logits equal
+    the eager step's at that ``kv_len`` bit for bit and the default's
+    within BF16_TOL, its ms beside both eager steps', and its kernels as
+    a profiler traces them (:func:`check_graph_step`)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -4080,9 +4108,9 @@ def phase_moonlight(dev) -> dict:
            "flash_dp192": check_flash_dp192(randn, cfg, MOONLIGHT_PROMPT)}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    b, lo, hi = MLA_CASES[0]
+    b, lo, hi, cap = MLA_CASES[0]
     params = T.init_params(SEED, cfg, device=dev)
-    cache = T.init_cache(cfg, b, hi + 64, device=dev)
+    cache = T.init_cache(cfg, b, cap, device=dev)
     cache["pos"] = torch.randint(lo, hi, (b,), generator=g, device=dev,
                                  dtype=torch.int32)
     toks = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev)
@@ -4102,6 +4130,7 @@ def phase_moonlight(dev) -> dict:
         check(bool(torch.isfinite(logits).all()),
               "[moonlight] a decode step's logits are not finite")
         step_ms = cuda_ms(step, reps=5)
+        out["graph_step"] = check_graph_step(params, cfg, cache, toks, logits)
     out["decode_step"] = {"slots": b, "positions": [lo, hi],
                           "launches": launches, "ms": step_ms,
                           "peak_mem_bytes":
@@ -4113,6 +4142,123 @@ def phase_moonlight(dev) -> dict:
     del params, cache, logits
     torch.cuda.empty_cache()
     return out
+
+
+# the port's kernels in a Moonlight decode step, by their traced names
+DECODE_KERNELS = ("mla_decode_kernel", "mla_decode_combine_kernel",
+                  "rmsnorm_kernel")
+
+
+def traced_kernels(fn) -> dict:
+    """Every CUDA activity one call of ``fn`` runs (a CUDA graph's kernels
+    one by one), by ``torch.profiler``: name -> [count, device ms]; empty
+    where the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            row = out.setdefault(e.name, [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def decode_kernel_counts(traced: dict) -> dict:
+    """:data:`DECODE_KERNELS`' launches in a :func:`traced_kernels`."""
+    import re
+    return {k: sum(n for name, (n, _) in traced.items()
+                   if re.search(rf"\b{k}\b", name))
+            for k in DECODE_KERNELS}
+
+
+def check_graph_step(params, cfg, cache, toks, eager_logits) -> dict:
+    """The decode step replayed as CUDA graphs on ``cache`` against the
+    eager step at ``kv_len`` = the cache's length (bit for bit: the same
+    kernels and MLA split) and ``eager_logits`` at the default (within
+    BF16_TOL); each timed by cuda_ms (host and device), ``pos`` put back
+    after every replayed step so that all three read the same positions.
+    Then, the graphs captured, one step of each under ``torch.profiler``
+    with the wrappers' launch counts set to 0 just before: the replayed
+    step's MLA decode kernel, its combine (where the split is on) and
+    RMSNorm, as the trace counts them, are the eager step's (27, 27, 82),
+    and so are the counts the replay adds; every activity whose count
+    differs between the two traces is logged with its device ms."""
+    import torch
+    from repro_torch.kernels import mla_decode as MK
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.models import decode_graphs as DG
+    from repro_torch.models import transformer as T
+    cap = cache["layers"][0]["ckv"].shape[1]
+    graphs = DG.DecodeGraphs(params, cfg, cache)
+
+    def replayed():
+        logits, _ = T.decode_step(params, cache, toks, cfg, graphs=graphs)
+        cache["pos"].sub_(1)
+        return logits
+
+    eager = lambda: T.decode_step(params, cache, toks, cfg, kv_len=cap)[0]
+    want = eager()
+    t0 = time.perf_counter()
+    got = replayed()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    check(graphs.captures == 1, "[moonlight] the graphs were not captured")
+    check(torch.equal(got, want), f"[moonlight] the replayed step differs "
+                                  f"from the eager one at kv_len {cap}: "
+                                  f"{rel_err(got, want)[1]:.3e} of max")
+    _, rel = rel_err(got, eager_logits)
+    check(rel < BF16_TOL, f"[moonlight] the replayed step at kv_len {cap} "
+                          f"is {rel:.3e} of max from the default kv_len's")
+    layers = cfg.n_layers
+    split = MK.kv_split(toks.shape[0], cap)[1] > 1
+    want_traced = {"mla_decode_kernel": layers,
+                   "mla_decode_combine_kernel": layers if split else 0,
+                   "rmsnorm_kernel": 3 * layers + 1}
+    traces, counted = {}, {}
+    for name, fn in (("eager", eager), ("replayed", replayed)):
+        RN.rmsnorm.launches = MK.mla_attention.launches = 0
+        traces[name] = traced_kernels(fn)
+        counted[name] = {"mla_decode": MK.mla_attention.launches,
+                         "rmsnorm": RN.rmsnorm.launches}
+    found = {k: decode_kernel_counts(t) for k, t in traces.items()}
+    check(found["replayed"] == found["eager"] == want_traced,
+          f"[moonlight] traced launches: replayed {found['replayed']}, "
+          f"eager {found['eager']}, not {want_traced}")
+    check(counted["replayed"] == counted["eager"]
+          == {"mla_decode": layers, "rmsnorm": 3 * layers + 1},
+          f"[moonlight] counted launches: replayed {counted['replayed']}, "
+          f"eager {counted['eager']}")
+    differ = sorted(
+        ([name[:100]] + traces["eager"].get(name, [0, 0.0])
+         + traces["replayed"].get(name, [0, 0.0])
+         for name in set(traces["eager"]) | set(traces["replayed"])
+         if traces["eager"].get(name, [0])[0]
+         != traces["replayed"].get(name, [0])[0]),
+        key=lambda r: -max(r[2], r[4]))
+    row = {"capture_s": capture_s, "rel_err_default": rel,
+           "ms": cuda_ms(replayed, reps=10),
+           "eager_capacity_ms": cuda_ms(eager, reps=5),
+           "traced_launches": found["replayed"],
+           "device_ms": {k: sum(ms for _, ms in t.values())
+                         for k, t in traces.items()},
+           "differ": differ}
+    log(f"[moonlight] the step replayed as {2 * layers + 2} CUDA "
+        f"graphs (capture {capture_s:.2f} s): bit for bit the eager step "
+        f"at kv_len {cap}, {rel:.3e} of max from the default's; "
+        f"{row['ms']:.2f} ms against eager {row['eager_capacity_ms']:.2f} "
+        f"ms (host and device); traced launches of a replay "
+        f"{found['replayed']}, as the eager step's; device "
+        f"{row['device_ms']['replayed']:.3f} ms against "
+        f"{row['device_ms']['eager']:.3f}")
+    for name, n_e, ms_e, n_r, ms_r in differ[:16]:
+        log(f"[moonlight] eager {n_e} x {ms_e:.4f} ms, replayed {n_r} x "
+            f"{ms_r:.4f} ms: {name}")
+    return row
 
 
 def moonlight_main() -> int:

@@ -15,11 +15,16 @@
 // computes the whole 16 x BK S (the K tile is shared; the products are
 // few beside the bytes) and a quarter of the 512 output columns.
 //
-// KV split: block (b, z) walks tiles [z * kv_chunk, (z + 1) * kv_chunk)
-// of its sequence.  With one split it writes out; with more it writes its
-// unnormalised rows and their (m, l) to a workspace, and
-// mla_decode_combine_kernel merges the splits of each row (a split past
-// its sequence's end writes l = 0 and counts for nothing).
+// KV split: a sequence's T tiles (of its own length) go to its gridDim.y
+// blocks in runs of ceil(T / gridDim.y): block (b, z) walks tiles
+// [z * chunk, (z + 1) * chunk).  The grid is sized for the longest
+// sequence (or the cache's capacity, where a caller has no host length);
+// each sequence's blocks share its own length evenly, so a short one does
+// not leave blocks idle beside a long one's.  With one split a block
+// writes out; with more it writes its unnormalised rows and their (m, l)
+// to a workspace, and mla_decode_combine_kernel merges the splits of each
+// row (a split past its sequence's end writes l = 0 and counts for
+// nothing).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,8 +113,7 @@ __global__ void __launch_bounds__(kThreads)
 mla_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ckv,
                   const bf16* __restrict__ kpe, const int* __restrict__ lens,
                   bf16* __restrict__ out, float* __restrict__ part_o,
-                  float* __restrict__ part_ml, int C, float scale_log2,
-                  int kv_chunk) {
+                  float* __restrict__ part_ml, int C, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [16][kLD]
   bf16* Ks = Qs + kHeads * kLD;                   // [2][kBK][kLD]
@@ -119,6 +123,7 @@ mla_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ckv,
   const int b = blockIdx.x, z = blockIdx.y, B = gridDim.x;
   const int len = lens[b];
   const int tiles = (len + kBK - 1) / kBK;
+  const int kv_chunk = (tiles + gridDim.y - 1) / gridDim.y;
   const int t_lo = z * kv_chunk, t_hi = min(tiles, t_lo + kv_chunk) - 1;
   const bf16* cb = ckv + (int64_t)b * C * kLat;
   const bf16* pb = kpe + (int64_t)b * C * kRope;
@@ -312,15 +317,14 @@ mla_decode_combine_kernel(const float* __restrict__ part_o,
 // q (B, 16, 576), ckv (B, C, 512), kpe (B, C, 64), out (B, 16, 512): bf16,
 // contiguous, 16-byte aligned; lens (B,) int32 in [1, C].  splits > 1
 // needs the workspaces part_o (splits, B, 16, 512) and part_ml (splits, B,
-// 16, 2), fp32, and kv_chunk * splits tiles of 32 covering the longest
-// sequence.  Returns cudaGetLastError() after the launches, or -1 for
+// 16, 2), fp32.  Returns cudaGetLastError() after the launches, or -1 for
 // arguments it does not take.
 extern "C" int repro_mla_decode(const void* q, const void* ckv,
                                 const void* kpe, const void* lens, void* out,
                                 int B, int H, int C, float scale,
-                                int kv_chunk, int splits, void* part_o,
+                                int splits, void* part_o,
                                 void* part_ml, void* stream) {
-  if (B < 1 || H != kHeads || C < 1 || kv_chunk < 1 || splits < 1 ||
+  if (B < 1 || H != kHeads || C < 1 || splits < 1 ||
       (splits > 1 && (!part_o || !part_ml)))
     return -1;
   static const int opt_in = static_cast<int>(cudaFuncSetAttribute(
@@ -331,7 +335,7 @@ extern "C" int repro_mla_decode(const void* q, const void* ckv,
       static_cast<const bf16*>(q), static_cast<const bf16*>(ckv),
       static_cast<const bf16*>(kpe), static_cast<const int*>(lens),
       static_cast<bf16*>(out), static_cast<float*>(part_o),
-      static_cast<float*>(part_ml), C, scale * kLog2e, kv_chunk);
+      static_cast<float*>(part_ml), C, scale * kLog2e);
   if (splits > 1)
     mla_decode_combine_kernel<<<B * kHeads, 128, 0, s>>>(
         static_cast<const float*>(part_o), static_cast<const float*>(part_ml),

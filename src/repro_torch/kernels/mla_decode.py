@@ -12,8 +12,12 @@ DeepSeek-V3's widths (H 16, R 512, P 64), contiguous and on 16-byte
 boundaries (:func:`kernel_refusal` names what a call lacks).  The kernel
 reads each position's 576 cache values once (scores and the weighted sum
 from one tile in shared memory) and counts the launch on
-``mla_attention.launches``; a KV split (:func:`kv_split`) spreads a
-sequence over several blocks and a second kernel merges them.  CPU
+``mla_attention.launches``; a KV split (:func:`kv_split`, sized by
+``kv_len``) spreads each sequence over the same number of blocks, which
+share that sequence's own length evenly (the kernel reads it from
+``lens``), and a second kernel merges them.  So ``kv_len`` sets only the
+split: at the cache's capacity, as a captured decode step calls it, a
+sequence's blocks are as long as at its own length.  CPU
 tensors, and ``use_kernel=False``, run :func:`mla_attention_plain`: the
 same sums in PyTorch, scores in fp32, P rounded to q's dtype for P ckv
 as the kernel feeds it to the MMA, the sum of P in fp32.
@@ -35,9 +39,11 @@ WAVES = 2                            # of blocks the split aims to fill
 
 
 def kv_split(batch: int, kv_len: int) -> Tuple[int, int]:
-    """(kv_chunk, splits): tiles of :data:`BK` a block and blocks a
-    sequence, so that ``batch * splits`` blocks fill :data:`WAVES` waves
-    of the card's block slots where the cache is long enough."""
+    """(kv_chunk, splits): tiles of :data:`BK` a block of a ``kv_len``-
+    position sequence and blocks a sequence, so that ``batch * splits``
+    blocks fill :data:`WAVES` waves of the card's block slots where the
+    cache is long enough.  The kernel takes ``splits``; a shorter
+    sequence's blocks take shorter runs."""
     tiles = -(-kv_len // BK)
     want = -(-WAVES * BLOCKS_PER_SM * SM_COUNT // batch)
     splits = max(1, min(tiles, want))
@@ -101,7 +107,7 @@ def mla_attention(q: torch.Tensor, ckv: torch.Tensor, kpe: torch.Tensor,
     if refusal:
         raise ValueError(f"MLA decode kernel: {refusal} (use_kernel=False "
                          f"runs the plain version)")
-    chunk, splits = kv_split(b, kv_len)
+    splits = kv_split(b, kv_len)[1]
     out = torch.empty((b, HEADS, LATENT), dtype=q.dtype, device=q.device)
     part_o = part_ml = None
     if splits > 1:
@@ -111,8 +117,8 @@ def mla_attention(q: torch.Tensor, ckv: torch.Tensor, kpe: torch.Tensor,
     # the raw current stream, as the RMSNorm wrapper takes it: a Stream
     # object costs microseconds a call, and a step makes one a layer
     args = (q.data_ptr(), ckv.data_ptr(), kpe.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, HEADS, ckv.shape[1], float(scale), chunk,
-            splits, None if part_o is None else part_o.data_ptr(),
+            out.data_ptr(), b, HEADS, ckv.shape[1], float(scale), splits,
+            None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             torch._C._cuda_getCurrentRawStream(q.device.index))
     if q.device.index == torch.cuda.current_device():
@@ -135,8 +141,8 @@ def _bind(lib) -> None:
     lib.repro_mla_decode.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
     lib.repro_mla_decode.restype = ctypes.c_int
 
 

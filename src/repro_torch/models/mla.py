@@ -37,8 +37,9 @@ slot's own.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,8 +51,11 @@ from repro_torch.models import layers as L
 Params = L.Params
 
 
-def span(name: str):
-    """A span of the ambient tracer (a shared no-op without one)."""
+def span(name: Optional[str]):
+    """A span of the ambient tracer (a shared no-op without one); no span
+    for the name None."""
+    if name is None:
+        return contextlib.nullcontext()
     return obs.current().span(name, cat="lm")
 
 

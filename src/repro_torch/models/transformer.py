@@ -53,7 +53,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +61,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -645,14 +645,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
-                  kv_len: int, use_kernel: bool, mla_step=None):
-    """One-token block. x: (B,1,D).  Writes the cache entry (KV or
-    recurrent state) in place and returns x; an encoder-decoder's cross
-    part attends to the entry's ``xk``/``xv`` over all ``enc_seq``.
-    ``kv_len``: an upper bound of every slot's cache length (decode
-    attention reads no further; the mask hides the rest anyway).
-    ``mla_step``: what an MLA layer shares with the step's others
-    (:func:`repro_torch.models.mla.decode_state`)."""
+                  kv_len: int, use_kernel: bool):
+    """One-token block of any mixer but ``mla`` (:func:`mla_step_segments`
+    runs those). x: (B,1,D).  Writes the cache entry (KV or recurrent
+    state) in place and returns x; an encoder-decoder's cross part attends
+    to the entry's ``xk``/``xv`` over all ``enc_seq``.  ``kv_len``: an
+    upper bound of every slot's cache length (decode attention reads no
+    further; the mask hides the rest anyway)."""
     if mixer in ("attn", "swa"):
         b = x.shape[0]
         window = cfg.swa_window if mixer == "swa" else None
@@ -667,12 +666,6 @@ def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
         out = L.cached_attention(q, k, v, entry["k"], entry["v"], pos,
                                  kv_len, cfg, ring=ring, window=window)
         x = x + L.dense(out.reshape(b, 1, -1), p["mix"]["wo"])
-    elif mixer == "mla":
-        with MLA.span("mla"):
-            x = MLA.mla_decode(x, p["mix"], cfg, entry, mla_step, kv_len,
-                               use_kernel=use_kernel)
-        with MLA.span(ffn):
-            return _ffn(x, p, cfg, ffn, use_kernel)[0]
     elif mixer in _RECURRENT:
         block, state = _RECURRENT[mixer]
         x, st = block(x, p["mix"], cfg, state(**entry), decode=True,
@@ -688,26 +681,102 @@ def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
     return _ffn(x, p, cfg, ffn, use_kernel)[0]
 
 
+def mla_step_segments(params: Params, cfg: ArchConfig, cache: Params,
+                      io: Dict[str, Any], kv_len: int,
+                      use_kernel: bool = True
+                      ) -> List[Tuple[Optional[str], Callable[[], None]]]:
+    """A decode step of an :class:`MLAConfig` stack as its pieces in
+    order: (span name or None, a function of no arguments).  They pass
+    the step along in ``io``: ``io["tokens"]`` (B, 1) in, ``io["logits"]``
+    (B, V) out.  A prologue (the embedding; :func:`repro_torch.models.
+    mla.decode_state` at ``cache["pos"]``: rows, write positions, lengths,
+    rope tables), then for each layer its ``mla`` mixer (attention over
+    the first ``kv_len`` positions, each slot's up to its own length) and
+    its FFN, each in a span of its name (another mixer runs as
+    :func:`_decode_block`, FFN included, in no span), then an epilogue
+    (the final RMSNorm, the head).  The cache's layers are written in
+    place; ``cache["pos"]`` is read, never advanced.
+
+    :func:`decode_step` runs them eagerly; a server's
+    :class:`repro_torch.models.decode_graphs.DecodeGraphs` captures each
+    once as a CUDA graph, at ``kv_len`` the cache's length, and replays
+    them in their spans."""
+    layers, pos = cache["layers"], cache["pos"]
+
+    def prologue():
+        io["x"] = embed(params["embed"], io["tokens"], cfg.dtype)
+        io["step"] = MLA.decode_state(pos, layers[0]["ckv"].shape[1], cfg)
+
+    def mixer(p, entry):
+        io["x"] = MLA.mla_decode(io["x"], p["mix"], cfg, entry, io["step"],
+                                 kv_len, use_kernel=use_kernel)
+
+    def ffn(p, kind):
+        io["x"] = _ffn(io["x"], p, cfg, kind, use_kernel)[0]
+
+    def block(p, kind, entry, ffn_kind):
+        io["x"] = _decode_block(io["x"], p, cfg, kind, ffn_kind, entry, pos,
+                                kv_len, use_kernel)
+
+    def epilogue():
+        h = L.rmsnorm(io["x"], params["final_ln"], cfg.rms_norm_eps,
+                      use_kernel=use_kernel)
+        io["logits"] = logits_last(params, h, cfg)
+
+    segs: List[Tuple[Optional[str], Callable[[], None]]] = [(None, prologue)]
+    for p, (kind, ffn_kind), entry in zip(params["layers"], cfg.layer_kinds(),
+                                          layers):
+        if kind == "mla":
+            segs += [("mla", functools.partial(mixer, p, entry)),
+                     (ffn_kind, functools.partial(ffn, p, ffn_kind))]
+        else:
+            segs.append((None, functools.partial(block, p, kind, entry,
+                                                 ffn_kind)))
+    return segs + [(None, epilogue)]
+
+
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
                 cfg: ArchConfig, use_kernel: bool = True,
-                kv_len: Optional[int] = None
+                kv_len: Optional[int] = None, graphs=None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step. tokens: (B, 1) -> (logits (B, V), cache).  The
     cache's layers are updated in place; the returned cache holds them and
-    ``pos + 1``.  ``kv_len``: the cache positions attention reads (default
-    the furthest slot's, one host sync a step; a caller without values,
-    as on the ``meta`` device, passes the cache's length)."""
+    ``pos + 1``, a new tensor.  ``kv_len``: the cache positions attention
+    reads (default the furthest slot's, one host sync a step; a caller
+    without values, as on the ``meta`` device, passes the cache's length).
+    An :class:`MLAConfig` stack runs :func:`mla_step_segments` in order.
+
+    ``graphs``: a server's :class:`repro_torch.models.decode_graphs.
+    DecodeGraphs` for this cache, or None.  Where it engages (an
+    MLAConfig of ``mla`` layers on CUDA, ``moe.route_replay`` off) and the
+    call leaves ``use_kernel`` and ``kv_len`` at their defaults, the step
+    replays those segments' CUDA graphs instead, at ``kv_len`` the cache's
+    length: then ``pos`` advances in place (the returned cache holds the
+    same tensor), and the logits are the graphs' static buffer,
+    overwritten by the next step.  With ``graphs`` given, the ambient
+    tracer counts ``decode.graph_replays`` or ``decode.eager_steps``."""
     check_supported(cfg)
+    if graphs is not None:
+        counter = obs.current().metrics.counter
+        if use_kernel and kv_len is None and graphs.engages(tokens):
+            counter("decode.graph_replays").inc()
+            return graphs.step(params, cache, tokens)
+        counter("decode.eager_steps").inc()
     pos = cache["pos"]
-    x = embed(params["embed"], tokens, cfg.dtype)
     if kv_len is None:
         kv_len = int(SH.whole(pos).max()) + 1
-    mla_step = (MLA.decode_state(pos, cache["layers"][0]["ckv"].shape[1],
-                                 cfg) if isinstance(cfg, MLAConfig) else None)
+    if isinstance(cfg, MLAConfig):
+        io = {"tokens": tokens}
+        for name, fn in mla_step_segments(params, cfg, cache, io, kv_len,
+                                          use_kernel):
+            with MLA.span(name):
+                fn()
+        return io["logits"], {"pos": pos + 1, "layers": cache["layers"]}
+    x = embed(params["embed"], tokens, cfg.dtype)
     for p, (mixer, ffn), entry in zip(params["layers"], cfg.layer_kinds(),
                                       cache["layers"]):
         x = _decode_block(x, p, cfg, mixer, ffn, entry, pos, kv_len,
-                          use_kernel, mla_step)
+                          use_kernel)
     h = L.rmsnorm(x, params["final_ln"], cfg.rms_norm_eps,
                   use_kernel=use_kernel)
     return logits_last(params, h, cfg), {"pos": pos + 1,

@@ -23,6 +23,13 @@ prompt only, never a vision prefix ahead of it (``submit`` and the
 ``max_len`` positions in the cache, and decode writes at a position
 clamped into it.  ``last_logits`` holds the last decode step's logits
 (one row a slot) until the next step, for a caller that checks them.
+
+An MLAConfig model on CUDA decodes by replaying CUDA graphs
+(:mod:`repro_torch.models.decode_graphs`), captured at the server's first
+decode step: the step then advances ``cache["pos"]`` in place, so the
+cache keeps its tensors, and ``last_logits`` is the graphs' static
+buffer, which the next step overwrites.  Every other configuration, and a
+step under ``moe.route_replay``, decodes eagerly.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import decode_graphs as DG
 from repro_torch.models import transformer as T
 
 # Request.status values, in lifecycle order.
@@ -105,6 +113,8 @@ class Server:
         self.n_slots, self.max_len = n_slots, max_len
         self.device = params["embed"].device
         self.cache = T.init_cache(cfg, n_slots, max_len, device=self.device)
+        # the decode step as CUDA graphs where the model allows it
+        self.graphs = DG.DecodeGraphs(params, cfg, self.cache)
         self.free = list(range(n_slots))
         self.active: Dict[int, Request] = {}
         self.last_tok = np.zeros((n_slots, 1), np.int32)
@@ -113,7 +123,8 @@ class Server:
         self.rejected: List[Request] = []
         self.abandoned: List[Request] = []
         self.best_effort = best_effort
-        # the last decode step's logits (n_slots, V), on the device
+        # the last decode step's logits (n_slots, V), on the device; valid
+        # until the next step (the graphs' static buffer where they replay)
         self.last_logits: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------- intake
@@ -190,7 +201,7 @@ class Server:
             return []
         tokens = torch.as_tensor(self.last_tok, device=self.device)
         logits, self.cache = T.decode_step(self.params, self.cache, tokens,
-                                           self.cfg)
+                                           self.cfg, graphs=self.graphs)
         self.last_logits = logits
         toks = torch.argmax(logits, dim=-1).cpu().numpy()
         done: List[Request] = []

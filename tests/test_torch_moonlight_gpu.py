@@ -3,14 +3,19 @@ dp=192 template on MLA's prefill shapes against attention in fp32
 (values zero-padded from 128), the grouped MoE (``torch._grouped_mm``)
 against every expert on every token, the absorbed decode against the
 expanded form, the MLA decode kernel against its plain version (and
-its refusal of CUDA operands it is not built for), and one
+its refusal of CUDA operands it is not built for), one
 MLA + MoE layer and layer 0 at published widths served through
-``Server`` against the plain float32 reference
-(``dcoc_bench/reference/deepseek_v3.py``).  Every test carries the
+``Server`` (its decode steps replayed as CUDA graphs) against the plain
+float32 reference (``dcoc_bench/reference/deepseek_v3.py``), and the
+replayed steps against eager ones (bit for bit at the cache's length),
+with their counters, route log and launch counts, across a request that
+finishes and one admitted into its slot, and around a step that
+``moe.route_replay`` makes eager.  Every test carries the
 ``gpu`` marker and skips where torch sees no CUDA device.  No JAX:
 
     python -m pytest -q -m gpu tests/test_torch_moonlight_gpu.py
 """
+import contextlib
 import os
 import sys
 
@@ -20,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from _torch_support import require_cuda
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.models import moe as MOE
@@ -158,6 +164,171 @@ def test_layers_serve_against_reference_on_card():
           f"mean {np.mean(gaps):.4e}; route_gap {share:.4e} "
           f"({ref['route_mismatch']} of {ref['route_tokens']})")
     assert max(gaps) < 5e-2 and share < 0.1
+    assert server.graphs.captures == 1     # the decode steps replayed
+
+
+@contextlib.contextmanager
+def _eager(kv_len):
+    """``transformer.decode_step`` as ``Server.step`` calls it, run
+    eagerly, at ``kv_len`` (None: its default, the longest slot's)."""
+    real = T.decode_step
+
+    def eager(params, cache, tokens, cfg, graphs=None):
+        return real(params, cache, tokens, cfg, kv_len=kv_len)
+
+    T.decode_step = eager
+    try:
+        yield
+    finally:
+        T.decode_step = real
+
+
+def _lockstep(servers, modes, steps, on_step=None):
+    """``steps`` steps of each server in turn, ``modes[k]`` the
+    ``_eager`` kv_len of server k or "graph"; each under a tracer and a
+    route log of its own.  Returns per server: the logits of every step,
+    the route log, the tracer's counters, the MLA kernel's launches.
+    ``on_step(j, k)``: a context for step j of server k."""
+    from repro_torch.kernels import mla_decode as MK
+    n = len(servers)
+    logits, logs = [[] for _ in range(n)], [[] for _ in range(n)]
+    tracers, launches = [obs.Tracer() for _ in range(n)], [0] * n
+    for j in range(steps):
+        for k, (server, mode) in enumerate(zip(servers, modes)):
+            n0 = MK.mla_attention.launches
+            MOE.route_log = logs[k]
+            try:
+                with obs.use(tracers[k]), \
+                        (contextlib.nullcontext() if mode == "graph"
+                         else _eager(mode)), \
+                        (on_step(j, k) if on_step
+                         else contextlib.nullcontext()):
+                    server.step()
+            finally:
+                MOE.route_log = None
+            launches[k] += MK.mla_attention.launches - n0
+            logits[k].append(server.last_logits.clone())
+    return logits, logs, [t.metrics.snapshot()["counters"] for t in tracers], \
+        launches
+
+
+def _traced_launches(fn) -> dict:
+    """The MLA decode kernel's, its combine's and RMSNorm's launches in
+    one call of ``fn``, as ``torch.profiler`` traces them on the card (a
+    CUDA graph's kernels one by one)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
+            for k in ("mla_decode_kernel", "mla_decode_combine_kernel",
+                      "rmsnorm_kernel")}
+
+
+@pytest.mark.gpu
+def test_graph_steps_match_eager_steps_on_card():
+    """Layer 0 and one MLA + MoE layer, bf16, published widths: three
+    servers on the same weights and requests, stepped in turn for 20
+    steps: one replaying its CUDA graphs, one eager at ``kv_len`` =
+    ``max_len`` (the same kernels and MLA split: bit for bit, which the
+    graphs keep, cuBLAS choosing by shape alone), one eager at the
+    default ``kv_len`` (the bf16 tolerance of the absorbed decode test).
+    Slots of 3,000 and 1,200 prompt tokens; the second finishes after 6
+    tokens and a 2,000-token request is admitted into its slot, with no
+    new capture.  The counters, route log and MLA launches of the graph
+    server equal the eager one's; every decode step replayed.  Then one
+    more step of each under ``torch.profiler``: the replay launches the
+    MLA decode kernel, its combine and RMSNorm as often as the eager
+    step (2, 2, 7), which the launch counts the replay adds agree with."""
+    require_cuda()
+    cfg = _two_layers()
+    params = T.init_params(7, cfg, device="cuda")
+    max_len = 4096
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (3000, 1200, 2000)]
+    servers = [Server(params, cfg, n_slots=2, max_len=max_len)
+               for _ in range(3)]
+    reqs = [[server.submit(Request(uid=i, prompt=p, max_new_tokens=new))
+             for i, (p, new) in enumerate(zip(prompts, (64, 6, 64)))]
+            for server in servers]
+    logits, logs, counters, launches = _lockstep(
+        servers, ("graph", max_len, None), 20)
+    graph, eager, default = servers
+    for j in range(20):
+        assert torch.equal(logits[0][j], logits[1][j]), j
+        assert _rel(logits[0][j], logits[2][j]) < 5e-2, j
+    assert [r.output for r in reqs[0]] == [r.output for r in reqs[1]]
+    assert reqs[0][1].status == "done"
+    assert sorted(r.uid for r in graph.active.values()) == [0, 2]
+    assert graph.graphs.captures == 1
+    assert eager.graphs.captures == default.graphs.captures == 0
+    assert len(logs[0]) == len(logs[1]) and all(
+        torch.equal(a, b) for a, b in zip(logs[0], logs[1]))
+    for name in ("moe.experts_touched", "moe.tokens_dropped",
+                 "mla.cache_tokens"):
+        assert float(counters[0][name]) == float(counters[1][name]), name
+    assert float(counters[0]["moe.tokens_dropped"]) == 0
+    assert counters[0]["decode.graph_replays"] == 20
+    assert "decode.eager_steps" not in counters[0]
+    assert launches[0] == launches[1] == launches[2] == 20 * cfg.n_layers
+    traced = [_traced_launches(graph.step)]
+    with _eager(max_len):
+        traced.append(_traced_launches(eager.step))
+    assert graph.graphs.captures == 1 and eager.graphs.captures == 0
+    assert traced[0] == traced[1] == {
+        "mla_decode_kernel": cfg.n_layers,
+        "mla_decode_combine_kernel": cfg.n_layers,    # 2 slots: a split
+        "rmsnorm_kernel": 3 * cfg.n_layers + 1}
+
+
+@pytest.mark.gpu
+def test_route_replay_step_runs_eagerly_between_replays_on_card():
+    """A graph server and an eager one (``kv_len`` = ``max_len``) stepped
+    in turn; at step 3 the graph server replays the eager one's expert
+    sets (``moe.route_replay``), so that step runs eagerly and makes a new
+    ``pos``; the next steps replay again from it, with no new capture,
+    within the bf16 tolerance of the eager server."""
+    require_cuda()
+    cfg = _two_layers()
+    params = T.init_params(9, cfg, device="cuda")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (2500, 1800)]
+    eager, graph = servers = [Server(params, cfg, n_slots=2, max_len=4096)
+                              for _ in range(2)]
+    for server in servers:
+        for i, p in enumerate(prompts):
+            server.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+    replay = {}
+
+    @contextlib.contextmanager
+    def at_step_3(j, k):
+        if j != 3:
+            yield
+        elif k == 0:                  # the eager server goes first
+            yield
+            replay["routes"] = list(MOE.route_log[-(cfg.n_layers - 1):])
+        else:
+            MOE.route_replay = [t.clone() for t in replay["routes"]]
+            try:
+                yield
+            finally:
+                MOE.route_replay = None
+
+    logits, _, counters, _ = _lockstep(servers, (4096, "graph"), 8,
+                                       at_step_3)
+    for j in range(8):
+        assert _rel(logits[1][j], logits[0][j]) < 5e-2, j
+    assert counters[1]["decode.graph_replays"] == 7
+    assert counters[1]["decode.eager_steps"] == 1
+    assert graph.graphs.captures == 1
+    assert graph.cache["pos"] is graph.graphs.pos
+    assert torch.equal(graph.cache["pos"], eager.cache["pos"])
 
 
 @pytest.mark.gpu
@@ -186,6 +357,29 @@ def test_mla_decode_kernel_matches_plain_on_card(b, kv_len):
     assert _rel(got, want) < 1e-2
     # a sequence of one position is its own row of ckv
     assert _rel(got[-1], ckv[-1, :1].expand(16, 512)) < 1e-2
+
+
+@pytest.mark.gpu
+def test_mla_decode_kernel_splits_each_sequence_by_its_length_on_card():
+    """64 sequences of 2,048-4,096 positions in an 8,192-position cache:
+    at ``kv_len`` 8,192 (as a captured decode step calls it) and at 4,096
+    the kernel makes 9 splits, and each sequence's 9 blocks share its own
+    length, so the two calls agree bit for bit, within 1e-2 of max of the
+    plain version."""
+    require_cuda()
+    from repro_torch.kernels import mla_decode as MK
+    assert MK.kv_split(64, 8192)[1] == MK.kv_split(64, 4096)[1] == 9
+    g = torch.Generator(device="cuda").manual_seed(64)
+    q = torch.randn((64, 16, 576), generator=g, device="cuda").bfloat16()
+    ckv = torch.randn((64, 8192, 512), generator=g, device="cuda").bfloat16()
+    kpe = torch.randn((64, 8192, 64), generator=g, device="cuda").bfloat16()
+    lens = torch.randint(2048, 4097, (64,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    got = MK.mla_attention(q, ckv, kpe, lens, 192 ** -0.5, 8192)
+    want = MK.mla_attention(q, ckv, kpe, lens, 192 ** -0.5, 4096)
+    assert torch.equal(got, want)
+    plain = MK.mla_attention_plain(q, ckv, kpe, lens, 192 ** -0.5, 4096)
+    assert _rel(got, plain) < 1e-2
 
 
 @pytest.mark.gpu
