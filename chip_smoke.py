@@ -22,6 +22,14 @@ layers, xlstm-1.3b to one period), and the pod-level shard-space tuner
 (``tune --arch --oracle compile``) with its estimator held against a real
 training step, and the reference's examples as the port runs them.
 
+The card tests (``python -m pytest -q -m gpu tests/test_torch_gpu.py
+tests/test_torch_conv_gpu.py tests/test_torch_moonlight_gpu.py``) hold
+each kernel against its plain version at every shape, run geometry,
+layout and template the phases below run; ``tests/_lm_workloads.py``
+defines the LM workloads for both.  This run drives the paths no card
+test or benchmark cell reaches, and times the kernels alone, each timed
+call held once more against its plain version.
+
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the three Hopper kernels (GEMM, RMSNorm, flash attention) from
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, all at once, and
@@ -29,83 +37,49 @@ training step, and the reference's examples as the port runs them.
    and fp32 flash kernels' (and the fp32 KV split's combine kernel) and
    the RMSNorm kernel's templates (registers, spills, static shared
    memory), and which RMSNorm templates the LM path runs;
-3. holds each kernel against its plain PyTorch version on the card, fp32
-   and bf16: the reference test shapes and configs, the GEMM's split-K
-   shapes and misaligned row strides (fp32 and bf16), the 8 ResNet-18
-   im2col shapes at batch 8 under the default and knob-derived configs
-   (fp32 and bf16), the GEMM's
-   ``out_dtype`` both ways (fp32 -> bf16, bf16 -> fp32), flash at every
-   head_dim template with GQA, window 32 and ragged S, and the LM's shapes
-   (RMSNorm over prompts of 200, 384 and 1024 rows and (8, 1536), plus
-   4096 rows, (9000, 128), (5000, 4096), the widest row and x at an offset
-   of one value, which takes the scalar template; it fails unless the
-   checks ran every RMSNorm layout the LM path runs and the grid-stride
-   loop; causal flash over B=1, S in
-   {4, 17, 127, 513, 256, 1000, 2048}, 12 query and 2 KV heads, head_dim
-   128; the MoE and recurrent families' shapes: RMSNorm at d 2048 and 8192
-   over 8, 200 and 512-1024 rows, flash at 16/16 heads over S 128, 517,
-   1024 and 64/8 heads over S 128, 300, 512; whisper's and internvl2's:
-   RMSNorm at d 512 over 8, 223 and 1500 rows and the training step's
-   3584 and 12000, at d 6144 over 8, 200 and 1536 rows, at d 2048 over the
-   family training steps' 4096 and 1024 rows, flash non-causal
-   at (1, 1500, 8/8 heads, d 64), causal at 8/8 heads d 64 over S 4, 100,
-   223 and at 48/8 heads d 128 over S 1088, 1300, 1536; flash at head_dim
-   6 and 18 and with q, k and v one value into their storage, the
-   4-byte / scalar copies; fp32 flash with and without its KV split;
-   mixtral's window of 4,096 past itself, causal over 4,608 tokens at
-   head_dim 128 (6/1 heads, and 2/1, which splits the fp32 KV range);
-   the layouts of three configs no phase serves, held only: minitron-4b's
-   d 3072, qwen1.5-4b's 2560 and smollm-360m's 960 over 1-1024 rows,
-   their flash templates over prompts up to 1024);
-   there the bf16 flash kernel is also held against the plain version
-   with P kept in fp32 (the reference kernel's arithmetic), within 2^-7 x
-   max |v|;
-   ``[check] rmsnorm backward``: the RMSNorm autograd Function's (dx, dw)
-   against autograd through the plain version at the training shape
-   (8192, 1536) and (8, 1536) and the family training shapes (4096, 2048)
-   and (1024, 2048), fp32 and bf16, one launch a forward;
-4. tunes the 8 ResNet-18 conv tasks (batch 8) with the port's ``Session``;
-5. deploys: runs ResNet-18 at 224x224, batch 8, fp32, seeded weights, each
+3. tunes the 8 ResNet-18 conv tasks (batch 8) with the port's ``Session``;
+4. deploys: runs ResNet-18 at 224x224, batch 8, fp32, seeded weights, each
    conv layer through the GEMM with its tuned geometry, and compares the
    logits with the plain path (cuDNN fp32 convolutions, TF32 off); the
    GEMM's launch counter must rise by exactly 17 in that forward; then
-   times the forward and profiles it (host wall vs device busy time);
-6. times each ResNet-18 GEMM shape (kernel and one ``torch.matmul`` call
+   times the forward and profiles it (host wall vs device busy time, the
+   union of the device intervals as ``dcoc_bench/devtrace.py`` takes it);
+5. times each ResNet-18 GEMM shape (kernel and one ``torch.matmul`` call
    as a yardstick, each through Python calls and as device time in a CUDA
    graph; the plain version; the card's bound) and the forward;
    ``[deploy bf16]``: the same network and input in bf16 with the tuned
-   geometries, the GEMM count set to 0 just before (17 launches), logits
-   within 2e-2 of max |logit| of the plain path in bf16; the distances to
-   the fp32 forward and to cuDNN bf16 convolutions, the forward's ms
-   three ways and a profile, ungated; 16 of the 17 convs (all but conv1,
-   of 3 channels) take the GEMM's implicit mode, counted on
-   ``gemm.implicit_launches``; ``[time bf16]``: the bf16 GEMM (the
-   tensor-core kernel) at the 8 shapes under the tuned geometries and
-   ``GemmConfig()`` and at bert-gemm's four GEMM shapes, each held
-   against the plain version, by device time beside ``torch.matmul``
-   bf16 and the bytes bound, and the forward's 17 GEMMs both ways; then
-   the implicit mode (``gemm.conv``) at the 7 conv shapes it takes under
+   geometries, the GEMM counts set to 0 just before (17 launches, 16 of
+   them the implicit mode: every conv but conv1, of 3 channels), logits
+   within 2e-2 of max |logit| of the plain path in bf16; the distance to
+   the fp32 forward and the forward's ms, ungated; ``[time bf16]``: the
+   bf16 GEMM (the tensor-core kernel) at the 8 shapes under the tuned
+   geometries and ``GemmConfig()`` and at bert-gemm's four GEMM shapes,
+   each held against the plain version, by device time beside
+   ``torch.matmul`` bf16 and the bytes bound, and the forward's 17 GEMMs
+   both ways; then the implicit mode (``gemm.conv``, one count on
+   ``gemm.implicit_launches`` a call) at the 7 conv shapes it takes under
    the tuned geometries, each held against the plain version over im2col
    and, bit for bit, against im2col + the GEMM, by device time beside a
    cuDNN bf16 conv and a bound that reads x, not the patches, and the
-   forward's 17 GEMMs as it runs them;
-7. ``[baselines]``: random search, AutoTVM and CHAMELEON tune the same 8
+   forward's 17 GEMMs as it runs them; every geometry ``[deploy bf16]``
+   ran is among those held;
+6. ``[baselines]``: random search, AutoTVM and CHAMELEON tune the same 8
    tasks at ARCO's budget and seed; tuning seconds and network latency
    (the analytical TPU v5e model) beside ARCO's; every task ends with the
    budget's measurements and the default hardware geometry;
-8. ``[netopt]``: the network co-optimizer at K=1 (``NetOptConfig()``), the
+7. ``[netopt]``: the network co-optimizer at K=1 (``NetOptConfig()``), the
    hw-frozen baseline at its upper budget, the co-optimizer at K=2;
    seconds, network latency (model), measurements, candidates; gated on
    the shared-hardware invariant, the K=2 partition and the budget;
-9. ``[netopt deploy]``: the GEMM count set to 0, ResNet-18 run with each
+8. ``[netopt deploy]``: the GEMM count set to 0, ResNet-18 run with each
    layer's mapping under the K=1 chip (17 launches, logits within 1e-4 of
-   cuDNN fp32), timed beside phase 5's forward and cuDNN's, profiled, and
-   each GEMM shape's device time under these geometries beside phase 6's;
-10. qwen2-1.5b with seeded random weights: the kernel path against the
+   cuDNN fp32), timed beside phase 4's forward and cuDNN's, profiled, and
+   each GEMM shape's device time under these geometries beside phase 5's;
+9. qwen2-1.5b with seeded random weights: the kernel path against the
    plain path (prefill + teacher-forced decode, 2 prompts) in fp32, gated
    at 1e-4 of max |logit|, then with the weights cast to bf16, gated at
    5e-2;
-11. serves 16 requests (prompts of 128-1024 tokens, 32 new tokens each)
+10. serves 16 requests (prompts of 128-1024 tokens, 32 new tokens each)
    through ``Server(n_slots=8, max_len=2048)`` in bf16, with the RMSNorm
    and flash launch counts set to 0 just before and checked at every
    step (a prefill: flash 28, RMSNorm 57; a decode step: RMSNorm 57,
@@ -126,13 +100,13 @@ training step, and the reference's examples as the port runs them.
    measurement in an idle window, the budget spent, the final scrape
    equal to the report, and the launch identities over the phase (flash
    28 a prefill, RMSNorm 57 a prefill or decode step);
-12. profiles one prefill and a few decode steps (``torch.profiler``):
+11. profiles one prefill and a few decode steps (``torch.profiler``):
    host wall vs device busy time, kernels launched, the top kernels;
-13. times the two LM kernels at the serving run's shapes (kernel and one
+12. times the two LM kernels at the serving run's shapes (kernel and one
    PyTorch call as device time in a CUDA graph, plain version, bound),
    the RMSNorm kernel's floor (a (1, 32) launch) and its wrapper's host
    microseconds a call;
-14. ``[train]``: qwen2-1.5b at full width and depth, bf16, seeded weights,
+13. ``[train]``: qwen2-1.5b at full width and depth, bf16, seeded weights,
    20 steps of 4 x 2048 synthetic tokens through ``train_step_fn`` and
    the ``Prefetcher`` (cosine lr 3e-4, warmup 4), the launch counts set
    to 0 just before: every step launches RMSNorm 113 times (57 in the
@@ -158,13 +132,13 @@ training step, and the reference's examples as the port runs them.
    of the unsharded ``prefill`` / ``decode_step``, flash 28 + RMSNorm 57 a
    prefill, RMSNorm 57 a decode step, the decode step's ms beside the
    unsharded one's;
-15. ``[train faults]``: the ``Trainer`` on the card at the reference
+14. ``[train faults]``: the ``Trainer`` on the card at the reference
    trainer test's setup (reduced smollm-360m, 40 steps, checkpoints every
    10, a crash at step 17 and a NaN batch at 26: both roll back, the loss
    ends lower), a restart resuming at step 40, and ``python -m
    repro_torch.launch.train --arch qwen2-1.5b --reduced --steps 20`` as a
    subprocess on the card;
-16. ``[serve moe]``, ``[serve ssm]``, ``[serve hybrid]``, each freeing the
+15. ``[serve moe]``, ``[serve ssm]``, ``[serve hybrid]``, each freeing the
    model before it and printing its peak device memory: moonshot-v1-16b-a3b's
    first 16 layers (attention + a dropping MoE of 64 experts top-6; whole,
    its 48 took 45 s), xlstm-1.3b's first 16 layers (14 mLSTM + 2 sLSTM; the
@@ -186,7 +160,7 @@ training step, and the reference's examples as the port runs them.
    tokens/s, prefill ms by length and a prompt token, the decode step
    beside the time to read every weight once, and each kernel timed at
    the run's shapes over its launches;
-17. ``[serve audio]``, ``[serve vlm]`` and ``[serve swa]``, the same
+16. ``[serve audio]``, ``[serve vlm]`` and ``[serve swa]``, the same
    way (``[serve swa]`` below): whisper-base
    whole (6 encoder + 6 decoder layers, 97.2 M parameters; its fp32 gate
    the whole model, the encoder over frames drawn with numpy from the
@@ -210,11 +184,11 @@ training step, and the reference's examples as the port runs them.
    prefill rotates it; flash 4 and RMSNorm 9 a prefill, RMSNorm 9 a
    decode step; each flash shape timed with its window (a banded SDPA, a
    band-counted bound);
-18. ``[train audio]``: whisper-base at full width, bf16, remat on, 10
+17. ``[train audio]``: whisper-base at full width, bf16, remat on, 10
    steps of 8 x 448 synthetic tokens with 1500 frames a sequence drawn
    with numpy from the seed: RMSNorm 62 launches a step (32 in the
    forward, 30 recomputed), flash and GEMM none, the loss falling;
-19. ``[train moe]`` and ``[train ssm]``: moonshot-v1-16b-a3b (2 layers at
+18. ``[train moe]`` and ``[train ssm]``: moonshot-v1-16b-a3b (2 layers at
    full width: 64 experts top-6, the dropping dispatch, the aux loss in
    the loss; 1.81 B parameters) on 4 x 1024 tokens for 8 steps, and
    xlstm-1.3b (its first period: 7 mLSTM + 1 sLSTM at full width) on 8 x
@@ -225,7 +199,7 @@ training step, and the reference's examples as the port runs them.
    one step with the recurrences' chunk checkpoint off, its peak beside
    the checkpointed steps'; the RMSNorm kernel timed at each step's norm
    shape;
-20. ``[autotune]``: ``python -m repro_torch.compiler.cli tune --arch
+19. ``[autotune]``: ``python -m repro_torch.compiler.cli tune --arch
    qwen2-1.5b --shape train_4k --oracle compile --budget 8`` in process
    at 256 placeholder devices (the agents and the GBT on the card): every
    measurement row finite with ``SettingsOracle._RESULT_KEYS``, the best
@@ -233,7 +207,7 @@ training step, and the reference's examples as the port runs them.
    dry-run estimator's dot FLOPs at ``[train]``'s shape equal to
    ``FlopCounterMode``'s around one real training step on the card
    (within 1e-6), its memory estimate printed beside that step's peak;
-21. ``[drivers]``: the reference's examples as the port runs them
+20. ``[drivers]``: the reference's examples as the port runs them
    (``repro_torch.examples``), in process on the card, the launch counts
    set to 0 just before: quickstart (ARCO, AutoTVM and random search on
    one conv, then its tuned geometry deployed through the GEMM, one
@@ -246,31 +220,33 @@ training step, and the reference's examples as the port runs them.
    seconds and launches;
 then ``[time flash fp32]``: the fp32 flash kernel at every shape the
 fp32 gates launched (the wrapper's own record of calls, diffed around
-them, which must equal what the gates' draws and configs give), beside
-SDPA fp32, the plain version (which holds it at 5e-5) and its fp32
-operations bound (a windowed shape: SDPA with the band as a boolean mask,
-the pairs inside the band counted), and the CUDA kernels the profiler
-sees SDPA fp32 run;
+them, which must equal what the gates' draws and configs give), held
+against the plain version at 5e-5, beside SDPA fp32, the plain version
+and its fp32 operations bound (a windowed
+shape: SDPA with the band as a boolean mask, the pairs inside the band
+counted), and the CUDA kernels the profiler sees SDPA fp32 run;
 ``--flash-fp32`` runs that phase alone at the gates' shapes without the
 gates, and with ``--tree DIR`` on another checkout's kernel;
-then ``[moonlight]``: moonlight-16b-a3b's kernels at its shapes, the MLA
-decode kernel against its plain version at 64 slots of 2,048-4,096
-cached positions (a KV split) and at 600 slots of up to 100 (none), the
-flash kernel's dp=192 template against its plain version on a
-4,096-token causal prompt (V zero-padded from 128), each within 1e-2 of
-max and timed beside its bound, then the published config whole (15.96 B
-parameters, bf16) and one decode step of 64 slots with the launch counts
-set to 0 just before: MLA decode 27, RMSNorm 82, flash and GEMM 0; and
-the same step replayed as CUDA graphs, bit for bit the eager step at the
-cache's length and timed beside it, a replay's kernels counted by
-``torch.profiler`` (MLA decode and its combine 27 each, RMSNorm 82, as
-the eager step's) and the activities whose counts differ logged;
+then ``[moonlight]``: moonlight-16b-a3b's kernels held against their
+plain versions at 1e-2 and timed at its shapes, the MLA decode kernel at
+64 slots of 2,048-4,096 cached positions (a KV split) and at 600 slots
+of up to 100 (none), each beside its plain version and its bound and
+again at ``kv_len`` = the cache's capacity (bit for bit where the split
+counts agree), the flash kernel's dp=192 template on a 4,096-token
+causal prompt (V zero-padded from 128) beside SDPA and its bound, then
+the published config whole (15.96 B parameters, bf16) and one decode
+step of 64 slots with the launch counts set to 0 just before: MLA decode
+27, RMSNorm 82, flash and GEMM 0; and the same step replayed as CUDA
+graphs, bit for bit the eager step at the cache's length, timed beside
+it, its launches as the wrappers count them and as ``torch.profiler``
+traces them (MLA decode 27, combine 27, RMSNorm 82, as the eager
+step's), and the activities whose traced counts differ logged;
 ``--moonlight`` runs that phase alone;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
 times; every kernel's with the mesh phases' and ``[drivers]``'
-launches; the GEMM's with the bf16 forward's launches and times, flash's
-with the fp32 gates').
+launches; the GEMM's with the bf16 GEMMs' times, flash's with the fp32
+gates').
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, so the script exits non-zero and prints no result; without a GPU,
@@ -291,42 +267,21 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SEED = 0
+# the LM workloads the phases below run, shared with the card tests
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+from _lm_workloads import (  # noqa: E402
+    AUDIO_ARCH, AUDIO_TRAIN_BATCH, DRIVER_TRAIN_ARCH, FAMILY_SERVE,
+    FAMILY_TRAIN, GATE_PROMPT, LM_ARCH, LM_GATE_REQUESTS, LM_MAX_LEN,
+    LM_PROMPT, SEED, TRAIN_BATCH, TRAIN_LR, TRAIN_SEQ, family_config,
+    fp32_gate_calls, lm_config, lm_rmsnorm_layouts)
 BATCH = 8
 TUNE_BUDGET = 48          # measurements per task (TunerConfig.fast schedule)
 # H100 SXM datasheet peaks (the bound of each GEMM)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12        # fp32 outside the tensor cores: the kernel has no TF32
-FP32_TOL = 5e-5           # max |kernel - plain| / max |plain|: two fp32 sums
+FP32_TOL = 5e-5           # max |got - want| / max |want|: two fp32 sums
 BF16_TOL = 1e-2           # ... both rounded once to bf16 (2^-8 relative step)
-# bf16 flash vs the plain version with P in fp32: P rounded to bf16 (2^-8
-# of each weight, so at most 2^-8 max|v| in a row) and the output rounded
-# to bf16 (2^-8 |o| <= 2^-8 max|v|); fp32 reassociation is far below it
-FLASH_FP32_P_BOUND = 2 ** -7  # x max |v|
 FORWARD_TOL = 1e-4        # max |logit diff| / max |logit|, as the CPU tests
-BASELINES = ("random", "autotvm", "chameleon")
-NETWORK = "resnet-18"     # the netopt runs' network label
-BF16_FLOPS = 989e12       # dense bf16 tensor-core peak (the flash bound)
-KERNELS = ("gemm", "rmsnorm", "flash_attention")
-REFERENCE_SHAPES = [(8, 8, 8), (100, 70, 90), (128, 128, 128), (1, 256, 33),
-                    (257, 129, 65)]
-REFERENCE_CONFIGS = [(32, 32, 32, True, True), (128, 128, 128, True, True),
-                     (16, 64, 128, False, True), (8, 128, 256, True, False)]
-# ((M, K, N), config, dtype): split-K (conv8b, conv6b at their tuned
-# tiles) and misaligned row strides (conv1's K 147; K 129 with N 33; K
-# 1029, split), fp32; then bf16: split-K (conv8b at a tuned tile, 5
-# slices), conv1's K 147 (K % 8 != 0: the scalar copies), K 1029 with N 33
-# (both strides misaligned, 7 slices)
-GEMM_EXTRA_CHECKS = [
-    ((392, 4608, 512), (32, 256, 2304, True, True), "float32"),
-    ((1568, 2304, 256), (128, 128, 2304, True, True), "float32"),
-    ((392, 4608, 512), (128, 128, 128, True, True), "float32"),
-    ((1568, 147, 64), (128, 64, 128, True, True), "float32"),
-    ((257, 129, 33), (64, 32, 32, True, True), "float32"),
-    ((257, 1029, 33), (64, 32, 32, True, True), "float32"),
-    ((392, 4608, 512), (32, 256, 2304, True, True), "bfloat16"),
-    ((1568, 147, 64), (128, 64, 128, True, True), "bfloat16"),
-    ((257, 1029, 33), (64, 32, 32, True, True), "bfloat16")]
 # [deploy bf16]: the kernel path's logits against the plain path's (cuDNN
 # fp32 convolutions on the bf16 values, each layer's output rounded to
 # bf16), relative to max |logit|.  The CPU test holds the port's bf16
@@ -336,13 +291,15 @@ GEMM_EXTRA_CHECKS = [
 # and then, compounding over 17 convs; 2e-2 keeps that room, under the LM
 # bf16 gate's 5e-2.
 DEPLOY_BF16_TOL = 2e-2
-# LM serving path: qwen2-1.5b at its published width and depth, bf16
-LM_ARCH = "qwen2-1.5b"
-LM_SLOTS, LM_MAX_LEN = 8, 2048
+BASELINES = ("random", "autotvm", "chameleon")
+NETWORK = "resnet-18"     # the netopt runs' network label
+BF16_FLOPS = 989e12       # dense bf16 tensor-core peak (the flash bound)
+KERNELS = ("gemm", "rmsnorm", "flash_attention")
+# LM serving path: qwen2-1.5b (LM_ARCH) at its published width and depth
+LM_SLOTS = 8
 LM_REQUESTS, LM_NEW = 16, 32
-LM_PROMPT = (128, 1024)   # prompt lengths drawn uniformly in this range
 PREFILL_BINS = (64, 128, 256, 512)
-LM_GATE_REQUESTS, LM_GATE_STEPS = 2, 4
+LM_GATE_STEPS = 4
 LM_TOL_FP32 = 1e-4        # max |logit diff| / max |logit|, kernel vs plain
 LM_TOL_BF16 = 5e-2        # the same in bf16: both paths round every layer's
                           # output to bf16 (2^-8), 28 layers compound it
@@ -350,100 +307,6 @@ FLASH_TIMED_S = (256, 1024, 2048)
 NORM_TIMED_ROWS = 1024
 NORM_FLOOR_SHAPE = (1, 32)  # the least work of a launch: its floor
 NORM_HOST_CALLS = 1000      # wrapper calls timed by the host clock
-# (shape, on the serving path, 16-byte aligned): the reference's test
-# shapes, the path's (a decode step's 8 rows and a prompt of 200, which
-# spread a row over warps; prompts of 384 and 1024, one warp a row in
-# bf16), 4096 rows, the grid-stride loop of one-warp rows (9000, 128) and
-# of wider ones (5000, 4096), the widest row, and x at an offset of one
-# value (the scalar template); the MoE and recurrent families' widths, d
-# 2048 (moonshot, xlstm) and 8192 (jamba), at a decode step's 8 rows and
-# prompts that spread a row over warps (200) or not (1024, 512)
-RMSNORM_CHECKS = [((4, 64), False, True), ((2, 100, 96), False, True),
-                  ((1, 7, 33), False, True), ((129, 256), False, True),
-                  ((200, 1536), True, True), ((384, 1536), True, True),
-                  ((1024, 1536), True, True), ((8, 1536), True, True),
-                  ((8, 2048), True, True), ((200, 2048), True, True),
-                  ((1024, 2048), True, True), ((8, 8192), True, True),
-                  ((200, 8192), True, True), ((512, 8192), True, True),
-                  ((4096, 1536), False, True), ((9000, 128), False, True),
-                  ((5000, 4096), False, True), ((3, 8192), False, True),
-                  ((5, 1536), False, False), ((3, 8192), False, False),
-                  # whisper's d 512: a decode step, the longest prompt, the
-                  # encoder's 1500 frames, a training step's 8 x 448 text
-                  # and 8 x 1500 frame rows; internvl2's d 6144: a decode
-                  # step, a prompt that spreads a row over warps, the
-                  # longest prefix + prompt
-                  ((8, 512), True, True), ((223, 512), True, True),
-                  ((1500, 512), True, True), ((3584, 512), True, True),
-                  ((12000, 512), True, True), ((8, 6144), True, True),
-                  ((200, 6144), True, True), ((1536, 6144), True, True),
-                  # [train moe]'s 4 x 1024 rows and [train ssm]'s 8 x 128
-                  # at d 2048
-                  ((4096, 2048), True, True), ((1024, 2048), True, True),
-                  # [drivers]: serve_lm's reduced qwen2 (d 64: a row a
-                  # warp, 1-3 rows a block below 4 rows, a prompt of 19)
-                  # and train_lm's reduced smollm (d 60, which bf16 runs
-                  # on the scalar template: a row spread over warps up to
-                  # 264 rows, one warp a row at a step's 1024)
-                  ((1, 64), True, True), ((2, 64), True, True),
-                  ((3, 64), True, True), ((19, 64), True, True),
-                  ((1, 60), True, True), ((2, 60), True, True),
-                  ((3, 60), True, True), ((200, 60), True, True),
-                  ((1024, 60), True, True),
-                  # HELD_ONLY: minitron-4b's d 3072, qwen1.5-4b's 2560 and
-                  # smollm-360m's 960 at a decode step's 8 rows (a row
-                  # spread over warps) and a prompt of 1024 (fewer warps a
-                  # row, or several rows a block)
-                  ((8, 3072), False, True), ((1024, 3072), False, True),
-                  ((8, 2560), False, True), ((1024, 2560), False, True),
-                  ((8, 960), False, True), ((1024, 960), False, True)]
-# ((B, S, HQ, HKV, D, causal, window, block_q, block_k), on the path)
-_FLASH_CASES = (
-    [((2, 100, hq, hkv, 16, causal, window, 32, 32), False)
-     for hq, hkv in ((4, 4), (4, 2), (6, 1))
-     for causal, window in ((True, None), (False, None), (True, 32))]
-    + [((1, s, 2, 2, 8, causal, None, bq, bk), False)
-       for s, bq, bk, causal in ((3, 16, 16, True), (37, 16, 64, False),
-                                 (70, 32, 16, True))]
-    + [((2, 77, 6, 2, d, True, 32, 64, 64), False) for d in (8, 16, 64, 128)]
-    + [((1, 150, 12, 2, 128, False, None, 128, 128), False),
-       ((2, 130, 4, 1, 64, True, None, 32, 64), False),
-       ((1, 50, 2, 1, 20, True, None, 64, 64), False)]
-    + [((1, s, 12, 2, 128, True, None, 128, 128), True)
-       for s in (4, 17, 48, 127, 513, 256, 1000, 2048)]
-    # moonshot's MHA and the jamba cut's GQA at their prompt lengths
-    + [((1, s, 16, 16, 128, True, None, 128, 128), True)
-       for s in (128, 517, 1024)]
-    + [((1, s, 64, 8, 128, True, None, 128, 128), True)
-       for s in (128, 300, 512)]
-    # whisper's encoder (non-causal over its 1500 frames) and decoder
-    # prompts (one in each template's range: below 32, 32-63, 64 up; qwen2's
-    # 48 above likewise), internvl2's 1024-patch prefix + prompts;
-    # lm_flash_geometries() fails the checks unless every template the LM
-    # paths pick is among them
-    + [((1, 1500, 8, 8, 64, False, None, 128, 128), True)]
-    + [((1, s, 8, 8, 64, True, None, 128, 128), True)
-       for s in (4, 48, 100, 223)]
-    + [((1, s, 48, 8, 128, True, None, 128, 128), True)
-       for s in (1088, 1300, 1536)]
-    # [drivers]: serve_lm's reduced qwen2 (4/2 heads, head_dim 16) at its
-    # shortest and longest prompts
-    + [((1, s, 4, 2, 16, True, None, 128, 128), True) for s in (4, 19)]
-    # past a 4,096-token window at mixtral's head_dim and blocks: its
-    # queries past 4,096 + a tile skip whole KV tiles below the band; at 6
-    # heads no fp32 KV split, at 2 the split's runs start above tile 0
-    + [((1, 4608, 6, 1, 128, True, 4096, 128, 128), True),
-       ((1, 4608, 2, 1, 128, True, 4096, 128, 128), False)])
-# (case, on the path, q/k/v on 16-byte boundaries): the cases above
-# aligned, then head_dim 6 and 18 (D % 4 != 0: fp32's 4-byte copies, bf16's
-# scalar loads) and q, k and v one value into their storage at D 128 and
-# 64 (the same copies on the LM's head_dims)
-FLASH_CHECKS = (
-    [(case, on_path, True) for case, on_path in _FLASH_CASES]
-    + [((2, 77, 6, 2, 6, True, 32, 64, 64), False, True),
-       ((1, 90, 4, 2, 18, False, None, 32, 32), False, True),
-       ((1, 130, 12, 2, 128, True, None, 128, 128), False, False),
-       ((2, 77, 6, 2, 64, True, 32, 64, 64), False, False)])
 # [fabric]: the stub oracle through the three executors
 FABRIC_N, FABRIC_DELAY_S = 16, 0.1
 FABRIC_SPEEDUP = 1.5      # the pool over serial (the reference's gate)
@@ -454,10 +317,9 @@ LIVE_REQUESTS, LIVE_RATE = 48, 2.0
 LIVE_PROMPT, LIVE_NEW = (4, 512), (2, 32)
 LIVE_BUDGET = 24          # measurements per cell (decode, prefill)
 LIVE_SLA_S = 3.0          # p99 target: a 32-token request is ~2 s of decode
-# [train]: full-width qwen2-1.5b bf16 training steps (8,192 tokens a step,
-# two 1,024-key attention chunks); the RMSNorm rows of a step
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
-TRAIN_LR, TRAIN_WARMUP = 3e-4, 4
+# [train]: qwen2-1.5b's bf16 training steps (TRAIN_BATCH x TRAIN_SEQ); the
+# RMSNorm rows of a step
+TRAIN_STEPS, TRAIN_WARMUP = 20, 4
 TRAIN_NORM_SHAPE = (TRAIN_BATCH * TRAIN_SEQ, 1536)
 LAUNCH_TIMEOUT_S = 300    # the launcher subprocess of [train faults]
 # [train sharded], [serve sharded], [train int8]: the mesh paths at world
@@ -466,77 +328,24 @@ LAUNCH_TIMEOUT_S = 300    # the launcher subprocess of [train faults]
 MESH_STEPS = 3            # [train sharded] and [train int8] steps
 MESH_TOL = 1e-6           # relative, against the unsharded path
 MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_STEPS = 8, 1024, 16
-# [serve moe], [serve ssm], [serve hybrid], [serve audio], [serve vlm]: the
-# MoE and recurrent families, the encoder-decoder and the vision prefix,
-# each served in bf16 at its full width (the hybrid's depth cut), after an
-# fp32 gate at a cut depth and a bf16 gate at the served depth
-MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("moonshot-v1-16b-a3b", "xlstm-1.3b",
-                                   "jamba-1.5-large-398b")
-MOE_GATE_LAYERS = 2       # the fp32 gate's moonshot: its first 2 layers
-SSM_GATE_LAYERS = 8       # the fp32 gate's xlstm: its first period (7
-                          # mLSTM + 1 sLSTM); the served 16 are measured
-                          # beside the model's own noise, ungated
-# the served moonshot: its first 16 of 48 layers (whole, its 28 B
-# parameters' seeded init, fp32 and bf16 gates and 16 requests took [serve
-# moe] to 45 s; the mesh phases needed the seconds back)
-MOE_SERVE_LAYERS = 16
-# the served xlstm: its first 2 periods.  Whole (48 layers) its prefill,
-# one Python step a token and layer, with its fp32 twin took [serve ssm]
-# to 150 s and the run past half its time limit (32 layers: 114 s); the
-# 8-slot decode step (phase_serve) needs all 8 requests, so the depth is
-# what is cut
-SSM_SERVE_LAYERS = 16
-# the embedding's relative perturbation that measures a model's own noise:
-# the size of one rounding in each dtype
+# [serve moe], [serve ssm], [serve hybrid], [serve audio], [serve vlm],
+# [serve swa]: the families of FAMILY_SERVE, each model and its cuts as
+# family_config gives them.  The embedding's relative perturbation that
+# measures a model's own noise: the size of one rounding in each dtype
 NOISE = {"float32": 1e-7, "bfloat16": 2 ** -8}
 # the families whose bf16 gate also holds the free-running paths (with the
 # same expert sets); xlstm's own noise at depth exceeds the gate (its
 # logits move by O(1) under one bf16 rounding of the input: PERF.md), so
 # its bf16 gate is block by block only (:func:`_lockstep`)
 FREE_BF16_GATE = ("moe", "hybrid", "audio", "vlm", "swa")
-HYBRID_LAYERS = 5         # jamba's first 5: mamba+mlp, mamba+moe,
-                          # mamba+mlp, mamba+moe, attn+mlp
-HYBRID_GATE_PATTERN = (("mamba", "mlp"), ("attn", "mlp"))  # fp32 gate
-AUDIO_ARCH, VLM_ARCH = "whisper-base", "internvl2-26b"
-VLM_GATE_LAYERS = 2       # the fp32 gate's internvl2: its first 2 layers
-                          # (48 in fp32 would not fit the card)
-# whisper's decoder context is 448 tokens, its prompt context 223
-AUDIO_MAX_LEN = 448
-# [serve swa]: mixtral-8x22b, the only sliding-window config (window
-# 4,096), served past its window: its first 4 of 56 layers at full width
-# (10.4 B parameters, 20.8 GB bf16; the cut follows moonshot's and
-# jamba's), the fp32 gate its first 2 (5.4 B, 21.6 GB).  Each SWA layer's
-# cache is a 4,096-slot ring; prompts of 3,072-6,144 tokens in an
-# 8,192-token context, the first fixed at 4,080 so that its decode wraps
-# the ring mid-request
-SWA_ARCH = "mixtral-8x22b"
-SWA_SERVE_LAYERS, SWA_GATE_LAYERS = 4, 2
-SWA_MAX_LEN = 8192
+# [serve swa]'s first prompt is fixed at 4,080 tokens, so that its decode
+# wraps the 4,096-slot ring mid-request
 SWA_FIRST_PROMPT = 4080
-# (arch, requests, prompt lengths drawn in, new tokens each, max_len)
-FAMILY_SERVE = {"moe": (MOE_ARCH, 16, (128, 1024), 32, LM_MAX_LEN),
-                "ssm": (SSM_ARCH, 8, (64, 256), 32, LM_MAX_LEN),
-                "hybrid": (HYBRID_ARCH, 8, (128, 512), 16, LM_MAX_LEN),
-                "audio": (AUDIO_ARCH, 16, (4, 223), 64, AUDIO_MAX_LEN),
-                "vlm": (VLM_ARCH, 8, (64, 512), 32, LM_MAX_LEN),
-                "swa": (SWA_ARCH, 8, (3072, 6144), 32, SWA_MAX_LEN)}
 # a family's first prompt lengths where they are fixed, not drawn
 FIXED_PROMPTS = {"swa": (SWA_FIRST_PROMPT,)}
-# [train audio]: whisper-base bf16 training steps, 8 x 448 text tokens
-# and 8 x 1500 frames a step
-AUDIO_TRAIN_BATCH, AUDIO_TRAIN_STEPS = 8, 10
-# [train moe], [train ssm]: the MoE and recurrent families trained in bf16
-# at full width, cut in depth (moonshot whole with Adam is 28 B: 2 layers
-# are 1.8 B with its 163,840-token vocabulary; xlstm one period of its
-# pattern, 7 mLSTM + 1 sLSTM); xlstm's 128 tokens are 2 recurrence chunks,
-# so its chunk checkpoint keeps one chunk's steps where autograd alone
-# keeps both, and its 8 sequences make those steps' (8, 4, 512, 512) fp32
-# states outweigh Adam's temporaries, which set a 2-sequence step's peak
-# (PERF.md); its gradient norm starts near 100 and is clipped to 1,
-# and at lr 3e-4 its loss moved 0.07 in 6 steps: it takes 1e-3.
-# (arch, layers, batch, seq, steps, lr)
-FAMILY_TRAIN = {"moe": (MOE_ARCH, 2, 4, 1024, 8, TRAIN_LR),
-                "ssm": (SSM_ARCH, 8, 8, 128, 4, 1e-3)}
+# [train audio]: AUDIO_TRAIN_BATCH x 448 text tokens and x 1500 frames
+AUDIO_TRAIN_STEPS = 10
+# [train moe], [train ssm]: FAMILY_TRAIN
 # [autotune]: the CLI's pod-level tune at 256 placeholder devices (the
 # reference's default budget 14 cut to 8); records and report under build/
 AUTOTUNE_ARCH, AUTOTUNE_SHAPE, AUTOTUNE_BUDGET = "qwen2-1.5b", "train_4k", 8
@@ -547,18 +356,8 @@ FLOP_RTOL = 1e-6          # the estimator's dot FLOPs vs FlopCounterMode
 # serve_lm at their defaults (8 requests of 4-19 tokens, 12 new, on
 # qwen2-1.5b's reduced config), train_lm (reduced smollm-360m, 8 x 128
 # tokens a step) for DRIVER_TRAIN_STEPS steps
-DRIVER_REQUESTS, DRIVER_NEW, DRIVER_PROMPT_MAX = 8, 12, 19
-DRIVER_TRAIN_ARCH, DRIVER_TRAIN_ROWS = "smollm-360m", 8 * 128
+DRIVER_REQUESTS, DRIVER_NEW = 8, 12
 DRIVER_TRAIN_STEPS = 20
-# the gates' prompt lengths, where not the served ones: xlstm's prefill is
-# one Python step a token and layer (~20 ms a token), and its gates run 11
-# prefills a prompt; mixtral's past its window, so that the window binds
-# and whole KV tiles below it are skipped, and the prefill rotates the ring
-GATE_PROMPT = {"ssm": (64, 128), "swa": (4608, 5120)}
-# configs whose kernel layouts the checks hold at their full width but
-# which no phase serves (they run qwen2's code path): their flash templates
-# and RMSNorm layouts over prompts up to LM_PROMPT[1] tokens
-HELD_ONLY = ("minitron-4b", "qwen1.5-4b", "smollm-360m")
 # the port's kernels as the profiler names them
 PORT_KERNEL_NAMES = ("gemm_f32_kernel", "splitk_sum_kernel",
                      "gemm_bf16_kernel", "flash_mma_kernel",
@@ -643,8 +442,7 @@ def phase_card() -> str:
 def phase_build() -> float:
     """Builds the three kernels, one nvcc each, all started together, and
     prints ptxas's registers, spills and static shared memory of each new
-    template (the dynamic shared memory a launch asks for is printed with
-    its run geometry by the checks)."""
+    template."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     per_kernel = _build.build_all(KERNELS)
@@ -671,76 +469,6 @@ def phase_build() -> float:
     return dt
 
 
-def lm_rmsnorm_layouts() -> dict:
-    """The RMSNorm layouts the LM paths run at each served model's d_model
-    (bf16 serving, the fp32 gates) for 1 row to its longest prefill's (a
-    vision prefix + its longest prompt, or an encoder's frames) or the
-    family training phases' step (forward and the backward's recompute),
-    ``[drivers]``' reduced models (serve_lm's prompts, train_lm's
-    step), and the HELD_ONLY configs over LM_PROMPT: (d, dtype, 16-byte
-    copies, warps a row, slots a lane, rows a block) -> the rows that run
-    it."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import rmsnorm as RN
-    widths = {lm_config(torch.bfloat16).d_model: LM_PROMPT[1]}
-    for arch in HELD_ONLY:
-        d = get_config(arch).d_model
-        widths[d] = max(widths.get(d, 0), LM_PROMPT[1])
-    for arch, _, prompt, _, _ in FAMILY_SERVE.values():
-        cfg = get_config(arch)
-        rows = max(cfg.vision_prefix + prompt[1], cfg.enc_seq)
-        widths[cfg.d_model] = max(widths.get(cfg.d_model, 0), rows)
-    for arch, _, batch, seq, _, _ in FAMILY_TRAIN.values():
-        d = get_config(arch).d_model     # a training step's rows
-        widths[d] = max(widths.get(d, 0), batch * seq)
-    # [drivers]: serve_lm's prompts and train_lm's step
-    for arch, rows in ((LM_ARCH, DRIVER_PROMPT_MAX),
-                       (DRIVER_TRAIN_ARCH, DRIVER_TRAIN_ROWS)):
-        d = get_config(arch, reduced=True).d_model
-        widths[d] = max(widths.get(d, 0), rows)
-    out = {}
-    for d, max_rows in widths.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            for rows in range(1, max_rows + 1):
-                g = RN.legalize(d, rows, dtype)
-                out.setdefault((d, dtype, g.vec, g.warps_per_row, g.slots,
-                                g.rows_per_block), []).append(rows)
-    return out
-
-
-def lm_flash_geometries() -> dict:
-    """The flash templates the LM paths run (bf16 serving, the fp32 gates)
-    in each served attention model's prefills, from 1 token to its longest
-    (a vision prefix + its longest prompt, or an encoder's frames), at the
-    blocks the model asks for, serve_lm's reduced qwen2 in ``[drivers]``,
-    and the HELD_ONLY configs over LM_PROMPT: (bq, bk, dp, dtype) -> the
-    (head_dim, S) that run it."""
-    import inspect
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ops
-    ask = inspect.signature(ops.attention).parameters
-    block_q, block_k = ask["block_q"].default, ask["block_k"].default
-    models = [(lm_config(torch.bfloat16), LM_PROMPT[1]),
-              (get_config(LM_ARCH, reduced=True), DRIVER_PROMPT_MAX)]
-    models += [(get_config(arch), LM_PROMPT[1]) for arch in HELD_ONLY]
-    for arch, _, prompt, _, _ in FAMILY_SERVE.values():
-        cfg = get_config(arch)
-        if cfg.enc_dec or any(m in ("attn", "swa") for m, _ in cfg.pattern):
-            models.append((cfg, max(cfg.vision_prefix + prompt[1],
-                                    cfg.enc_seq)))
-    out = {}
-    for cfg, max_s in models:
-        for dtype in (torch.bfloat16, torch.float32):
-            for s in range(1, max_s + 1):
-                g = FA.legalize(block_q, block_k, s, cfg.head_dim, dtype)
-                out.setdefault((g.bq, g.bk, g.dp, g.dtype), []).append(
-                    (cfg.head_dim, s))
-    return out
-
-
 def log_lm_rmsnorm_templates() -> None:
     """The RMSNorm templates the LM path runs, with ptxas's registers and
     spills."""
@@ -761,103 +489,6 @@ def log_lm_rmsnorm_templates() -> None:
             f"{r['registers']} registers, spills "
             f"{r['spill_stores'] + r['spill_loads']} B")
     log(f"[build] the LM path's RMSNorm templates spill {spills} bytes")
-
-
-def phase_check_kernel(dev) -> float:
-    """Kernel vs plain version on the reference test cases and the main
-    path's shapes; returns the largest absolute fp32 error at the main
-    path's shapes."""
-    import torch
-    from repro_torch.core.task import conv_tasks
-    from repro_torch.kernels import gemm as G
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    n_checks = 0
-    for m, k, n in REFERENCE_SHAPES:
-        for cfg in REFERENCE_CONFIGS:
-            for dtype, tol in ((torch.float32, FP32_TOL),
-                               (torch.bfloat16, BF16_TOL)):
-                a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-                b = torch.randn(k, n, generator=gen, device=dev).to(dtype)
-                c = G.GemmConfig(*cfg)
-                got = G.gemm(a, b, c)
-                want = G.gemm(a, b, c, use_kernel=False)
-                torch.cuda.synchronize()
-                _, rel = rel_err(got, want)
-                check(got.dtype == dtype and rel <= tol,
-                      f"gemm {(m, k, n)} {cfg} {dtype}: rel err {rel:.3g}")
-                n_checks += 1
-    # out_dtype both ways; fp32 -> bf16 also through split-K
-    pairs = ((torch.float32, torch.bfloat16, BF16_TOL),
-             (torch.bfloat16, torch.float32, FP32_TOL))
-    cases = [(shape, cfg, pair) for shape in REFERENCE_SHAPES
-             for cfg in REFERENCE_CONFIGS for pair in pairs]
-    cases += [(shape, cfg, pairs[0])
-              for shape, cfg, _ in GEMM_EXTRA_CHECKS[:3]]
-    for (m, k, n), cfg, (src, dst, tol) in cases:
-        a = torch.randn(m, k, generator=gen, device=dev).to(src)
-        b = torch.randn(k, n, generator=gen, device=dev).to(src)
-        c = G.GemmConfig(*cfg)
-        got = G.gemm(a, b, c, out_dtype=dst)
-        run = G.gemm.last_geometry["run"]
-        want = G.gemm(a, b, c, out_dtype=dst, use_kernel=False)
-        torch.cuda.synchronize()
-        diff, rel = rel_err(got, want)
-        check(got.dtype == dst and rel <= tol,
-              f"gemm {(m, k, n)} {cfg} {src} -> {dst}: rel err {rel:.3g}")
-        if run["split_k"] > 1:
-            log(f"[check] gemm M={m} K={k} N={n} fp32 -> bf16 run={run} "
-                f"max_abs_err={diff:.3g} rel={rel:.3g}")
-        n_checks += 1
-    log(f"[check] gemm out_dtype fp32 -> bf16 (tol {BF16_TOL}) and bf16 -> "
-        f"fp32 (tol {FP32_TOL}): {len(cases)} checks passed")
-    for (m, k, n), cfg, dt in GEMM_EXTRA_CHECKS:
-        dtype, tol = getattr(torch, dt), (FP32_TOL if dt == "float32"
-                                          else BF16_TOL)
-        a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-        b = torch.randn(k, n, generator=gen, device=dev).to(dtype)
-        c = G.GemmConfig(*cfg)
-        got = G.gemm(a, b, c)
-        run = G.gemm.last_geometry["run"]
-        want = G.gemm(a, b, c, use_kernel=False)
-        torch.cuda.synchronize()
-        diff, rel = rel_err(got, want)
-        check(rel <= tol, f"gemm {(m, k, n)} {run}: rel err {rel:.3g}")
-        log(f"[check] gemm M={m} K={k} N={n} run={run} dynamic smem "
-            f"{G.RunGeometry(**run).smem_bytes} B max_abs_err={diff:.3g} "
-            f"rel={rel:.3g}")
-        n_checks += 1
-    worst = 0.0
-    tasks = conv_tasks("resnet-18", batch=BATCH)
-    for (name, m, n, k, _), task in zip(gemm_shapes(), tasks):
-        # knob-derived geometries: every M template (16, 32, 64 from small
-        # spatial tiles, 128 from the default), the task's extreme Ci/Co
-        sp, wl = task.space, task.space.workload
-        kk = wl["kh"] * wl["kw"]
-        configs = [G.GemmConfig()] + [
-            G.gemm_config_from_knobs(tm, sp.choices[2][i],
-                                     sp.choices[1][i] * kk, 2, 2)
-            for tm, i in ((1, 0), (32, -1), (64, 0))]
-        a = torch.randn(m, k, generator=gen, device=dev)
-        b = torch.randn(k, n, generator=gen, device=dev)
-        for x, y, tol in ((a, b, FP32_TOL),
-                          (a.bfloat16(), b.bfloat16(), BF16_TOL)):
-            for cfg in configs:
-                got = G.gemm(x, y, cfg)
-                run = G.gemm.last_geometry["run"]
-                want = G.gemm(x, y, cfg, use_kernel=False)
-                torch.cuda.synchronize()
-                diff, rel = rel_err(got, want)
-                check(rel <= tol,
-                      f"gemm {name} {(m, n, k)} {run}: rel err {rel:.3g}")
-                if x.dtype == torch.float32:
-                    worst = max(worst, diff)
-                n_checks += 1
-                log(f"[check] {name} M={m} N={n} K={k} run={run} dynamic "
-                    f"smem {G.RunGeometry(**run).smem_bytes} B "
-                    f"max_abs_err={diff:.3g} rel={rel:.3g}")
-    log(f"[check] {n_checks} kernel-vs-plain checks passed "
-        f"(fp32 tol {FP32_TOL} x max|plain|, bf16 {BF16_TOL})")
-    return worst
 
 
 def phase_tune(dev):
@@ -1052,11 +683,6 @@ def bf16_gemm_cases(per_shape) -> list:
     return cases
 
 
-def geometry_key(m, n, k, run, implicit) -> tuple:
-    """What a GEMM launch ran: its (M, N, K), run geometry and mode."""
-    return (m, n, k, tuple(sorted(run.items())), implicit)
-
-
 def phase_time_bf16(dev, per_shape) -> dict:
     """``[time bf16]``: the GEMM with bf16 operands and C (fp32
     accumulation, as the TPU kernel's MXU dot) at :func:`bf16_gemm_cases`.
@@ -1082,7 +708,7 @@ def phase_time_bf16(dev, per_shape) -> dict:
         run = G.gemm.last_geometry["run"]
         want, plain_ms = events_ms(lambda: G.gemm(a, b, cfg,
                                                   use_kernel=False))
-        diff, rel = rel_err(got, want)
+        _, rel = rel_err(got, want)
         check(got.dtype == bf and rel <= BF16_TOL,
               f"gemm bf16 {name} {(m, n, k)} {run}: rel err {rel:.3g}")
         checked.add(geometry_key(m, n, k, run, False))
@@ -1096,7 +722,7 @@ def phase_time_bf16(dev, per_shape) -> dict:
                "run": [run["bm"], run["bn"], run["bk"]],
                "split_k": run["split_k"], "vec": run["vec"],
                "device_ms": dev_ms, "library_device_ms": lib_ms,
-               "plain_ms": plain_ms, "max_abs_err": diff, "rel_err": rel,
+               "plain_ms": plain_ms,
                **bound(flops / BF16_FLOPS * 1e3,
                        nbytes / HBM_BYTES_PER_S * 1e3),
                "device_tflops": flops / dev_ms / 1e9}
@@ -1108,7 +734,7 @@ def phase_time_bf16(dev, per_shape) -> dict:
             f"{100 * row['bound_ms'] / dev_ms:.1f}% of bound), "
             f"torch.matmul bf16 {lib_ms:.4f} ms, plain {plain_ms:.1f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); vs plain "
-            f"max_abs_err={diff:.3g} rel={rel:.3g}")
+            f"rel={rel:.3g}")
     rows += time_bf16_convs(dev, per_shape, checked)
     resnet = {t for t, *_ in gemm_shapes()}
     total = {}
@@ -1178,7 +804,7 @@ def time_bf16_convs(dev, per_shape, checked) -> list:
         got = got.reshape(m, n)
         want, plain_ms = events_ms(lambda: G.gemm(patches, wm, cfg,
                                                   use_kernel=False))
-        diff, rel = rel_err(got, want)
+        _, rel = rel_err(got, want)
         check(got.dtype == bf and rel <= BF16_TOL,
               f"implicit conv {t.name} {(m, n, k)} {run}: rel err "
               f"{rel:.3g}")
@@ -1198,7 +824,7 @@ def time_bf16_convs(dev, per_shape, checked) -> list:
                "run": [run["bm"], run["bn"], run["bk"]],
                "split_k": run["split_k"], "vec": run["vec"],
                "device_ms": dev_ms, "library_device_ms": lib_ms,
-               "plain_ms": plain_ms, "max_abs_err": diff, "rel_err": rel,
+               "plain_ms": plain_ms,
                **bound(flops / BF16_FLOPS * 1e3,
                        nbytes / HBM_BYTES_PER_S * 1e3),
                "device_tflops": flops / dev_ms / 1e9}
@@ -1210,35 +836,13 @@ def time_bf16_convs(dev, per_shape, checked) -> list:
             f"{100 * row['bound_ms'] / dev_ms:.1f}% of bound), cuDNN bf16 "
             f"conv {lib_ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); vs plain "
-            f"max_abs_err={diff:.3g} rel={rel:.3g}, bits of im2col + the "
-            f"GEMM")
+            f"rel={rel:.3g}, bits of im2col + the GEMM")
     return rows
 
 
-def cudnn_bf16_forward(net, x):
-    """ResNet-18's forward as ``cnn.apply`` runs it, each conv one cuDNN
-    call in x's dtype (NHWC x, HWIO weights): the yardstick of the bf16
-    forward, which the port never calls."""
-    import torch.nn.functional as F
-    from repro_torch.models import cnn
-    specs = cnn.conv_specs(net.model)
-    nchw = lambda f, t, *a, **kw: f(t.permute(0, 3, 1, 2), *a,
-                                    **kw).permute(0, 2, 3, 1)
-
-    def conv(i, t):
-        return nchw(F.conv2d, t, net.conv_w[i].permute(3, 2, 0, 1),
-                    stride=specs[i].stride,
-                    padding=specs[i].pad) + net.conv_b[i]
-
-    x = nchw(F.max_pool2d, F.relu(conv(0, x)), 3, 2, padding=1)
-    for i in range(1, len(specs), 2):   # the basic blocks, as cnn.apply
-        y = conv(i + 1, F.relu(conv(i, x)))
-        if x.shape != y.shape:
-            s = specs[i].stride
-            x = F.pad(nchw(F.avg_pool2d, x, s, s),
-                      (0, y.shape[-1] - x.shape[-1]))
-        x = F.relu(x + y)
-    return x.mean(dim=(1, 2)) @ net.fc_w + net.fc_b
+def geometry_key(m, n, k, run, implicit) -> tuple:
+    """What a GEMM launch ran: its (M, N, K), run geometry and mode."""
+    return (m, n, k, tuple(sorted(run.items())), implicit)
 
 
 def phase_deploy_bf16(dev, configs) -> dict:
@@ -1248,13 +852,10 @@ def phase_deploy_bf16(dev, configs) -> dict:
     the forward and must read 17, 16 of them implicit (every conv but
     conv1, whose 3 channels the implicit mode does not take), just after;
     the logits finite, of shape (8, 1000) and within DEPLOY_BF16_TOL of
-    the plain path in bf16.  Printed,
-    not gated: the distance to the fp32 forward (the plain path, cuDNN
-    fp32) and to a forward whose convs are cuDNN bf16 calls
-    (:func:`cudnn_bf16_forward`); the forward's ms through the kernel, the
-    plain path and cuDNN bf16 (CUDA events over Python calls); a profile
-    of the forward.  Returns those numbers and the :func:`geometry_key`
-    of each GEMM the forward ran."""
+    the plain path in bf16.  Printed, not gated: the distance to the fp32
+    forward and the forward's ms through the kernel and the plain path
+    (CUDA events over Python calls).  Returns those numbers and the
+    :func:`geometry_key` of each GEMM the forward ran."""
     import torch
     from repro_torch.kernels import gemm as G
     specs, layer_task, net, x = resnet_setup(dev)
@@ -1279,44 +880,30 @@ def phase_deploy_bf16(dev, configs) -> dict:
         torch.cuda.synchronize()
         launches = G.gemm.launches   # and ends here
         implicit = G.gemm.implicit_launches
-        check(launches == 17, f"bf16 forward launched the kernel "
-                              f"{launches} times, expected 17")
-        check(implicit == 16, f"bf16 forward took the implicit mode "
-                              f"{implicit} times, expected 16")
+        check(launches == 17 and implicit == 16,
+              f"bf16 forward launched the kernel {launches} times "
+              f"({implicit} implicit), expected 17 (16)")
         plain = net(x, use_kernel=False)
-        cudnn = cudnn_bf16_forward(net, x)
-        cudnn_ms = cuda_ms(lambda: cudnn_bf16_forward(net, x), reps=5)
-        torch.cuda.synchronize()
+        fwd_ms = cuda_ms(lambda: net(x, configs), reps=5)
+        plain_ms = cuda_ms(lambda: net(x, use_kernel=False), reps=5)
     check(tuple(logits.shape) == (BATCH, 1000) and logits.dtype ==
-          torch.bfloat16, f"bf16 logits {logits.shape} {logits.dtype}")
-    check(bool(torch.isfinite(logits).all()), "non-finite bf16 logits")
-    diff, rel = rel_err(logits, plain)
+          torch.bfloat16 and bool(torch.isfinite(logits).all()),
+          f"bf16 logits {logits.shape} {logits.dtype}, or not finite")
+    _, rel = rel_err(logits, plain)
     check(rel <= DEPLOY_BF16_TOL, f"bf16 forward vs plain path: rel err "
                                   f"{rel:.3g} > {DEPLOY_BF16_TOL}")
     _, rel32 = rel_err(logits, fp32)
-    _, rel_cudnn = rel_err(logits, cudnn)
     log(f"[deploy bf16] ResNet-18 224x224 batch {BATCH} in bf16, tuned "
-        f"geometries: 17 kernel launches ({implicit} implicit), logits "
-        f"max_abs_err {diff:.3g} "
-        f"(rel {rel:.3g}, gate {DEPLOY_BF16_TOL}) vs the plain path (cuDNN "
-        f"fp32 convolutions on the bf16 values, rounded to bf16 a layer); "
-        f"rel {rel32:.3g} vs the fp32 forward, {rel_cudnn:.3g} vs cuDNN "
-        f"bf16 convolutions (not gated)")
-    with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: net(x, configs), reps=5)
-        plain_ms = cuda_ms(lambda: net(x, use_kernel=False), reps=5)
-    log(f"[deploy bf16] forward {fwd_ms:.3f} ms through the kernel, "
-        f"{plain_ms:.3f} ms through the plain path, {cudnn_ms:.3f} ms "
-        f"through cuDNN bf16 convolutions (CUDA events over Python calls)")
-    with torch.no_grad():
-        profile = profile_runs({"forward bf16": (3, lambda: net(x,
-                                                                 configs))})
+        f"geometries: 17 kernel launches ({implicit} implicit), logits rel "
+        f"err {rel:.3g} (gate {DEPLOY_BF16_TOL}) vs the plain path (cuDNN "
+        f"fp32 convolutions on the bf16 values, rounded to bf16 a layer), "
+        f"{rel32:.3g} vs the fp32 forward (not gated); forward "
+        f"{fwd_ms:.3f} ms through the kernel, {plain_ms:.3f} ms through "
+        f"the plain path (CUDA events over Python calls)")
     return {"launches": launches, "implicit_launches": implicit,
-            "logits_max_abs_err": diff,
             "logits_rel_err": rel, "logits_rel_err_vs_fp32": rel32,
-            "logits_rel_err_vs_cudnn_bf16": rel_cudnn, "forward_ms": fwd_ms,
-            "forward_plain_ms": plain_ms, "forward_cudnn_bf16_ms": cudnn_ms,
-            "profile": profile, "geometries": ran}
+            "forward_ms": fwd_ms, "forward_plain_ms": plain_ms,
+            "geometries": ran}
 
 
 @contextlib.contextmanager
@@ -1334,54 +921,13 @@ def fp32_flash_recorded(calls):
             calls[tuple(key)] += n
 
 
-def fp32_gate_calls() -> collections.Counter:
-    """The fp32 flash launches the fp32 gates make, in the recorder's keys,
-    from their own draws and configs: each gate's prompt lengths (the
-    first draw of its seeded generator: phase_lm_gate's, then each
-    family's), one prefill a prompt on the kernel path, one launch an
-    attention layer (a vision prefix ahead of the prompt; an encoder's
-    layers non-causal over its frames).  The full run holds it equal to
-    what :func:`fp32_flash_recorded` counted; ``--flash-fp32`` times the
-    kernel at these shapes without the gates."""
-    import inspect
-    import numpy as np
-    import torch
-    from repro_torch.kernels import ops
-    ask = inspect.signature(ops.attention).parameters
-    blocks = (ask["block_q"].default, ask["block_k"].default)
-    calls = collections.Counter()
-
-    def prefills(cfg, lengths):
-        def key(s, causal, window):
-            return ((1, s, cfg.n_heads, cfg.head_dim), cfg.n_kv_heads,
-                    causal, window, *blocks)
-        for n in lengths:
-            s = cfg.vision_prefix + int(n)
-            for mixer, _ in cfg.layer_kinds():
-                if mixer in ("attn", "swa"):
-                    window = cfg.swa_window if mixer == "swa" else None
-                    calls[key(s, True, window)] += 1
-            if cfg.enc_dec:
-                calls[key(cfg.enc_seq, False, None)] += cfg.n_enc_layers
-
-    rng = np.random.default_rng(SEED + 4)
-    prefills(lm_config(torch.float32), rng.integers(
-        LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_GATE_REQUESTS))
-    for i, kind in enumerate(FAMILY_SERVE):
-        rng = np.random.default_rng(SEED + 10 + i)
-        lo, hi = GATE_PROMPT.get(kind, FAMILY_SERVE[kind][2])
-        prefills(family_config(kind, torch.float32, gate=True),
-                 rng.integers(lo, hi + 1, size=LM_GATE_REQUESTS))
-    return calls
-
-
 def phase_time_flash_fp32(dev, calls) -> dict:
     """``[time flash fp32]``: the fp32 flash kernel (``flash_f32_kernel``,
     register-tiled FFMA fed by a ``cp.async`` ring) at every shape the
     fp32 gates launched (``calls``, from :func:`fp32_flash_recorded`, or
     :func:`fp32_gate_calls`): the kernel and one SDPA fp32 call by
-    ``device_ms``, the plain version by CUDA events over one call (its
-    output holds the kernel's at FP32_TOL), and the bound: the fp32
+    ``device_ms``, the plain version by CUDA events over one call (the
+    kernel's output held against it at FP32_TOL), and the bound: the fp32
     operations over the 67 TFLOP/s FMA peak against q, k, v read and o
     written once.  A windowed shape's SDPA takes the band as a boolean
     mask and its operations count the pairs inside the band
@@ -1401,19 +947,19 @@ def phase_time_flash_fp32(dev, calls) -> dict:
         geom = FA.RunGeometry(**FA.flash_attention.last_geometry["run"])
         want, plain_ms = events_ms(lambda: FA.flash_attention_plain(
             q, k, v, causal, window, d ** -0.5, geom))
-        diff, rel = rel_err(got, want)
+        _, rel = rel_err(got, want)
         check(rel <= FP32_TOL, f"flash fp32 {qshape} {hkv}: rel err "
                                f"{rel:.3g}")
+        ms = device_ms(lambda: FA.flash_attention(q, k, v, causal, window,
+                                                  None, bq, bk))
         sdpa = sdpa_call(q, k, v, causal, window)
         sdpa_calls.append(sdpa)
         flops = attention_flops(b, s, hq, d, causal, window)
         row = {"shape": [b, s, hq, hkv, d], "causal": causal,
                "window": window, "launches": n,
                "run": [geom.bq, geom.bk, geom.dp], "kv_chunk": geom.kv_chunk,
-               "ms": device_ms(lambda: FA.flash_attention(
-                   q, k, v, causal, window, None, bq, bk)),
-               "library_ms": device_ms(sdpa),
-               "plain_ms": plain_ms, "max_abs_err": diff,
+               "ms": ms, "library_ms": device_ms(sdpa),
+               "plain_ms": plain_ms,
                **bound(flops / FP32_FLOPS * 1e3,
                        4.0 * b * s * d * (2 * hq + 2 * hkv)
                        / HBM_BYTES_PER_S * 1e3)}
@@ -1422,11 +968,10 @@ def phase_time_flash_fp32(dev, calls) -> dict:
             f"{' causal' if causal else ' non-causal'}"
             f"{'' if window is None else f' window {window}'} x{n} launches "
             f"run={row['run']} kv_chunk={geom.kv_chunk}: kernel "
-            f"{row['ms']:.4f} ms, SDPA fp32 "
+            f"{row['ms']:.4f} ms ({rel:.3g} of max from plain), SDPA fp32 "
             f"{row['library_ms']:.4f} ms, plain {plain_ms:.2f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}; the kernel at "
-            f"{100 * row['bound_ms'] / row['ms']:.1f}% of it); vs plain "
-            f"max_abs_err={diff:.3g} rel={rel:.3g}")
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of it)")
     tot = {key: sum(r[key] * r["launches"] for r in rows)
            for key in ("ms", "library_ms", "plain_ms", "bound_ms")}
     by_ops = sum(r["bound_ms"] * r["launches"] for r in rows
@@ -1434,7 +979,6 @@ def phase_time_flash_fp32(dev, calls) -> dict:
     tot["bound_by"] = ("operations" if 2 * by_ops >= tot["bound_ms"]
                        else "bytes")
     tot["launches"] = sum(calls.values())
-    tot["max_abs_err"] = max((r["max_abs_err"] for r in rows), default=0.0)
     tot["shapes"] = rows
     log(f"[time flash fp32] over the fp32 gates' {tot['launches']} launches "
         f"({len(rows)} shapes): kernel {tot['ms']:.3f} ms, SDPA fp32 "
@@ -1625,11 +1169,11 @@ def phase_netopt_deploy(dev, coopt, fwd_ms, plain_fwd_ms, rows) -> dict:
     """The co-optimized network deployed: every layer's mapping under the
     K=1 winner's chip (``mapping`` with ``hw_utilized``, the chip's tiles
     clamped to the layer) mapped through ``knob_config`` to a GemmConfig,
-    ResNet-18 run with phase 5's seeded weights and input.  The GEMM's
+    ResNet-18 run with phase 4's seeded weights and input.  The GEMM's
     launch count is set to 0 just before and must read 17 just after;
     logits within FORWARD_TOL of cuDNN fp32.  Then where the forward's
     time goes: the profiler over it, and each GEMM shape's device time
-    under these geometries beside phase 6's (``rows``, the per-layer
+    under these geometries beside phase 5's (``rows``, the per-layer
     optima's)."""
     import torch
     from repro_torch.kernels import gemm as G
@@ -1661,8 +1205,8 @@ def phase_netopt_deploy(dev, coopt, fwd_ms, plain_fwd_ms, rows) -> dict:
     log(f"[netopt deploy] ResNet-18 224x224 batch {BATCH}: 17 kernel "
         f"launches, logits max_abs_err {diff:.3g} (rel {rel:.3g}) vs cuDNN "
         f"fp32; forward {ms:.3f} ms with the co-optimized chip's mappings, "
-        f"{fwd_ms:.3f} ms with the per-layer optima (phase 5), "
-        f"{plain_fwd_ms:.3f} ms through cuDNN (phase 5)")
+        f"{fwd_ms:.3f} ms with the per-layer optima (phase 4), "
+        f"{plain_fwd_ms:.3f} ms through cuDNN (phase 4)")
     with torch.no_grad():
         profile = profile_runs({"netopt forward": (3, lambda: net(x,
                                                                    configs))})
@@ -1679,7 +1223,7 @@ def phase_netopt_deploy(dev, coopt, fwd_ms, plain_fwd_ms, rows) -> dict:
         log(f"[netopt deploy] {name} M={m} N={n} K={k} x{layers}: run="
             f"{[geom.bm, geom.bn, geom.bk]} split_k={geom.split_k} device "
             f"time {dev_ms:.4f} ms; the per-layer optimum's run={row['run']} "
-            f"split_k={row['split_k']} {row['device_ms']:.4f} ms (phase 6)")
+            f"split_k={row['split_k']} {row['device_ms']:.4f} ms (phase 5)")
     log(f"[netopt deploy] the 17 GEMMs' device time (device_ms): "
         f"{gemm_ms['netopt']:.3f} ms under the co-optimized chip, "
         f"{gemm_ms['per_layer']:.3f} ms under the per-layer optima")
@@ -1710,116 +1254,6 @@ def device_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def lm_config(dtype):
-    from repro_torch.configs import get_config
-    return get_config(LM_ARCH).with_(dtype=dtype, param_dtype=dtype)
-
-
-def phase_check_lm_kernels(dev) -> dict:
-    """RMSNorm and flash kernels vs their plain versions on the card: the
-    reference's test cases and the serving path's shapes, fp32 and bf16.
-    Returns each kernel's largest absolute error at the path's shapes in
-    bf16, the dtype the path serves in, and under ``flash_vs_fp32_p`` the
-    bf16 flash kernel's largest distance there from fp32-P attention."""
-    import torch
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import rmsnorm as RN
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    worst = {"rmsnorm": 0.0, "flash_attention": 0.0}
-    n_checks = 0
-    ran, strided = set(), set()   # layouts and grid-stride runs checked
-    for shape, on_path, aligned in RMSNORM_CHECKS:
-        for dtype, tol in ((torch.float32, FP32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
-            n = math.prod(shape)
-            x = torch.randn(n + 1, generator=gen, device=dev).to(dtype)
-            x = (x[:n] if aligned else x[1:]).view(shape)
-            w = torch.randn(shape[-1], generator=gen, device=dev).to(dtype)
-            got = RN.rmsnorm(x, w)
-            run = RN.rmsnorm.last_geometry["run"]
-            want = RN.rmsnorm(x, w, use_kernel=False)
-            torch.cuda.synchronize()
-            diff, rel = rel_err(got, want)
-            check(got.dtype == dtype and rel <= tol,
-                  f"rmsnorm {shape} {dtype} {run}: rel err {rel:.3g}")
-            check(run["vec"] == (aligned and shape[-1]
-                                 % RN.vector_width(dtype) == 0),
-                  f"rmsnorm {shape} {dtype} aligned={aligned}: run {run}")
-            log(f"[check] rmsnorm {shape} {dtype}"
-                f"{'' if aligned else ' x at an offset of one value'} "
-                f"run={run} max_abs_err={diff:.3g} rel={rel:.3g}")
-            if on_path and dtype == torch.bfloat16:
-                worst["rmsnorm"] = max(worst["rmsnorm"], diff)
-            ran.add((shape[-1], dtype, run["vec"], run["threads"] // 32,
-                     run["slots"], run["rows_per_block"]))
-            if run["grid"] * run["rows_per_block"] < n // shape[-1]:
-                strided.add((run["threads"] > 32, dtype))
-            n_checks += 1
-    missing = set(lm_rmsnorm_layouts()) - ran
-    check(not missing, f"no rmsnorm check runs the LM path's {missing}")
-    check(len(strided) == 4, f"the rmsnorm grid-stride loop is checked "
-          f"only in {sorted(map(str, strided))}")
-    flash_ran = set()             # templates checked
-    f32_split = set()             # fp32 runs with and without a KV split
-    for (b, s, hq, hkv, d, causal, window, bq, bk), on_path, aligned in \
-            FLASH_CHECKS:
-        for dtype, tol in ((torch.float32, FP32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
-            def draw(h):
-                n = b * s * h * d
-                x = torch.randn(n + 1, generator=gen, device=dev).to(dtype)
-                return (x[:n] if aligned else x[1:]).view(b, s, h, d)
-            q, k, v = draw(hq), draw(hkv), draw(hkv)
-            vec = FA.vec_copies(q, k, v)
-            check(vec == (aligned and d % (16 // q.element_size()) == 0),
-                  f"flash D={d} {dtype} aligned={aligned}: vec {vec}")
-            got = FA.flash_attention(q, k, v, causal, window, None, bq, bk)
-            run = FA.flash_attention.last_geometry["run"]
-            want = FA.flash_attention(q, k, v, causal, window, None, bq, bk,
-                                      use_kernel=False)
-            torch.cuda.synchronize()
-            diff, rel = rel_err(got, want)
-            case = (b, s, hq, hkv, d, causal, window)
-            check(got.dtype == dtype and rel <= tol,
-                  f"flash {case} {dtype} aligned={aligned}: rel err "
-                  f"{rel:.3g}")
-            flash_ran.add((run["bq"], run["bk"], run["dp"], run["dtype"]))
-            if dtype == torch.float32:
-                f32_split.add(run["kv_chunk"] > 0)
-            if on_path or not vec:
-                log(f"[check] flash B={b} S={s} HQ={hq} HKV={hkv} D={d} "
-                    f"{dtype}{'' if aligned else ' q/k/v at an offset of one value'}"
-                    f" run={run} vec={int(vec)} dynamic smem "
-                    f"{FA.RunGeometry(**run).smem_bytes} B "
-                    f"max_abs_err={diff:.3g} rel={rel:.3g}")
-            if on_path and dtype == torch.bfloat16:
-                worst["flash_attention"] = max(worst["flash_attention"], diff)
-                exact = FA.flash_attention_plain(
-                    q.float(), k.float(), v.float(), causal, window,
-                    d ** -0.5, FA.RunGeometry(**run))
-                diff32, rel32 = rel_err(got, exact)
-                bound = FLASH_FP32_P_BOUND * float(v.float().abs().max())
-                check(diff32 <= bound, f"flash {case} bf16 vs fp32 P: "
-                      f"{diff32:.3g} > {bound:.3g}")
-                worst["flash_vs_fp32_p"] = max(
-                    worst.get("flash_vs_fp32_p", 0.0), diff32)
-                log(f"[check] flash B={b} S={s} bf16 vs plain with fp32 P: "
-                    f"max_abs_err={diff32:.3g} rel={rel32:.3g} (bound "
-                    f"{bound:.3g} = 2^-7 x max|v|)")
-            n_checks += 1
-    check(f32_split == {True, False}, f"fp32 flash checked only with "
-          f"the KV split {f32_split}")
-    for geom, runs in lm_flash_geometries().items():
-        check(geom in flash_ran, f"no flash check runs the LM path's "
-              f"template {geom} (head_dim, S from {runs[0]} to {runs[-1]})")
-        log(f"[check] the LM path's flash template <bq {geom[0]}, bk "
-            f"{geom[1]}, dp {geom[2]}> {geom[3]} (head_dim, S from "
-            f"{runs[0]} to {runs[-1]}) is held by a check")
-    log(f"[check] {n_checks} RMSNorm/flash kernel-vs-plain checks passed "
-        f"(fp32 tol {FP32_TOL} x max|plain|, bf16 {BF16_TOL})")
-    return worst
 
 
 def _cast(tree, dtype):
@@ -2361,51 +1795,53 @@ def phase_serve_live(dev, params, cfg) -> dict:
 
 
 def profile_runs(runs: dict) -> dict:
-    """``torch.profiler`` over each named (reps, fn) after one warm-up
-    call, the reps ending in a synchronize: host wall ms, device busy ms
-    (the CUDA kernels' summed durations), the device's idle share, kernels
-    launched, the port's own kernels' device ms, and the top kernels, per
-    rep.  If the profiler records no device time the run says "not
-    measured" and the smoke run goes on."""
+    """Each named (reps, fn) after one warm-up call, the reps and a
+    synchronize in one ``window`` annotation under the profiler, reduced
+    by ``dcoc_bench.devtrace`` as the benchmark reduces its traces: host
+    wall ms (the window), device busy ms (the union of the device
+    intervals in it, so overlapping kernels count once), the device's
+    idle share, device activities, the port's own kernels' device ms,
+    and the top kernels, per rep.  If the profiler records no device
+    time the run says "not measured" and the smoke run goes on."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from dcoc_bench import devtrace
     out = {}
     for name, (reps, fn) in runs.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
-        if not kernels or busy_ms <= 0:
+
+        def window():
+            with torch.profiler.record_function("window"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+
+        trace = devtrace.profiled(window, "window")
+        if trace is None or trace.busy_s <= 0:
             log(f"[profile] {name}: device time not measured (the profiler "
-                f"recorded no CUDA kernel); host wall {wall_ms:.3f} ms")
+                f"recorded no CUDA kernel)")
             continue
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + (
-                e.time_range.elapsed_us() / 1e3 / reps)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        port_ms = sum(v for k, v in by_name.items()
-                      if any(p in k for p in PORT_KERNEL_NAMES))
+        wall_ms = trace.window_s * 1e3 / reps
+        busy_ms = trace.busy_s * 1e3 / reps
+        by_name = {k: v * 1e3 / reps
+                   for k, v in trace.top_ops(len(trace.device))}
+        top = list(by_name.items())[:6]
+        port_ms = trace.device_seconds(
+            lambda k: any(p in k for p in PORT_KERNEL_NAMES)) * 1e3 / reps
+        lo, hi = trace.window
+        kernels = sum(lo <= s and e <= hi for s, e, _ in trace.device)
         classes = {}
         for k, v in by_name.items():
             cls = kernel_class(k)
             classes[cls] = classes.get(cls, 0.0) + v
         out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                      "device_idle_share": 1.0 - busy_ms / wall_ms,
-                     "kernels": len(kernels) / reps, "port_kernels_ms": port_ms,
+                     "kernels": kernels / reps, "port_kernels_ms": port_ms,
                      "top": [(k[:60], v) for k, v in top],
                      "by_class_ms": classes}
         log(f"[profile] {name}: host wall {wall_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / wall_ms):.1f}%), "
-            f"{len(kernels) / reps:.0f} kernels, the port's kernels "
+            f"{kernels / reps:.0f} kernels, the port's kernels "
             f"{port_ms:.3f} ms; top by device time: "
             + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
         log(f"[profile] {name} by kernel class: " + "; ".join(
@@ -2669,64 +2105,6 @@ def phase_time_lm_kernels(dev, cfg, serve) -> tuple:
         log_row("flash_attention", flash_row(s))
     log_row("rmsnorm", rmsnorm_row(NORM_TIMED_ROWS))
     return kernels, time_rmsnorm_floor_and_host(randn, cfg.d_model)
-
-
-def phase_check_rmsnorm_backward(dev) -> dict:
-    """The RMSNorm autograd Function on the card, at the training shape,
-    a serve shape and the family training phases' shapes (d 2048): its
-    forward launches the kernel once (counted) and
-    its output is held against ``rmsnorm_plain`` on the same inputs, its
-    (dx, dw) against autograd through ``rmsnorm_plain``; fp32 within
-    FP32_TOL and bf16 within BF16_TOL of max |plain|.  In bf16 the plain
-    side runs on the fp32 values of the same bf16 inputs: autograd through
-    the bf16 plain version sums its 128-row tiles' dw in bf16 (64
-    roundings at 8192 rows, more than BF16_TOL), where the Function sums
-    in fp32 and rounds once.  Returns the largest absolute errors of the
-    forward and of the gradients in bf16 at the training shape."""
-    import torch
-    from repro_torch.kernels import rmsnorm as RN
-    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    worst = {"forward_max_abs_err": 0.0, "backward_max_abs_err": 0.0}
-    from repro_torch.configs import get_config
-    family = [(batch * seq, get_config(arch).d_model)
-              for arch, _, batch, seq, _, _ in FAMILY_TRAIN.values()]
-    for shape in [TRAIN_NORM_SHAPE, (LM_SLOTS, TRAIN_NORM_SHAPE[1])] + family:
-        for dtype, tol in ((torch.float32, FP32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
-            x0, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                     for _ in range(2))
-            w0 = torch.randn(shape[-1], generator=gen, device=dev).to(dtype)
-            x, w = (t.clone().requires_grad_(True) for t in (x0, w0))
-            before = RN.rmsnorm.launches
-            out = RN.rmsnorm(x, w)
-            check(RN.rmsnorm.launches == before + 1,
-                  f"rmsnorm Function {shape} {dtype}: "
-                  f"{RN.rmsnorm.launches - before} launches, not 1")
-            diff, rel = rel_err(out.detach(), RN.rmsnorm_plain(x0, w0))
-            check(out.dtype == dtype and rel <= tol,
-                  f"rmsnorm Function forward {shape} {dtype}: rel err "
-                  f"{rel:.3g}")
-            log(f"[check] rmsnorm Function forward {shape} {dtype} "
-                f"max_abs_err={diff:.3g} rel={rel:.3g}")
-            if dtype == torch.bfloat16 and shape == TRAIN_NORM_SHAPE:
-                worst["forward_max_abs_err"] = diff
-            dx, dw = torch.autograd.grad(out, (x, w), g)
-            xp, wp = (t.float().clone().requires_grad_(True)
-                      for t in (x0, w0))
-            px, pw = torch.autograd.grad(RN.rmsnorm_plain(xp, wp), (xp, wp),
-                                         g.float())
-            torch.cuda.synchronize()
-            for name, got, want in (("dx", dx, px), ("dw", dw, pw)):
-                diff, rel = rel_err(got, want)
-                check(got.dtype == dtype and rel <= tol,
-                      f"rmsnorm backward {name} {shape} {dtype}: rel err "
-                      f"{rel:.3g}")
-                log(f"[check] rmsnorm backward {name} {shape} {dtype} "
-                    f"max_abs_err={diff:.3g} rel={rel:.3g}")
-                if dtype == torch.bfloat16 and shape == TRAIN_NORM_SHAPE:
-                    worst["backward_max_abs_err"] = max(
-                        worst["backward_max_abs_err"], diff)
-    return worst
 
 
 def launch_counts() -> dict:
@@ -3659,31 +3037,6 @@ def phase_train_faults(dev) -> dict:
             "resumed_at": resumed, "launcher": report, "launcher_s": launch_s}
 
 
-def family_config(kind: str, dtype, gate: bool = False):
-    """The served model of a family phase in ``dtype``, or its fp32 gate's
-    cut (``gate``): moonshot at its first MOE_GATE_LAYERS layers, xlstm at
-    its first SSM_GATE_LAYERS, internvl2 at its first VLM_GATE_LAYERS,
-    jamba's width over HYBRID_GATE_PATTERN; whisper's gate is the whole
-    model.  The served jamba is its first HYBRID_LAYERS layers, the
-    served xlstm its first SSM_SERVE_LAYERS, the served moonshot its first
-    MOE_SERVE_LAYERS, the served mixtral its first SWA_SERVE_LAYERS (its
-    gate its first SWA_GATE_LAYERS)."""
-    from repro_torch.configs import get_config
-    cfg = get_config(FAMILY_SERVE[kind][0]).with_(dtype=dtype,
-                                                  param_dtype=dtype)
-    if kind == "hybrid":
-        pattern = (HYBRID_GATE_PATTERN if gate
-                   else cfg.pattern[:HYBRID_LAYERS])
-        return cfg.with_(pattern=pattern, n_layers=len(pattern))
-    cut = {"moe": MOE_GATE_LAYERS, "ssm": SSM_GATE_LAYERS,
-           "vlm": VLM_GATE_LAYERS, "swa": SWA_GATE_LAYERS}
-    if gate and kind in cut:
-        return cfg.with_(n_layers=cut[kind])
-    served = {"ssm": SSM_SERVE_LAYERS, "moe": MOE_SERVE_LAYERS,
-              "swa": SWA_SERVE_LAYERS}
-    return cfg.with_(n_layers=served[kind]) if kind in served else cfg
-
-
 def _noise(params, cfg, prompts, dev, eps: float, frontends=None) -> float:
     """The plain path's own logit distance (prefill, then LM_GATE_STEPS
     teacher-forced decode steps, / max |logit|) when the embedding table
@@ -3966,7 +3319,7 @@ def _leaves(tree):
 # [moonlight]: moonlight-16b-a3b (MLA, the grouped MoE) at published widths
 MOONLIGHT_ARCH = "moonlight-16b-a3b"
 # (slots, shortest and longest cache, the cache's capacity) of the MLA
-# decode kernel's checks: the cell's 64 conversations at 2,048-4,096
+# decode kernel's timings: the cell's 64 conversations at 2,048-4,096
 # positions in its 8,192-position cache (a KV split; the step's CUDA
 # graphs read the capacity), and 600 slots of up to 100, which fill the
 # card unsplit
@@ -3974,16 +3327,15 @@ MLA_CASES = ((64, 2048, 4096, 8192), (600, 1, 100, 100))
 MOONLIGHT_PROMPT = 4096     # the dp=192 flash template's prefill shape
 
 
-def check_mla_decode(randn, g, cfg, b, lo, hi, cap) -> dict:
+def time_mla_decode(randn, g, cfg, b, lo, hi, cap) -> dict:
     """The MLA decode kernel at ``b`` slots of ``lo``-``hi`` cached
     positions (the first slot ``hi``, the last ``lo``) of a ``cap``-
-    position cache against its plain version at BF16_TOL (P rounded
-    against the running max in the kernel, the final one in the plain
-    version), one launch, timed by device_ms beside the plain version and
-    the bound: the cache read once at each slot's length; and timed again
-    at ``kv_len`` = ``cap``, as the decode step's CUDA graphs call it (the
-    split set by the capacity; the result within BF16_TOL too, and bit
-    for bit the ``hi`` call's where both make as many splits)."""
+    position cache against its plain version at BF16_TOL, one launch,
+    timed by device_ms beside the plain version and the bound: the cache
+    read once at each slot's length; and timed again at ``kv_len`` =
+    ``cap``, as the decode step's CUDA graphs call it (bit for bit the
+    ``hi`` call where both make as many splits, within BF16_TOL of the
+    plain version otherwise)."""
     import torch
     from repro_torch.kernels import mla_decode as MK
     h, r, pe = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
@@ -3993,6 +3345,7 @@ def check_mla_decode(randn, g, cfg, b, lo, hi, cap) -> dict:
                          dtype=torch.int32)
     lens[0], lens[-1] = hi, lo
     call = lambda: MK.mla_attention(q, ckv, kpe, lens, scale, hi)
+    at_cap = lambda: MK.mla_attention(q, ckv, kpe, lens, scale, cap)
     plain = lambda: MK.mla_attention_plain(q, ckv, kpe, lens, scale, hi)
     n0 = MK.mla_attention.launches
     got = call()
@@ -4000,45 +3353,40 @@ def check_mla_decode(randn, g, cfg, b, lo, hi, cap) -> dict:
     check(MK.mla_attention.launches == n0 + 1,
           f"[moonlight] MLA decode at {b} x {hi}: "
           f"{MK.mla_attention.launches - n0} launches, not 1")
-    err, rel = rel_err(got, plain())
-    splits = MK.kv_split(b, hi)[1]
-    check(rel < BF16_TOL, f"[moonlight] MLA decode at {b} slots of {lo}-"
-                          f"{hi} ({splits} splits): {rel:.3e} of max")
-    at_cap = lambda: MK.mla_attention(q, ckv, kpe, lens, scale, cap)
-    got_cap, cap_splits = at_cap(), MK.kv_split(b, cap)[1]
-    _, rel_cap = rel_err(got_cap, plain())
-    check(rel_cap < BF16_TOL, f"[moonlight] MLA decode at kv_len {cap}: "
-                              f"{rel_cap:.3e} of max")
-    # each sequence's blocks share its own length: the same split count
-    # gives the same runs, whatever kv_len
-    check(cap_splits != splits or torch.equal(got_cap, got),
-          f"[moonlight] MLA decode at kv_len {cap} and {hi}, both "
-          f"{splits} splits, differ")
+    splits, cap_splits = MK.kv_split(b, hi)[1], MK.kv_split(b, cap)[1]
+    want, got_cap = plain(), at_cap()
+    rel, rel_cap = rel_err(got, want)[1], rel_err(got_cap, want)[1]
+    check(rel < BF16_TOL and rel_cap < BF16_TOL
+          and (cap_splits != splits or torch.equal(got_cap, got)),
+          f"[moonlight] MLA decode at {b} slots of {lo}-{hi}: {rel:.3e} "
+          f"of max ({splits} splits), at kv_len {cap} {rel_cap:.3e} "
+          f"({cap_splits} splits)")
     positions = float(lens.sum())
-    row = {"shape": [b, lo, hi, cap], "splits": splits, "max_abs_err": err,
-           "rel_err": rel, "ms": device_ms(call),
-           "capacity_splits": cap_splits,
-           "capacity_ms": device_ms(at_cap), "capacity_rel_err": rel_cap,
+    row = {"shape": [b, lo, hi, cap], "splits": splits,
+           "ms": device_ms(call), "capacity_splits": cap_splits,
+           "capacity_ms": device_ms(at_cap),
            "plain_ms": cuda_ms(plain, reps=3),
            **bound(2.0 * positions * h * (r + pe + r) / BF16_FLOPS * 1e3,
                    2.0 * (positions * (r + pe) + b * h * (r + pe + r))
                    / HBM_BYTES_PER_S * 1e3)}
     log(f"[moonlight] MLA decode {b} slots of {lo}-{hi} positions, "
         f"{splits} splits: {rel:.3e} of max (< {BF16_TOL}); kernel "
-        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; the kernel at "
+        f"{row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}; the kernel at "
         f"{100 * row['bound_ms'] / row['ms']:.1f}% of it); at kv_len {cap} "
-        f"({row['capacity_splits']} splits) {row['capacity_ms']:.4f} ms, "
+        f"({cap_splits} splits) {row['capacity_ms']:.4f} ms, "
         f"{rel_cap:.3e} of max")
     return row
 
 
-def check_flash_dp192(randn, cfg, s) -> dict:
+def time_flash_dp192(randn, cfg, s) -> dict:
     """MLA's prefill attention through the flash kernel's dp=192 template:
     q, k (1, s, 16, 192), v (1, s, 16, 128) zero-padded to 192, causal,
-    against the plain version of the same geometry at BF16_TOL, the padded
-    columns exactly 0; timed by device_ms beside SDPA on the unpadded
-    values and the operations bound (V's 128 columns counted)."""
+    one launch of that template against the plain version of the same
+    geometry at BF16_TOL, the padded columns exactly 0; timed by
+    device_ms beside SDPA on the unpadded values and the operations bound
+    (V's 128 columns counted)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -4051,13 +3399,12 @@ def check_flash_dp192(randn, cfg, s) -> dict:
     geom = FA.flash_attention.last_geometry["run"]
     check(FA.flash_attention.launches == n0 + 1 and geom["dp"] == 192,
           f"[moonlight] flash at head_dim {dk}: ran {geom}")
-    err, rel = rel_err(got, FA.flash_attention(q, k, vp, use_kernel=False))
+    _, rel = rel_err(got, FA.flash_attention(q, k, vp, use_kernel=False))
     check(rel < BF16_TOL and got[..., dv:].abs().max() == 0,
           f"[moonlight] flash dp=192 at {s} tokens: {rel:.3e} of max")
     pairs = s * (s + 1) / 2
-    row = {"shape": [1, s, h, dk], "geometry": geom, "max_abs_err": err,
-           "rel_err": rel, "ms": device_ms(lambda: FA.flash_attention(
-               q, k, vp)),
+    row = {"shape": [1, s, h, dk], "geometry": geom,
+           "ms": device_ms(lambda: FA.flash_attention(q, k, vp)),
            "library_ms": device_ms(sdpa_call(q, k, v, True, None)),
            **bound(2.0 * pairs * h * (dk + dv) / BF16_FLOPS * 1e3,
                    2.0 * s * h * (2 * dk + 2 * dv) / HBM_BYTES_PER_S * 1e3)}
@@ -4071,20 +3418,18 @@ def check_flash_dp192(randn, cfg, s) -> dict:
 
 
 def phase_moonlight(dev) -> dict:
-    """``[moonlight]``: the kernels moonlight-16b-a3b adds, held and
-    timed at its shapes (:func:`check_mla_decode` at each of
-    :data:`MLA_CASES`, :func:`check_flash_dp192` at a
+    """``[moonlight]``: the kernels moonlight-16b-a3b adds, held against
+    their plain versions and timed at its shapes (:func:`time_mla_decode`
+    at each of :data:`MLA_CASES`, :func:`time_flash_dp192` at a
     :data:`MOONLIGHT_PROMPT`-token prompt), then the published config
     whole on the card (bf16, seeded weights, 15.96 B parameters) and one
     ``decode_step`` of the cell's 64 slots at 2,048-4,096 positions of
     its 8,192-position cache, the launch counts set to 0 just before: the
     MLA decode kernel once a layer (27), RMSNorm three times a layer and
-    once more (82), flash never; finite logits, the step's ms and peak memory.  Then the step
-    as a server replays it (CUDA graphs, :mod:`repro_torch.models.
-    decode_graphs`, at ``kv_len`` the cache's length): its logits equal
-    the eager step's at that ``kv_len`` bit for bit and the default's
-    within BF16_TOL, its ms beside both eager steps', and its kernels as
-    a profiler traces them (:func:`check_graph_step`)."""
+    once more (82), flash never; finite logits, the step's ms and peak
+    memory.  Then the step as a server replays it (CUDA graphs,
+    :mod:`repro_torch.models.decode_graphs`, at ``kv_len`` the cache's
+    length), held against the eager step (:func:`time_graph_step`)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -4103,9 +3448,9 @@ def phase_moonlight(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 31)
     randn = lambda *shape: torch.randn(shape, generator=g,
                                        device=dev).bfloat16()
-    out = {"mla_decode": [check_mla_decode(randn, g, cfg, *c)
+    out = {"mla_decode": [time_mla_decode(randn, g, cfg, *c)
                           for c in MLA_CASES],
-           "flash_dp192": check_flash_dp192(randn, cfg, MOONLIGHT_PROMPT)}
+           "flash_dp192": time_flash_dp192(randn, cfg, MOONLIGHT_PROMPT)}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     b, lo, hi, cap = MLA_CASES[0]
@@ -4130,7 +3475,7 @@ def phase_moonlight(dev) -> dict:
         check(bool(torch.isfinite(logits).all()),
               "[moonlight] a decode step's logits are not finite")
         step_ms = cuda_ms(step, reps=5)
-        out["graph_step"] = check_graph_step(params, cfg, cache, toks, logits)
+        out["graph_step"] = time_graph_step(params, cfg, cache, toks, logits)
     out["decode_step"] = {"slots": b, "positions": [lo, hi],
                           "launches": launches, "ms": step_ms,
                           "peak_mem_bytes":
@@ -4147,24 +3492,39 @@ def phase_moonlight(dev) -> dict:
 # the port's kernels in a Moonlight decode step, by their traced names
 DECODE_KERNELS = ("mla_decode_kernel", "mla_decode_combine_kernel",
                   "rmsnorm_kernel")
+# calls of a step in one traced session: the middle one is counted, the
+# first and last show what the session's edges lose (PERF.md section 6)
+TRACED_CALLS = 3
 
 
-def traced_kernels(fn) -> dict:
-    """Every CUDA activity one call of ``fn`` runs (a CUDA graph's kernels
-    one by one), by ``torch.profiler``: name -> [count, device ms]; empty
-    where the profiler records no device activity."""
+def traced_kernels(fn, calls: int = TRACED_CALLS) -> list:
+    """``fn`` called ``calls`` times in one ``torch.profiler`` session,
+    each call between synchronizes and the calls split by
+    ``torch.cuda._sleep``'s spin kernel: for each call, (every CUDA
+    activity it ran, a CUDA graph's kernels one by one: name -> [count,
+    device ms], their names in the order they start); empty where the
+    profiler records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            row = out.setdefault(e.name, [0, 0.0])
-            row[0] += 1
-            row[1] += e.time_range.elapsed_us() / 1e3
+        for i in range(calls):
+            if i:
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    out = [({}, [])]
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        if "spin_kernel" in e.name:
+            out.append(({}, []))
+            continue
+        row = out[-1][0].setdefault(e.name, [0, 0.0])
+        row[0] += 1
+        row[1] += e.time_range.elapsed_us() / 1e3
+        out[-1][1].append(e.name)
     return out
 
 
@@ -4176,18 +3536,39 @@ def decode_kernel_counts(traced: dict) -> dict:
             for k in DECODE_KERNELS}
 
 
-def check_graph_step(params, cfg, cache, toks, eager_logits) -> dict:
-    """The decode step replayed as CUDA graphs on ``cache`` against the
-    eager step at ``kv_len`` = the cache's length (bit for bit: the same
-    kernels and MLA split) and ``eager_logits`` at the default (within
-    BF16_TOL); each timed by cuda_ms (host and device), ``pos`` put back
-    after every replayed step so that all three read the same positions.
-    Then, the graphs captured, one step of each under ``torch.profiler``
-    with the wrappers' launch counts set to 0 just before: the replayed
-    step's MLA decode kernel, its combine (where the split is on) and
-    RMSNorm, as the trace counts them, are the eager step's (27, 27, 82),
-    and so are the counts the replay adds; every activity whose count
-    differs between the two traces is logged with its device ms."""
+def trace_losses(full: list, part: list) -> str:
+    """Where the activity names ``part`` lack ``full``'s, both in the
+    order they start: at the start, at the end or within."""
+    lost = len(full) - len(part)
+    if full == part:
+        return "the same activities"
+    same = lambda a, b: next((i for i, (x, y) in enumerate(zip(a, b))
+                              if x != y), min(len(a), len(b)))
+    head, tail = same(full, part), same(full[::-1], part[::-1])
+    if lost > 0 and tail == len(part):
+        return f"its first {lost} missing: {full[:min(lost, 6)]}"
+    if lost > 0 and head == len(part):
+        return f"its last {lost} missing: {full[-min(lost, 6):]}"
+    return (f"{lost} fewer; the first {head} and the last {tail} of "
+            f"{len(full)} agree")
+
+
+def time_graph_step(params, cfg, cache, toks, eager_logits) -> dict:
+    """The decode step replayed as CUDA graphs on ``cache`` (captured by
+    its first call) against the eager step at ``kv_len`` = the cache's
+    length (bit for bit: the same kernels and MLA split) and
+    ``eager_logits`` at the default (within BF16_TOL); each timed by
+    cuda_ms (host and device), ``pos`` put back after every replayed step
+    so that all read the same positions.  Then one step of each under
+    ``torch.profiler`` (:func:`traced_kernels`) with the wrappers' launch
+    counts set to 0 just before, each step called TRACED_CALLS times in
+    its session: in the middle call the replayed step's MLA decode
+    kernel, its combine (where the split is on) and RMSNorm, as the trace
+    counts them, are the eager step's (27, 27, 82), and the wrappers
+    count as many a call.  Logged, not gated: where the first and last
+    calls' traces lack the middle one's activities; every activity whose
+    count differs between the eager and replayed middle calls, with its
+    device ms."""
     import torch
     from repro_torch.kernels import mla_decode as MK
     from repro_torch.kernels import rmsnorm as RN
@@ -4219,20 +3600,28 @@ def check_graph_step(params, cfg, cache, toks, eager_logits) -> dict:
     want_traced = {"mla_decode_kernel": layers,
                    "mla_decode_combine_kernel": layers if split else 0,
                    "rmsnorm_kernel": 3 * layers + 1}
-    traces, counted = {}, {}
+    traces, counted, found = {}, {}, {}
     for name, fn in (("eager", eager), ("replayed", replayed)):
         RN.rmsnorm.launches = MK.mla_attention.launches = 0
-        traces[name] = traced_kernels(fn)
+        calls = traced_kernels(fn)
         counted[name] = {"mla_decode": MK.mla_attention.launches,
                          "rmsnorm": RN.rmsnorm.launches}
-    found = {k: decode_kernel_counts(t) for k, t in traces.items()}
+        check(len(calls) == TRACED_CALLS, f"[moonlight] the {name} trace "
+                                          f"split into {len(calls)} calls")
+        (traces[name], middle), ends = calls[1], (calls[0], calls[-1])
+        found[name] = decode_kernel_counts(traces[name])
+        log(f"[moonlight] {name} steps traced {TRACED_CALLS} to a session: "
+            f"the port's kernels {[decode_kernel_counts(t) for t, _ in calls]}"
+            f", activities {[len(o) for _, o in calls]}; the first call "
+            f"against the middle one: {trace_losses(middle, ends[0][1])}; "
+            f"the last: {trace_losses(middle, ends[1][1])}")
     check(found["replayed"] == found["eager"] == want_traced,
-          f"[moonlight] traced launches: replayed {found['replayed']}, "
-          f"eager {found['eager']}, not {want_traced}")
-    check(counted["replayed"] == counted["eager"]
-          == {"mla_decode": layers, "rmsnorm": 3 * layers + 1},
-          f"[moonlight] counted launches: replayed {counted['replayed']}, "
-          f"eager {counted['eager']}")
+          f"[moonlight] traced launches of the middle call: replayed "
+          f"{found['replayed']}, eager {found['eager']}, not {want_traced}")
+    per_call = {"mla_decode": layers, "rmsnorm": 3 * layers + 1}
+    check(all(c == {k: TRACED_CALLS * n for k, n in per_call.items()}
+              for c in counted.values()),
+          f"[moonlight] counted launches of {TRACED_CALLS} calls: {counted}")
     differ = sorted(
         ([name[:100]] + traces["eager"].get(name, [0, 0.0])
          + traces["replayed"].get(name, [0, 0.0])
@@ -4310,9 +3699,6 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     build_s = phase_build()
-    check_err = phase_check_kernel(dev)
-    lm_check_err = phase_check_lm_kernels(dev)
-    norm_bwd = phase_check_rmsnorm_backward(dev)
     from repro_torch.kernels import gemm as G
     G.gemm.launches = 0  # the main path (tune -> deploy) starts here
     rep, tune_s = phase_tune(dev)
@@ -4449,8 +3835,6 @@ def main() -> int:
                     "lm": {"arch": LM_ARCH, "dtype": "bfloat16",
                            "logits_rel_err_fp32": lm_rel32,
                            "logits_rel_err_bf16": lm_rel16,
-                           "flash_vs_fp32_p_max_abs_err":
-                               lm_check_err["flash_vs_fp32_p"],
                            **{k: v for k, v in serve.items()
                               if k != "launches"},
                            "profile": profile,
@@ -4464,7 +3848,6 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/gemm.cu",
         "replaces": "src/repro/kernels/gemm.py:48",
         "launches": launches,
-        "max_abs_err": check_err,
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": max(t_ops, t_bytes),
@@ -4487,9 +3870,7 @@ def main() -> int:
                  "implicit_bound_ms":
                      gemm16["forward"]["implicit"]["bound_ms"],
                  "library_ms":
-                     gemm16["forward"]["tuned"]["library_device_ms"],
-                 "max_abs_err": max(r["max_abs_err"]
-                                    for r in gemm16["rows"])},
+                     gemm16["forward"]["tuned"]["library_device_ms"]},
         "drivers_launches": drivers["launches"]["gemm"],
         **{f"{k}_launches": ph["launches"]["gemm"]
            for k, ph in mesh_phases.items()},
@@ -4499,7 +3880,6 @@ def main() -> int:
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": sources[name],
         "launches": tot["launches"],
-        "max_abs_err": lm_check_err[name],
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -4512,9 +3892,7 @@ def main() -> int:
            for kind, f in families.items() if name in f["kernels"]},
         **({"train_launches": train["rmsnorm_launches"],
             "train_audio_launches": train_audio["rmsnorm_launches"],
-            "train": dict(train["rmsnorm_time"], max_abs_err=norm_bwd[
-                "forward_max_abs_err"]),
-            "backward_max_abs_err": norm_bwd["backward_max_abs_err"],
+            "train": train["rmsnorm_time"],
             **{f"train_{k}_launches": f["rmsnorm_launches"]
                for k, f in train_fam.items()},
             **{f"train_{k}": f["rmsnorm_time"]

@@ -30,6 +30,10 @@ from typing import Callable, Dict, Iterable, List
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
+# The card every kernel is built for (sm_90a): an H100 SXM, whose SMs the
+# launch geometries fill (GEMM split-K, the flash and MLA KV splits, the
+# RMSNorm grid)
+SM_COUNT = 132
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -44,11 +44,10 @@ SMEM_BUDGET = 100 * 1024             # bf16: two blocks an SM (227 KB each)
 SM_SMEM_BYTES = 228 * 1024
 BLOCK_SMEM_RESERVED = 1024
 F32_MIN_WARPS = 8
-# fp32 KV split (kv_split): the H100 SXM's SMs; a run's KV tiles, at
-# least; split where the longest query tile holds SPLIT_RATIO times a block
-# slot's mean share of the KV tiles or more; runs of a slot's share /
-# SLOT_RUNS (measured on the fp32 gates' shapes: PERF.md, PR 25)
-SM_COUNT = 132
+# fp32 KV split (kv_split): a run's KV tiles, at least; split where the
+# longest query tile holds SPLIT_RATIO times a block slot's mean share of
+# the KV tiles or more; runs of a slot's share / SLOT_RUNS (measured on
+# the fp32 gates' shapes: PERF.md's kernel table)
 MIN_KV_CHUNK = 2
 SPLIT_RATIO = 2
 SLOT_RUNS = 2
@@ -161,7 +160,7 @@ def kv_split(geom: RunGeometry, heads: int, s: int, causal: bool,
     lengths = [hi - lo + 1 for lo, hi in (
         kv_tile_range(t * geom.bq, geom.bq, geom.bk, s, causal, window)
         for t in range(n_q))]
-    slots = SM_COUNT * (geom.warps_per_sm * 32 // geom.threads)
+    slots = _build.SM_COUNT * (geom.warps_per_sm * 32 // geom.threads)
     work = heads * sum(lengths)
     if heads * n_q >= slots or max(lengths) * slots < SPLIT_RATIO * work:
         return geom

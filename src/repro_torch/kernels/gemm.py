@@ -29,10 +29,10 @@ once on ``gemm.launches`` (with the split-K sum, two kernels a call).
 ``conv`` runs a bf16 conv as the same kernel in its implicit mode, which
 gathers im2col's patch matrix from the NHWC activation in its own loads
 instead of reading it from memory (:func:`implicit_ok` says which convs
-it takes); it counts on ``gemm.launches`` and ``gemm.implicit_launches``,
-and ``gemm.last_geometry["implicit"]`` says which of the two ran.  For
-CPU tensors, or with ``use_kernel=False``, it runs :func:`gemm_plain`,
-which walks the same run geometry in PyTorch, slices included.  As in the
+it takes); it counts on ``gemm.launches`` and, as an implicit launch,
+on ``gemm.implicit_launches``.  For CPU tensors, or with
+``use_kernel=False``, it runs :func:`gemm_plain`, which walks the same
+run geometry in PyTorch, slices included.  As in the
 reference, ``out_dtype`` (fp32 or bf16) sets C's dtype, a's by default;
 an fp32 product written in bf16 takes the workspace and the summing
 kernel even when K is not cut, which round each sum once.
@@ -58,7 +58,6 @@ BK_TEMPLATES = (16, 32)        # fp32
 BF16_BK_TEMPLATES = (32, 64)   # bf16: 64 or 128 bytes a tile row
 BF16_STAGES = 3                # the bf16 kernel's cp.async ring
 SMEM_BUDGET = 100 * 1024  # shared memory of a block: two blocks an SM
-SM_COUNT = 132            # SMs of an H100 SXM, the card the kernel targets
 BLOCKS_PER_SM = 2         # split-K aims at this many blocks an SM
 MIN_SLICE_STEPS = 4       # no split-K slice is cut shorter (bk steps)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -150,9 +149,10 @@ def split_k_for(tiles: int, steps: int) -> int:
     when the tiles fill the SMs; else about BLOCKS_PER_SM blocks an SM,
     with no slice under MIN_SLICE_STEPS steps.  The count is that of the
     slices :meth:`RunGeometry.k_slices` cuts, none of them empty."""
-    if tiles >= SM_COUNT:
+    if tiles >= _build.SM_COUNT:
         return 1
-    want = min(BLOCKS_PER_SM * SM_COUNT // tiles, steps // MIN_SLICE_STEPS)
+    want = min(BLOCKS_PER_SM * _build.SM_COUNT // tiles,
+               steps // MIN_SLICE_STEPS)
     if want <= 1:
         return 1
     return -(-steps // -(-steps // want))
@@ -280,8 +280,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
         if geom.vec and (a.data_ptr() | b.data_ptr()) % 16:
             geom = dataclasses.replace(geom, vec=False)  # unaligned views
     gemm.last_geometry = {"requested": dataclasses.asdict(config),
-                          "run": dataclasses.asdict(geom),
-                          "implicit": False}
+                          "run": dataclasses.asdict(geom)}
     if not on_kernel:
         return gemm_plain(a, b, geom, out_dtype)
     return _launch(
@@ -338,8 +337,7 @@ def conv(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
     m, n, k = b * oh * ow, co, kh * kw * ci
     geom = legalize(config, m, n, k, x.dtype)
     gemm.last_geometry = {"requested": dataclasses.asdict(config),
-                          "run": dataclasses.asdict(geom),
-                          "implicit": True}
+                          "run": dataclasses.asdict(geom)}
     out = _launch(
         lambda c, ws, stream: _lib().repro_gemm_conv(
             x.data_ptr(), w.data_ptr(), c, ws, b, h, wd, ci, co, kh, kw,

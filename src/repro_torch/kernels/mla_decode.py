@@ -33,7 +33,6 @@ from repro_torch.kernels import _build
 
 HEADS, LATENT, ROPE = 16, 512, 64    # the widths the kernel is built for
 BK = 32                              # cache positions a tile
-SM_COUNT = 132                       # H100 SXM
 BLOCKS_PER_SM = 2                    # 93,440 bytes of shared memory each
 WAVES = 2                            # of blocks the split aims to fill
 
@@ -45,7 +44,7 @@ def kv_split(batch: int, kv_len: int) -> Tuple[int, int]:
     cache is long enough.  The kernel takes ``splits``; a shorter
     sequence's blocks take shorter runs."""
     tiles = -(-kv_len // BK)
-    want = -(-WAVES * BLOCKS_PER_SM * SM_COUNT // batch)
+    want = -(-WAVES * BLOCKS_PER_SM * _build.SM_COUNT // batch)
     splits = max(1, min(tiles, want))
     chunk = -(-tiles // splits)
     return chunk, -(-tiles // chunk)

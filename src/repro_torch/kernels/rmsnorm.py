@@ -37,9 +37,8 @@ WARPS_PER_ROW = 8              # warps a row at most
 VEC_SLOTS = (1, 2, 4, 6, 8)    # 16-byte chunks a lane: the vector templates
 SCALAR_SLOTS = 32              # values a lane holds in the scalar template
 ROWS_PER_BLOCK = 4             # rows a block where a row is one warp
-SM_COUNT = 132                 # SMs of an H100 SXM, the card the kernel targets
 SM_THREADS, SM_BLOCKS = 2048, 32   # resident on one sm_90 SM at most
-SPREAD_ROWS = 2 * SM_COUNT     # up to these rows, a row spreads over warps
+SPREAD_ROWS = 2 * _build.SM_COUNT  # up to these rows, a row spreads over warps
 MAX_D = WARP * WARPS_PER_ROW * SCALAR_SLOTS   # 8192: any template holds it
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -102,13 +101,13 @@ def legalize(d: int, rows: int, dtype: torch.dtype = torch.float32,
       6).
     - Rows a block: ROWS_PER_BLOCK where a row is one warp, else one (the
       block's warps meet in one shared-memory step).
-    - Grid: a block for each rows_per_block rows, capped at SM_COUNT times
-      the blocks resident on an SM; the kernel's row loop walks what the
-      cap leaves.
+    - Grid: a block for each rows_per_block rows, capped at
+      ``_build.SM_COUNT`` times the blocks resident on an SM; the kernel's
+      row loop walks what the cap leaves.
     """
     threads, vec, slots = _row_layout(d, dtype, aligned, rows <= SPREAD_ROWS)
     rpb = min(ROWS_PER_BLOCK, rows) if threads == WARP else 1
-    cap = SM_COUNT * min(SM_BLOCKS, SM_THREADS // (rpb * threads))
+    cap = _build.SM_COUNT * min(SM_BLOCKS, SM_THREADS // (rpb * threads))
     return RunGeometry(rows_per_block=rpb, threads=threads, vec=vec,
                        slots=slots, grid=min(-(-rows // rpb), cap))
 

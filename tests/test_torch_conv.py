@@ -138,9 +138,8 @@ def test_implicit_rule_needs_whole_aligned_chunks(case):
 def test_cpu_conv_takes_the_explicit_path(dtype):
     """On CPU tensors a conv the rule would take on the card (CI 16, CO 24)
     still runs im2col + the GEMM's plain version: no launch, no implicit
-    count, ``last_geometry`` says so; fp32 matches the reference's conv,
-    bf16 the explicit path's bits; ``gemm.conv`` itself refuses CPU
-    tensors."""
+    count; fp32 matches the reference's conv, bf16 the explicit path's
+    bits; ``gemm.conv`` itself refuses CPU tensors."""
     x, w = _xw(3, seed=21, shape=(2, 11, 11, 16), co=24)
     tx, tw = torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype)
     cfg = TG.GemmConfig(32, 32, 64)
@@ -148,7 +147,6 @@ def test_cpu_conv_takes_the_explicit_path(dtype):
     got = TO.conv2d(tx, tw, 2, 1, cfg)
     assert (TG.gemm.launches, TG.gemm.implicit_launches) == (launches,
                                                              implicit)
-    assert TG.gemm.last_geometry["implicit"] is False
     assert got.dtype == dtype and got.shape == (2, 6, 6, 24)
     patches, (oh, ow) = TO.im2col(tx, 3, 3, 2, 1)
     assert torch.equal(got, TG.gemm(patches, tw.reshape(-1, 24), cfg)

@@ -1,12 +1,13 @@
 """The bf16 GEMM's implicit mode on the card: a conv whose patches the
 kernel gathers from the NHWC activation in its own loads gives the same
 bits as im2col + the GEMM at the same ``GemmConfig``, on every conv of
-VGG-16 D and ResNet-18 at the geometries their tuning records give, and
-on edge cases (strides, paddings, a 7x7 filter over 8 channels, M tails,
-split-K); the convs the rule leaves out take im2col, and the counters say
-which path ran.  Every test here carries the ``gpu`` marker and skips
-where torch sees no CUDA device; the file imports neither jax nor the
-reference package:
+VGG-16 D and ResNet-18 at the geometries their tuning records give, on
+ResNet-18's convs at batch 8 under every run geometry a tuning can pick,
+and on edge cases (strides, paddings, a 7x7 filter over 8 channels, M
+tails, split-K); the convs the rule leaves out take im2col, and the
+counters say which path ran.  Every test here carries the ``gpu`` marker
+and skips where torch sees no CUDA device; the file imports neither jax
+nor the reference package:
 
     python -m pytest -q -m gpu tests/test_torch_conv_gpu.py
 """
@@ -47,6 +48,19 @@ def _tuned_cases():
                                       s.stride, s.pad, cfg,
                                       id=f"{model}-{s.name}"))
     return cases
+
+
+def _batch8_cases():
+    """ResNet-18's distinct convs at batch 8 under each BM template: every
+    run geometry a tuning of them can ask for (the knobs round block_n and
+    block_k past every BN and BK template, so tile_m alone picks it)."""
+    specs = {}
+    for s in conv_specs("resnet-18"):
+        specs.setdefault((s.h, s.w, s.ci, s.co, s.kh, s.stride, s.pad),
+                         s.name)
+    return [pytest.param(8, *shape, TG.GemmConfig(bm),
+                         id=f"resnet-18-b8-{name}-bm{bm}")
+            for shape, name in specs.items() for bm in TG.BM_TEMPLATES]
 
 
 # strides, paddings and filters beside the networks': a strided 1x1 on a
@@ -98,7 +112,6 @@ def _check(x, wt, stride, pad, cfg):
         got = ops.conv2d(x, wt, stride, pad, cfg)
         assert TG.gemm.launches == launches + 1
         assert TG.gemm.implicit_launches == implicit + taken
-        assert TG.gemm.last_geometry["implicit"] is taken
         want = _explicit(x, wt, stride, pad, cfg)
         assert TG.gemm.implicit_launches == implicit + taken
         conv = ref.conv2d_ref(x.float(), wt.float(), stride, pad)
@@ -112,7 +125,7 @@ def _check(x, wt, stride, pad, cfg):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,w,ci,co,k,stride,pad,cfg",
-                         _tuned_cases() + EDGE_CASES)
+                         _tuned_cases() + _batch8_cases() + EDGE_CASES)
 def test_implicit_conv_equals_im2col_on_card(b, h, w, ci, co, k, stride, pad,
                                              cfg):
     """Bit-identical to im2col + the GEMM at the same geometry; every conv
@@ -165,4 +178,5 @@ def test_forward_counts_implicit_launches_on_card(model, convs):
     torch.cuda.synchronize()
     assert TG.gemm.launches - launches == convs
     assert TG.gemm.implicit_launches - implicit == convs - 1
-    assert out.shape == (2, 1000) and bool(torch.isfinite(out).all())
+    assert out.shape == (2, 1000) and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())

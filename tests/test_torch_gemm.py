@@ -13,6 +13,7 @@ import torch
 from _torch_support import one_torch_thread  # noqa: F401
 from repro.core.task import conv_tasks as jax_conv_tasks
 from repro.kernels import gemm as JG
+from repro_torch.kernels import _build
 from repro_torch.kernels import gemm as TG
 
 # the reference's test_kernels shapes and configs
@@ -179,17 +180,18 @@ def test_split_k_rule():
     """No split at SM_COUNT tiles or more; below, about two blocks an SM,
     no slice under MIN_SLICE_STEPS steps; the slices cover K exactly in
     order, whole bk steps each but the last; the 8 ResNet-18 shapes."""
-    assert TG.split_k_for(TG.SM_COUNT, 1000) == 1
-    assert TG.split_k_for(TG.SM_COUNT + 40, 1000) == 1
-    assert TG.split_k_for(TG.SM_COUNT - 1, 1000) == 2
+    assert TG.split_k_for(_build.SM_COUNT, 1000) == 1
+    assert TG.split_k_for(_build.SM_COUNT + 40, 1000) == 1
+    assert TG.split_k_for(_build.SM_COUNT - 1, 1000) == 2
     assert TG.split_k_for(1, 7) == 1          # 7 steps: no 4-step slices
     for tiles in range(1, 200):
         for steps in (1, 3, 4, 8, 9, 36, 72, 100, 144, 1000):
             split = TG.split_k_for(tiles, steps)
             assert split >= 1
-            if tiles >= TG.SM_COUNT:
+            if tiles >= _build.SM_COUNT:
                 assert split == 1
-            assert tiles * split <= max(tiles, TG.BLOCKS_PER_SM * TG.SM_COUNT)
+            assert tiles * split <= max(tiles,
+                                        TG.BLOCKS_PER_SM * _build.SM_COUNT)
             for bk in TG.BK_TEMPLATES:
                 for k in (steps * bk, steps * bk - bk // 2):
                     if k < 1:
@@ -321,8 +323,7 @@ def test_plain_version_walks_tails_and_records_geometry():
         "requested": {"block_m": 16, "block_n": 32, "block_k": 16,
                       "parallel_m": False, "parallel_n": True},
         "run": {"bm": 16, "bn": 32, "bk": 16, "split_k": 1, "vec": False,
-                "dtype": "float32"},
-        "implicit": False}
+                "dtype": "float32"}}
     geom = TG.RunGeometry(16, 32, 16)
     np.testing.assert_allclose(TG.gemm_plain(ta, tb, geom).numpy(),
                                a @ b, rtol=1e-5, atol=1e-5)

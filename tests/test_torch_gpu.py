@@ -1,11 +1,13 @@
 """The port on the card: the Hopper GEMM, RMSNorm and flash-attention
-kernels against their plain versions with their launch counters, the
-tune -> deploy path, the LM's prefill and decode launch counts on CUDA
-tensors, and training on the card (the RMSNorm Function's backward, a
-training step's launch counts, the embedding's NaN fill).  Every test
-here carries the ``gpu`` marker and skips where torch sees no CUDA
-device.  This file imports neither jax nor the reference package, so it
-also runs on a GPU machine that has only the port's dependencies:
+kernels against their plain versions with their launch counters, at the
+reference's test shapes and at every layout and template the LM paths of
+``chip_smoke.py`` run, the tune -> deploy path, the LM's prefill and
+decode launch counts on CUDA tensors, and training on the card (the
+RMSNorm Function's backward, a training step's launch counts, the
+embedding's NaN fill).  Every test here carries the ``gpu`` marker and
+skips where torch sees no CUDA device.  This file imports neither jax
+nor the reference package, so it also runs on a GPU machine that has
+only the port's dependencies:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -14,6 +16,9 @@ import dataclasses
 import pytest
 import torch
 
+from _lm_workloads import (fp32_gate_calls, lm_flash_geometries,
+                           lm_rmsnorm_layouts, served_flash_cases,
+                           served_norm_shapes)
 from _torch_support import require_cuda
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import gemm as TG
@@ -27,6 +32,19 @@ SHAPES = [(8, 8, 8), (100, 70, 90), (128, 128, 128), (1, 256, 33),
           (6272, 576, 128), (300, 147, 64), (77, 129, 33)]
 CONFIGS = [(32, 32, 32, True, True), (128, 128, 128, True, True),
            (16, 64, 128, False, True), (8, 128, 256, True, False)]
+# ResNet-18's 8 conv GEMMs at batch 8, conv1 to conv8b
+RESNET18_B8 = [(100352, 147, 64), (25088, 576, 64), (6272, 576, 128),
+               (6272, 1152, 128), (1568, 1152, 256), (1568, 2304, 256),
+               (392, 2304, 512), (392, 4608, 512)]
+# ((M, K, N), GemmConfig args): every shape under every config; ResNet-18
+# at batch 8 under each BM template, which spans the run geometries its
+# tuning can ask for there (the knobs round block_n and block_k up to
+# 128 or more, past every BN and BK template, so tile_m alone picks the
+# run tile); tuned tiles at conv1's K 147 and at K 129 and 1029 with N 33
+PAIRS = ([(mkn, cfg) for mkn in SHAPES for cfg in CONFIGS]
+         + [(mkn, (bm,)) for mkn in RESNET18_B8 for bm in TG.BM_TEMPLATES]
+         + [((1568, 147, 64), (128, 64, 128)), ((257, 129, 33), (64, 32, 32)),
+            ((257, 1029, 33), (64, 32, 32))])
 
 
 @pytest.mark.gpu
@@ -39,19 +57,17 @@ def test_kernel_matches_plain_on_card(dtype, tol):
     fp32 sum once)."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for m, k, n in SHAPES:
-        for cfg in CONFIGS:
-            a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
-            b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
-            launches = TG.gemm.launches
-            got = TG.gemm(a, b, TG.GemmConfig(*cfg))
-            assert TG.gemm.launches == launches + 1
-            assert got.dtype == dtype and got.shape == (m, n)
-            want = TG.gemm(a, b, TG.GemmConfig(*cfg), use_kernel=False)
-            assert TG.gemm.launches == launches + 1
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max()
-            assert float(err) <= tol * float(want.float().abs().max())
+    for (m, k, n), cfg in PAIRS:
+        a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+        launches = TG.gemm.launches
+        got = TG.gemm(a, b, TG.GemmConfig(*cfg))
+        assert TG.gemm.launches == launches + 1
+        assert got.dtype == dtype and got.shape == (m, n)
+        want = TG.gemm(a, b, TG.GemmConfig(*cfg), use_kernel=False)
+        assert TG.gemm.launches == launches + 1
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= tol, ((m, k, n), cfg)
 
 
 @pytest.mark.gpu
@@ -64,33 +80,28 @@ def test_kernel_out_dtype_matches_plain_on_card(src, dst, tol):
     product written in fp32; one count a call."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for m, k, n in SHAPES:
-        for cfg in CONFIGS[:2]:
-            a = torch.randn(m, k, generator=gen, device="cuda").to(src)
-            b = torch.randn(k, n, generator=gen, device="cuda").to(src)
-            launches = TG.gemm.launches
-            got = TG.gemm(a, b, TG.GemmConfig(*cfg), out_dtype=dst)
-            assert TG.gemm.launches == launches + 1
-            assert got.dtype == dst and got.shape == (m, n)
-            want = TG.gemm(a, b, TG.GemmConfig(*cfg), out_dtype=dst,
-                           use_kernel=False)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max()
-            assert float(err) <= tol * float(want.float().abs().max())
+    for (m, k, n), cfg in PAIRS:
+        a = torch.randn(m, k, generator=gen, device="cuda").to(src)
+        b = torch.randn(k, n, generator=gen, device="cuda").to(src)
+        launches = TG.gemm.launches
+        got = TG.gemm(a, b, TG.GemmConfig(*cfg), out_dtype=dst)
+        assert TG.gemm.launches == launches + 1
+        assert got.dtype == dst and got.shape == (m, n)
+        want = TG.gemm(a, b, TG.GemmConfig(*cfg), out_dtype=dst,
+                       use_kernel=False)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= tol, ((m, k, n), cfg)
 
 
 # bf16 on the tensor-core kernel: the 8 ResNet-18 shapes at batch 8 under
 # GemmConfig() (split-K 4-16 on the deep ones; conv1's K 147, the scalar
-# copies), then split-K with a short last slice, K % 8 != 0 and N % 8 !=
-# 0 under split-K, and a tile of one row
-BF16_CASES = [((100352, 147, 64), (128, 128, 128)),
-              ((25088, 576, 64), (128, 128, 128)),
-              ((6272, 576, 128), (128, 128, 128)),
-              ((6272, 1152, 128), (128, 128, 128)),
-              ((1568, 1152, 256), (128, 128, 128)),
-              ((1568, 2304, 256), (128, 128, 128)),
-              ((392, 2304, 512), (128, 128, 128)),
-              ((392, 4608, 512), (128, 128, 128)),
+# copies), bert-gemm's GEMMs (proj and pool, ffn_up, ffn_down), then
+# split-K with a short last slice, K % 8 != 0 and N % 8 != 0 under
+# split-K, and a tile of one row
+BF16_CASES = [(mkn, (128, 128, 128)) for mkn in RESNET18_B8] + [
+              ((128, 768, 768), (128, 128, 128)),
+              ((128, 768, 3072), (128, 128, 128)),
+              ((128, 3072, 768), (128, 128, 128)),
               ((100, 600, 70), (128, 128, 128)),
               ((257, 1029, 40), (64, 32, 64)),
               ((300, 2052, 36), (32, 64, 64)),
@@ -177,19 +188,22 @@ def _rel_err(got, want) -> float:
                                        (torch.bfloat16, 1e-2)], ids=str)
 def test_rmsnorm_kernel_matches_plain_on_card(dtype, tol):
     """The reference's test shapes, the LM's (prompt, 1536) at prompts of
-    200, 384 and 1000 rows, (8, 1536) and (1, 1536), 4096 rows, the
+    200, 384, 1000 and 1024 rows, (8, 1536) and (1, 1536), 4096 rows, the
     grid-stride loop of one-warp rows four to a block (9000, 128) and of
     wider rows (5000, 4096), the widest row, and a contiguous x whose
     data_ptr is not 16-byte aligned (the scalar template); fp32 and bf16
     weights.  At d 1536 a row spreads over 8 warps (fp32) or 6 (bf16) up
-    to SPREAD_ROWS rows, and takes 2 warps (fp32) or one (bf16) past them."""
+    to SPREAD_ROWS rows, and takes 2 warps (fp32) or one (bf16) past them.
+    Then each layout the LM paths run (``lm_rmsnorm_layouts``) at its
+    fewest and its most rows (``served_norm_shapes``)."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    ran = set()
     for shape in [(4, 64), (2, 100, 96), (1, 7, 33), (129, 256),
-                  (200, 1536), (384, 1536), (1000, 1536), (8, 1536),
-                  (1, 1536), (4096, 1536), (9000, 128), (5000, 4096),
-                  (3, TR.MAX_D), (5, 1536, "misaligned"),
-                  (3, TR.MAX_D, "misaligned")]:
+                  (200, 1536), (384, 1536), (1000, 1536), (1024, 1536),
+                  (8, 1536), (1, 1536), (4096, 1536), (9000, 128),
+                  (5000, 4096), (3, TR.MAX_D), (5, 1536, "misaligned"),
+                  (3, TR.MAX_D, "misaligned")] + served_norm_shapes(dtype):
         misaligned = shape[-1] == "misaligned"
         if misaligned:
             rows, d = shape[:2]
@@ -217,11 +231,16 @@ def test_rmsnorm_kernel_matches_plain_on_card(dtype, tol):
             if d in (128, 4096):
                 assert run["rows_per_block"] == (4 if d == 128 else 1)
                 assert run["grid"] * run["rows_per_block"] < rows
+            ran.add((d, run["vec"], run["threads"] // 32, run["slots"],
+                     run["rows_per_block"]))
             want = TR.rmsnorm(x, w, use_kernel=False)
             assert TR.rmsnorm.launches == launches + 1
             torch.cuda.synchronize()
             assert got.dtype == dtype and got.shape == x.shape
             assert _rel_err(got, want) <= tol, (shape, w_dtype, run)
+    served = {(d, *layout) for d, dt, *layout
+              in lm_rmsnorm_layouts() if dt == dtype}
+    assert served <= ran, served - ran
 
 
 @pytest.mark.gpu
@@ -234,16 +253,25 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol):
     template legalize can pick, q, k and v one value off 16 bytes or
     with D % 4 != 0 (the 4-byte / scalar copies), fp32 grids with and
     without the KV split (the split's two kernels count as one launch),
-    and a causal window of 4,096 over 4,608 tokens at head_dim 128.
-    Each call launches once and agrees with the plain version, which
-    walks the same geometry, to ``tol`` x max |plain|."""
+    and a causal window of 4,096 over 4,608 tokens at head_dim 128; then
+    each model's prefills at the shortest and the longest S of each
+    template the LM paths run (``served_flash_cases`` of
+    ``lm_flash_geometries``) and, in fp32, every shape the fp32 gates
+    launch (``fp32_gate_calls``).  Each call launches once and agrees with
+    the plain version, which walks the same geometry, to ``tol`` x max
+    |plain|; in bf16 it is also within 2^-7 x max |v| of the plain version
+    with P kept in fp32 (the reference kernel's arithmetic): P rounded to
+    bf16 moves a row by at most 2^-8 max |v|, and so does rounding the
+    output."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(2, 100, hq, hkv, 16, causal, window, 32, 32)
              for hq, hkv in ((4, 4), (4, 2), (6, 1))
              for causal, window in ((True, None), (False, None), (True, 32))]
-    cases += [(1, s, 2, 2, 8, True, None, bq, bk)
-              for s, bq, bk in ((3, 16, 16), (37, 16, 64), (70, 32, 16))]
+    cases += [(1, s, 2, 2, 8, causal, None, bq, bk)
+              for s, bq, bk, causal in ((3, 16, 16, True), (37, 16, 64, True),
+                                        (37, 16, 64, False),
+                                        (70, 32, 16, True))]
     cases += [(1, 1000, 12, 2, 128, True, None, 128, 128)]
     # every head_dim template with GQA, window 32 and ragged S; D 20 takes
     # the scalar copies (D % 8 != 0)
@@ -269,6 +297,12 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol):
     # below the band are skipped (fp32 unsplit at 6 heads, split at 2)
     cases += [(1, 4608, 6, 1, 128, True, 4096, 128, 128),
               (1, 4608, 2, 1, 128, True, 4096, 128, 128)]
+    name = str(dtype).removeprefix("torch.")
+    cases += served_flash_cases(name)
+    if dtype == torch.float32:
+        cases += [(b, s, hq, hkv, d, causal, window, bq, bk)
+                  for (b, s, hq, d), hkv, causal, window, bq, bk
+                  in sorted(fp32_gate_calls())]
     ran, split = set(), set()
     for b, s, hq, hkv, d, causal, window, bq, bk, *offset in cases:
         def draw(h):
@@ -291,8 +325,18 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol):
         assert got.dtype == dtype and got.shape == q.shape
         assert _rel_err(got, want) <= tol, (b, s, hq, hkv, d, causal, window,
                                             offset, run)
+        if dtype == torch.bfloat16:
+            exact = TF.flash_attention_plain(
+                q.float(), k.float(), v.float(), causal, window, d ** -0.5,
+                TF.RunGeometry(**run))
+            gap = float((got.float() - exact).abs().max())
+            assert gap <= 2 ** -7 * float(v.float().abs().max()), (
+                b, s, hq, hkv, d, causal, window, offset)
     if dtype == torch.float32:
         assert ran >= set(templates) and split == {True, False}
+    served = {(bq, bk, dp) for bq, bk, dp, dt
+              in lm_flash_geometries() if dt == name}
+    assert served <= ran, served - ran
 
 
 @pytest.mark.gpu
@@ -396,13 +440,17 @@ def test_live_serve_tune_on_card_launch_counts():
                                        (torch.bfloat16, 1e-2)], ids=str)
 def test_rmsnorm_backward_matches_plain_on_card(dtype, tol):
     """The RMSNorm Function on CUDA: its forward is the kernel (one launch,
-    counted), its (dx, dw) within ``tol`` of max |grad| of autograd
-    through ``rmsnorm_plain`` on the fp32 values of the same inputs, at a
-    training shape and a serve shape (in bf16, autograd through the bf16
-    plain version would sum its 128-row tiles' dw in bf16)."""
+    counted) and within ``tol`` of max |out| of ``rmsnorm_plain`` on the
+    same inputs, its (dx, dw) within ``tol`` of max |grad| of autograd
+    through ``rmsnorm_plain`` on the fp32 values of the same inputs, at
+    qwen2-1.5b's training shapes (2048 and 8192 rows), a serve shape, and
+    the MoE and recurrent families' training steps at d 2048 (in bf16,
+    autograd through the bf16 plain version would sum its 128-row tiles'
+    dw in bf16)."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for shape in ((2048, 1536), (8, 1536), (3, 5, 96)):
+    for shape in ((2048, 1536), (8192, 1536), (8, 1536), (3, 5, 96),
+                  (4096, 2048), (1024, 2048)):
         x0 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         w0 = torch.randn(shape[-1], generator=gen, device="cuda").to(dtype)
         g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -410,6 +458,8 @@ def test_rmsnorm_backward_matches_plain_on_card(dtype, tol):
         launches = TR.rmsnorm.launches
         out = TR.rmsnorm(x, w)
         assert TR.rmsnorm.launches == launches + 1
+        assert out.dtype == dtype
+        assert _rel_err(out.detach(), TR.rmsnorm_plain(x0, w0)) <= tol, shape
         dx, dw = torch.autograd.grad(out, (x, w), g)
         x2, w2 = (t.float().clone().requires_grad_(True)
                   for t in (x0, w0))
@@ -417,6 +467,7 @@ def test_rmsnorm_backward_matches_plain_on_card(dtype, tol):
                                      g.float())
         assert TR.rmsnorm.launches == launches + 1
         torch.cuda.synchronize()
+        assert dx.dtype == dw.dtype == dtype
         assert _rel_err(dx, px) <= tol and _rel_err(dw, pw) <= tol, shape
 
 

@@ -130,6 +130,7 @@ def _python_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tests", "_lm_workloads.py")
 
 
 def test_sources_never_import_jax_or_repro():

@@ -12,7 +12,7 @@ import torch
 
 from _torch_support import one_torch_thread  # noqa: F401
 from repro.kernels import rmsnorm as JR
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels import rmsnorm as TR
 
 # the reference's test shapes, then the widest row the kernel takes
@@ -177,7 +177,7 @@ def test_grid_is_capped_and_covers_every_row(d, dtype):
         assert block <= 256
         assert g.rows_per_block == (min(TR.ROWS_PER_BLOCK, rows)
                                     if g.warps_per_row == 1 else 1)
-        cap = TR.SM_COUNT * min(TR.SM_BLOCKS, TR.SM_THREADS // block)
+        cap = _build.SM_COUNT * min(TR.SM_BLOCKS, TR.SM_THREADS // block)
         assert 1 <= g.grid <= cap
         assert (g.grid - 1) * g.rows_per_block < rows  # no idle block
         step = g.grid * g.rows_per_block
