@@ -562,11 +562,18 @@ def tuned_configs(rep) -> tuple:
 
 def resnet_setup(dev):
     """ResNet-18's conv specs, each layer's task name, the seeded weights
-    and the 224x224 batch-8 input that every deploy phase runs."""
+    with seeded nonzero conv biases (``init_params`` makes them 0, which
+    would leave the GEMM's epilogue bias unchecked) and the 224x224
+    batch-8 input that every deploy phase runs."""
     import torch
     from repro_torch.models import cnn
     specs, layer_task = resnet_layers()
     net = cnn.init_params(SEED, "resnet-18", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    with torch.no_grad():
+        for bias in net.conv_b:
+            bias.copy_(0.1 * torch.randn(bias.shape, generator=gen,
+                                         device=dev))
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn((BATCH, 224, 224, 3), generator=gen, device=dev)
     return specs, layer_task, net, x
@@ -766,15 +773,20 @@ def phase_time_bf16(dev, per_shape) -> dict:
 def time_bf16_convs(dev, per_shape, checked) -> list:
     """``[time bf16]``'s rows of the implicit mode: ``gemm.conv`` at each
     ResNet-18 conv shape of batch 8 that it takes (all but conv1's) under
-    the tuned geometry, on seeded card tensors.  Its output is held
-    against the plain version over im2col at BF16_TOL and must equal
-    im2col + the GEMM at the same geometry bit for bit; the launch must
-    count once on ``gemm.implicit_launches``.  Timed by ``device_ms``
-    beside one cuDNN bf16 conv (``F.conv2d`` on the NHWC tensors as a
-    channels-last view), the plain version by CUDA events; the bound
-    reads x, the filter and C once each (the patches are never in
-    memory) against 2 M N K operations.  Adds each run's
-    :func:`geometry_key` to ``checked``."""
+    the tuned geometry, on seeded card tensors, with the forward's
+    epilogue: a seeded bias and ReLU, and a residual of the output's shape
+    where the shape's task holds a block-b conv (the skip's add).  Its
+    output must equal bit for bit the kernel's own fp32 output over
+    im2col at the same geometry with the epilogue applied once and then
+    rounded, and im2col + the GEMM with the same epilogue; it is held
+    against the plain version with the same epilogue at BF16_TOL; the
+    launch must count once on ``gemm.implicit_launches`` and on
+    ``gemm.epilogue_launches``.  That call is timed by ``device_ms``
+    beside one cuDNN bf16 conv without an epilogue (``F.conv2d`` on the
+    NHWC tensors as a channels-last view), the plain version by CUDA
+    events; the bound reads x, the filter, the bias, the residual and C
+    once each (the patches are never in memory) against 2 M N K
+    operations.  Adds each run's :func:`geometry_key` to ``checked``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.task import conv_tasks
@@ -792,34 +804,55 @@ def time_bf16_convs(dev, per_shape, checked) -> list:
               * (2.0 / (kh * kw * ci)) ** 0.5).to(bf)
         if not G.implicit_ok(x, wt):   # conv1: the explicit rows hold it
             continue
-        before = G.gemm.implicit_launches
-        got = G.conv(x, wt, s, p, cfg)
-        check(G.gemm.implicit_launches == before + 1,
-              f"conv {t.name}: {G.gemm.implicit_launches - before} "
-              f"implicit launches, not 1")
-        run = G.gemm.last_geometry["run"]
-        patches, _ = im2col(x, kh, kw, s, p)
+        patches, (oh, ow) = im2col(x, kh, kw, s, p)
         wm = wt.reshape(kh * kw * ci, co)
         m, n, k = patches.shape[0], co, patches.shape[1]
+        bias = torch.randn(co, generator=gen, device=dev).to(bf)
+        res = (torch.randn((b, oh, ow, co), generator=gen, device=dev).to(bf)
+               if any(name.endswith("b") for name in t.layer_names)
+               else None)
+        res_mn = None if res is None else res.view(m, n)
+        epi = "bias+residual+relu" if res is not None else "bias+relu"
+        before = G.gemm.implicit_launches, G.gemm.epilogue_launches
+        got = G.conv(x, wt, s, p, cfg, bias=bias, residual=res, relu=True)
+        check((G.gemm.implicit_launches, G.gemm.epilogue_launches) ==
+              (before[0] + 1, before[1] + 1),
+              f"conv {t.name}: {G.gemm.implicit_launches - before[0]} "
+              f"implicit and {G.gemm.epilogue_launches - before[1]} "
+              f"epilogue launches, not 1 and 1")
+        run = G.gemm.last_geometry["run"]
         got = got.reshape(m, n)
-        want, plain_ms = events_ms(lambda: G.gemm(patches, wm, cfg,
-                                                  use_kernel=False))
+        fused = (G.gemm(patches, wm, cfg, out_dtype=torch.float32)
+                 + bias.float())
+        if res is not None:
+            fused = fused + res_mn.float()
+        check(torch.equal(got, torch.relu(fused).to(bf)),
+              f"implicit conv {t.name} {(m, n, k)} {run} {epi}: not the "
+              f"bits of the kernel's fp32 output with the epilogue rounded "
+              f"once")
+        want, plain_ms = events_ms(lambda: G.gemm(
+            patches, wm, cfg, use_kernel=False, bias=bias, residual=res_mn,
+            relu=True))
         _, rel = rel_err(got, want)
         check(got.dtype == bf and rel <= BF16_TOL,
-              f"implicit conv {t.name} {(m, n, k)} {run}: rel err "
+              f"implicit conv {t.name} {(m, n, k)} {run} {epi}: rel err "
               f"{rel:.3g}")
-        check(torch.equal(got, G.gemm(patches, wm, cfg)),
-              f"implicit conv {t.name} {(m, n, k)} {run}: not the bits "
-              f"of im2col + the GEMM")
+        check(torch.equal(got, G.gemm(patches, wm, cfg, bias=bias,
+                                      residual=res_mn, relu=True)),
+              f"implicit conv {t.name} {(m, n, k)} {run} {epi}: not the "
+              f"bits of im2col + the GEMM")
         checked.add(geometry_key(m, n, k, run, True))
         w_oihw = wt.permute(3, 2, 0, 1).contiguous()
-        dev_ms = device_ms(lambda: G.conv(x, wt, s, p, cfg))
+        dev_ms = device_ms(lambda: G.conv(x, wt, s, p, cfg, bias=bias,
+                                          residual=res, relu=True))
         lib_ms = device_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw,
                                             stride=s, padding=p))
         flops = 2.0 * m * n * k
-        nbytes = 2.0 * (x.numel() + k * n + m * n)
+        nbytes = 2.0 * (x.numel() + k * n + n + m * n
+                        + (0 if res is None else m * n))
         row = {"task": t.name, "M": m, "N": n, "K": k,
                "layers": t.multiplicity, "geometry": "implicit",
+               "epilogue": epi,
                "requested": [cfg.block_m, cfg.block_n, cfg.block_k],
                "run": [run["bm"], run["bn"], run["bk"]],
                "split_k": run["split_k"], "vec": run["vec"],
@@ -831,12 +864,13 @@ def time_bf16_convs(dev, per_shape, checked) -> list:
         rows.append(row)
         log(f"[time bf16] {t.name} conv {b}x{h}x{w}x{ci} -> {co} "
             f"{kh}x{kw}/{s} pad {p} M={m} N={n} K={k} x{t.multiplicity} "
-            f"implicit run={row['run']} split_k={row['split_k']}: device "
-            f"time {dev_ms:.4f} ms ({row['device_tflops']:.2f} TFLOP/s, "
-            f"{100 * row['bound_ms'] / dev_ms:.1f}% of bound), cuDNN bf16 "
-            f"conv {lib_ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); vs plain "
-            f"rel={rel:.3g}, bits of im2col + the GEMM")
+            f"implicit {epi} run={row['run']} split_k={row['split_k']}: "
+            f"device time {dev_ms:.4f} ms ({row['device_tflops']:.2f} "
+            f"TFLOP/s, {100 * row['bound_ms'] / dev_ms:.1f}% of bound), "
+            f"cuDNN bf16 conv (no epilogue) {lib_ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); vs plain rel={rel:.3g}, bits of the fp32 "
+            f"output with the epilogue and of im2col + the GEMM")
     return rows
 
 
@@ -876,13 +910,16 @@ def phase_deploy_bf16(dev, configs) -> dict:
                              G.implicit_ok(xs, w)))
     with torch.no_grad():
         G.gemm.launches = G.gemm.implicit_launches = 0   # the bf16 deploy
+        G.gemm.epilogue_launches = 0
         logits = net(x, configs)                         # path starts here
         torch.cuda.synchronize()
         launches = G.gemm.launches   # and ends here
         implicit = G.gemm.implicit_launches
-        check(launches == 17 and implicit == 16,
+        fused = G.gemm.epilogue_launches
+        check(launches == 17 and implicit == 16 and fused == 17,
               f"bf16 forward launched the kernel {launches} times "
-              f"({implicit} implicit), expected 17 (16)")
+              f"({implicit} implicit, {fused} with an epilogue), expected "
+              f"17 (16, 17)")
         plain = net(x, use_kernel=False)
         fwd_ms = cuda_ms(lambda: net(x, configs), reps=5)
         plain_ms = cuda_ms(lambda: net(x, use_kernel=False), reps=5)

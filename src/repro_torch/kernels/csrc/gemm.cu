@@ -22,6 +22,18 @@
 // splitk_sum_kernel then adds the slices in slice order and rounds each
 // sum once to C's type.  No atomics: the result is deterministic.
 //
+// The output epilogue, shared by every store of C: each fp32 value v of C
+// (row r, column c) becomes v + bias[c], then + residual[r, c], then
+// relu(v) with NaN kept, each step only where the launch asks for it, as
+// separate adds in that order (no FMA), and is rounded once to C's type.
+// bias (N) and residual (M, N, contiguous) are of C's type.  A conv's
+// bias, ReLU and a residual net's skip add thus cost no pass over the
+// activations.  The arguments are runtime values, uniform over a launch,
+// read only in the store: the tile kernels apply the epilogue where they
+// write C, and write raw fp32 partials where they write the workspace, whose
+// sum kernel then applies it after the sum.  A launch without one stores
+// what the plain GEMM stores.
+//
 // bf16 (gemm_bf16_kernel): what the TPU kernel computes, bf16 tiles into
 // an fp32 accumulator.  What bounds it on an H100: bytes.  The ResNet-18
 // im2col products at batch 8 do 45-212 FLOP per byte of bf16 operands,
@@ -101,8 +113,10 @@
 // 32 to 256; dynamic shared memory 2 * BK * ((BM + 4) + BN) * 4 bytes, at
 // most 66,560.  bf16: BK in {32, 64} (64 or 128 bytes a row), for each
 // VEC, and the implicit mode beside VEC, 64 to 256 threads (a multiple of
-// BK / 8: a thread's A chunks share one column); dynamic shared memory kStages * (BM * (BK + 8) +
-// BK * (BN + 8)) * 2 bytes, at most 107,520 (128 x 128 x 64).  A launch
+// BK / 8: a thread's A chunks share one column); dynamic shared memory
+// kStages * (BM * (BK + 8) + BK * (BN + 8)) * 2 bytes, at most 107,520
+// (128 x 128 x 64), beside BN * 4 bytes of static shared memory for the
+// epilogue's bias (at most 512, within the budget's margin).  A launch
 // above 48 KB opts in once per template.  The wrapper maps a requested
 // GemmConfig onto these templates: per dimension, the largest template
 // not above min(requested block, problem size), else the smallest
@@ -172,6 +186,36 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ------------------------------------------------- the output epilogue
+
+// what a launch adds to each value of C before its rounding: null where
+// not given, relu 0 or 1 (see the top of the file)
+struct Epilogue {
+  const void* bias;      // (N) of C's type
+  const void* residual;  // (M, N) of C's type, contiguous
+  int relu;
+};
+
+// element i of an epilogue operand, bf16 where bf (else fp32), as fp32,
+// through the read-only path
+__device__ __forceinline__ float load_epi(const void* p, int64_t i, bool bf) {
+  if (bf)
+    return __bfloat162float(__ushort_as_bfloat16(
+        __ldg(static_cast<const unsigned short*>(p) + i)));
+  return __ldg(static_cast<const float*>(p) + i);
+}
+
+// v through the launch's epilogue, given its column's bias b and its
+// residual res (each read only where the launch gave it)
+__device__ __forceinline__ float epilogue(const Epilogue& e, float v, float b,
+                                          float res) {
+  if (e.bias) v = __fadd_rn(v, b);
+  if (e.residual) v = __fadd_rn(v, res);
+  if (e.relu)  // max.NaN: NaN stays NaN, as F.relu keeps it
+    asm("max.NaN.f32 %0, %0, 0f00000000;" : "+f"(v));
+  return v;
+}
+
 // ------------------------------------------- bf16: tensor cores
 
 constexpr int kStages = 3;  // the cp.async ring: two steps in flight
@@ -200,13 +244,14 @@ struct Conv {
 
 // One (BM, BN) tile of C, or of slice blockIdx.z's fp32 partial in the
 // workspace, over K range [z * k_slice, min(K, (z + 1) * k_slice)).  C is
-// bf16 when out_bf16, else fp32 (always fp32 for the workspace).  Where
-// IMPLICIT, A is the activation x of `cv` (read only then).
+// bf16 when out_bf16, else fp32 (always fp32 for the workspace, whose
+// launch passes no epilogue).  Where IMPLICIT, A is the activation x of
+// `cv` (read only then).
 template <int BM, int BN, int BK, bool VEC, bool IMPLICIT>
 __global__ void __launch_bounds__(Warps<BM, BN>::THREADS)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                  void* __restrict__ C, int M, int N, int K, int k_slice,
-                 int out_bf16, Conv cv) {
+                 int out_bf16, Conv cv, Epilogue epi) {
   static_assert(VEC || !IMPLICIT, "the implicit mode gathers 16 bytes");
   using W = Warps<BM, BN>;
   constexpr int NT = W::THREADS;
@@ -223,6 +268,13 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   const int kb = blockIdx.z * k_slice;
   const int ke = min(K, kb + k_slice);
   const int n_steps = (ke - kb + BK - 1) / BK;
+
+  // the epilogue's bias over the tile's columns (0 past N), staged before
+  // the K loop, whose barriers publish it to the store
+  __shared__ __align__(16) float bias_s[BN];
+  if (epi.bias)
+    for (int c = tid; c < BN; c += NT)
+      bias_s[c] = col0 + c < N ? load_epi(epi.bias, col0 + c, out_bf16) : 0.f;
 
   // IMPLICIT: chunk i of a step is A's row (tid + i * NT) / (BK / 8) and
   // column ac (the same for all of a thread's chunks, as NT is a multiple
@@ -409,8 +461,19 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 #pragma unroll
       for (int j = 0; j < NI; ++j) {
         const int c = col0 + wn * W::WN + j * 8 + 2 * t4;
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        const int64_t off = base + (int64_t)r * N + c;
+        const int64_t rc = (int64_t)r * N + c, off = base + rc;
+        float b0 = 0.f, b1 = 0.f, r0 = 0.f, r1 = 0.f;
+        if (epi.bias) {
+          const float2 b = *reinterpret_cast<const float2*>(bias_s + c - col0);
+          b0 = b.x;
+          b1 = b.y;
+        }
+        if (epi.residual) {
+          if (c < N) r0 = load_epi(epi.residual, rc, out_bf16);
+          if (c + 1 < N) r1 = load_epi(epi.residual, rc + 1, out_bf16);
+        }
+        const float v0 = epilogue(epi, acc[i][j][2 * h], b0, r0);
+        const float v1 = epilogue(epi, acc[i][j][2 * h + 1], b1, r1);
         if (out_bf16) {
           bf16* dst = static_cast<bf16*>(C) + off;
           if (VEC) {  // N % 8 == 0: c and c + 1 are in or out together
@@ -452,11 +515,13 @@ constexpr int f32_smem_bytes() {  // two stages of As [BK][BM+4], Bs [BK][BN]
 }
 
 // One (BM, BN) tile of C, or of slice blockIdx.z's partial in the
-// workspace, over K range [z * k_slice, min(K, (z + 1) * k_slice)).
+// workspace, over K range [z * k_slice, min(K, (z + 1) * k_slice)); the
+// epilogue where it writes C (the workspace's launch passes none).
 template <int BM, int BN, int BK, bool VEC>
 __global__ void __launch_bounds__(Micro<BM, BN>::THREADS)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                float* __restrict__ C, int M, int N, int K, int k_slice) {
+                float* __restrict__ C, int M, int N, int K, int k_slice,
+                Epilogue epi) {
   using U = Micro<BM, BN>;
   constexpr int TM = U::TM, TN = U::TN, NT = U::THREADS;
   constexpr int LDA = BM + 4;          // float4-aligned, conflict-free
@@ -604,8 +669,26 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
     __syncthreads();
   }
 
-  // output (i, j) of this thread: row (i/4) * BM/2 + 4 ty + i%4, column
-  // (j/4) * BN/2 + 4 tx + j%4
+  // the epilogue in place on this thread's outputs (i, j), row (i/4) *
+  // BM/2 + 4 ty + i%4 and column (j/4) * BN/2 + 4 tx + j%4, each column's
+  // bias loaded once; then the store of C
+  if (epi.bias || epi.residual || epi.relu) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = col0 + (j / 4) * (BN / 2) + tx * 4 + j % 4;
+      const float b =
+          epi.bias && c < N ? load_epi(epi.bias, c, false) : 0.f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = row0 + (i / 4) * (BM / 2) + ty * 4 + i % 4;
+        const float res =
+            epi.residual && r < M && c < N
+                ? load_epi(epi.residual, (int64_t)r * N + c, false)
+                : 0.f;
+        acc[i][j] = epilogue(epi, acc[i][j], b, res);
+      }
+    }
+  }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = row0 + (i / 4) * (BM / 2) + ty * 4 + i % 4;
@@ -646,16 +729,55 @@ __device__ __forceinline__ void cast_out(float4 v, bf16x4* o) {
   *o = bf16x4{__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
 }
 
+// whether a store of type O writes bf16
+template <typename O> constexpr bool kBf16 = false;
+template <> constexpr bool kBf16<bf16> = true;
+template <> constexpr bool kBf16<bf16x4> = true;
+
+// the column of element i of a C with `cols` columns (a 32-bit division
+// where i allows it)
+__device__ __forceinline__ int column(int64_t i, int cols) {
+  return i <= UINT32_MAX ? (int)((uint32_t)i % (uint32_t)cols)
+                         : (int)(i % cols);
+}
+
+// the epilogue on element i, in column c, of a C of type bf16 where bf
+__device__ __forceinline__ float finish_at(const Epilogue& e, float s,
+                                           int64_t i, int c, bool bf) {
+  return epilogue(e, s, e.bias ? load_epi(e.bias, c, bf) : 0.f,
+                  e.residual ? load_epi(e.residual, i, bf) : 0.f);
+}
+// ... on sum i of a C with `cols` columns: element i where V is float
+__device__ __forceinline__ float finish(const Epilogue& e, float s, int64_t i,
+                                        int cols, bool bf) {
+  return finish_at(e, s, i, e.bias ? column(i, cols) : 0, bf);
+}
+// ... elements 4i .. 4i + 3 where V is float4, each with its own column
+// (M * N % 4 == 0 does not make N % 4 == 0)
+__device__ __forceinline__ float4 finish(const Epilogue& e, float4 s,
+                                         int64_t i, int cols, bool bf) {
+  int c[4] = {0, 0, 0, 0};
+  if (e.bias) {
+    c[0] = column(4 * i, cols);
+    for (int q = 1; q < 4; ++q) c[q] = c[q - 1] + 1 == cols ? 0 : c[q - 1] + 1;
+  }
+  return make_float4(finish_at(e, s.x, 4 * i, c[0], bf),
+                     finish_at(e, s.y, 4 * i + 1, c[1], bf),
+                     finish_at(e, s.z, 4 * i + 2, c[2], bf),
+                     finish_at(e, s.w, 4 * i + 3, c[3], bf));
+}
+
 // C = sum over z of ws[z], in slice order (n elements of type V a slice),
-// each sum rounded once to C's type O
+// each sum through the epilogue and rounded once to C's type O
 template <typename V, typename O>
 __global__ void splitk_sum_kernel(const V* __restrict__ ws, O* __restrict__ c,
-                                  int64_t n, int split) {
+                                  int64_t n, int split, int cols,
+                                  Epilogue epi) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   V s = ws[i];
   for (int z = 1; z < split; ++z) s = add(s, ws[z * n + i]);
-  cast_out(s, c + i);
+  cast_out(finish(epi, s, i, cols, kBf16<O>), c + i);
 }
 
 // ---------------------------------------------------------------- launch
@@ -670,6 +792,7 @@ struct Args {
   cudaStream_t stream;
   bool implicit;  // bf16, vec: A gathered from the conv's x
   Conv conv;
+  Epilogue epi;  // applied where C is written
 };
 
 // above 48 KB a block's dynamic shared memory needs an opt-in; each
@@ -692,7 +815,8 @@ int launch_f32_tiles(const Args& a) {
   const bool to_ws = a.split > 1 || a.out_bf16;
   kernel<<<grid, Micro<BM, BN>::THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.a), static_cast<const float*>(a.b),
-      to_ws ? a.ws : static_cast<float*>(a.c), a.m, a.n, a.k, a.k_slice);
+      to_ws ? a.ws : static_cast<float*>(a.c), a.m, a.n, a.k, a.k_slice,
+      to_ws ? Epilogue{} : a.epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -705,11 +829,11 @@ void launch_sum(const Args& a) {
     const unsigned blocks = static_cast<unsigned>((mn / 4 + 255) / 256);
     splitk_sum_kernel<float4, O4><<<blocks, 256, 0, a.stream>>>(
         reinterpret_cast<const float4*>(a.ws), static_cast<O4*>(a.c),
-        mn / 4, a.split);
+        mn / 4, a.split, a.n, a.epi);
   } else {
     const unsigned blocks = static_cast<unsigned>((mn + 255) / 256);
     splitk_sum_kernel<float, O><<<blocks, 256, 0, a.stream>>>(
-        a.ws, static_cast<O*>(a.c), mn, a.split);
+        a.ws, static_cast<O*>(a.c), mn, a.split, a.n, a.epi);
   }
 }
 
@@ -736,7 +860,7 @@ int launch_bf16_tiles(const Args& a) {
   kernel<<<grid, Warps<BM, BN>::THREADS, smem, a.stream>>>(
       static_cast<const bf16*>(a.a), static_cast<const bf16*>(a.b),
       to_ws ? static_cast<void*>(a.ws) : a.c, a.m, a.n, a.k, a.k_slice,
-      !to_ws && a.out_bf16, a.conv);
+      !to_ws && a.out_bf16, a.conv, to_ws ? Epilogue{} : a.epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -802,19 +926,23 @@ bool bad_slices(int64_t k, int bk, int split, int k_slice) {
 // dtype (the operands') and out_dtype (C's): 0 = float32, 1 = bfloat16.
 // Split-K and vec as given; each slice but the last covers k_slice, a
 // multiple of bk; ws holds split * M * N floats when split > 1, or when
-// fp32 operands write a bf16 C.  Returns cudaGetLastError() after the
-// launches (0 on success), or -1 when the arguments name no template.
+// fp32 operands write a bf16 C.  bias (n) and residual (m, n,
+// contiguous), both of C's type, may be null, relu 0 or 1: the epilogue
+// at the top of the file.  Returns cudaGetLastError() after the launches
+// (0 on success), or -1 when the arguments name no template.
 extern "C" int repro_gemm(const void* a, const void* b, void* c, void* ws,
                           int m, int n, int k, int dtype, int out_dtype,
                           int bm, int bn, int bk, int split, int k_slice,
-                          int vec, void* stream) {
+                          int vec, const void* bias, const void* residual,
+                          int relu, void* stream) {
   if (bad_slices(k, bk, split, k_slice) || (out_dtype != 0 && out_dtype != 1))
     return -1;
   if ((split > 1 || (dtype == 0 && out_dtype == 1)) && ws == nullptr)
     return -1;
   const Args args{a, b, c, static_cast<float*>(ws), m, n, k, split,
                   k_slice, vec, out_dtype == 1,
-                  static_cast<cudaStream_t>(stream), false, Conv{}};
+                  static_cast<cudaStream_t>(stream), false, Conv{},
+                  Epilogue{bias, residual, relu != 0}};
   if (dtype == 0) return dispatch<true>(bm, bn, bk, args);
   if (dtype == 1) return dispatch<false>(bm, bn, bk, args);
   return -1;
@@ -825,13 +953,16 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c, void* ws,
 // implicit mode: the GEMM (M, N, K) = (batch * oh * ow, co, kh * kw * ci)
 // with A gathered from x.  ci % 8 == 0, co % 8 == 0 and 16-byte aligned x
 // and f (the VEC copies), x's pixels (batch * h * w) within int32 (the
-// kernel's pixel index); the rest as repro_gemm.  Returns -1 where these
-// do not hold.
+// kernel's pixel index); the rest, the epilogue too, as repro_gemm (C is
+// (batch * oh * ow, co), the residual of its shape).  Returns -1 where
+// these do not hold.
 extern "C" int repro_gemm_conv(const void* x, const void* f, void* c,
                                void* ws, int batch, int h, int w, int ci,
                                int co, int kh, int kw, int stride, int pad,
                                int out_dtype, int bm, int bn, int bk,
-                               int split, int k_slice, void* stream) {
+                               int split, int k_slice, const void* bias,
+                               const void* residual, int relu,
+                               void* stream) {
   if (stride < 1 || pad < 0 || batch < 1) return -1;
   const int oh = (h + 2 * pad - kh) / stride + 1;
   const int ow = (w + 2 * pad - kw) / stride + 1;
@@ -845,6 +976,7 @@ extern "C" int repro_gemm_conv(const void* x, const void* f, void* c,
   const Args args{x, f, c, static_cast<float*>(ws), (int)m, co, (int)k,
                   split, k_slice, 1, out_dtype == 1,
                   static_cast<cudaStream_t>(stream), true,
-                  Conv{h, w, ci, oh, ow, kw, stride, pad}};
+                  Conv{h, w, ci, oh, ow, kw, stride, pad},
+                  Epilogue{bias, residual, relu != 0}};
   return dispatch<false>(bm, bn, bk, args);
 }

@@ -37,6 +37,16 @@ reference, ``out_dtype`` (fp32 or bf16) sets C's dtype, a's by default;
 an fp32 product written in bf16 takes the workspace and the summing
 kernel even when K is not cut, which round each sum once.
 
+Both take an output epilogue, keyword-only: ``bias`` (N,), ``residual``
+(C's shape, contiguous), both of C's dtype, and ``relu``.  Each fp32 value
+of C becomes ``relu((acc + bias[col]) + residual[row, col])``, each part
+only where given, as separate adds in that order, NaN kept by the ReLU,
+before its one rounding to C's dtype (:func:`gemm_plain` does the same
+in PyTorch): a conv's bias, its ReLU and a residual net's skip add cost
+no pass of their own.  Under split-K the summing kernel applies it after
+the sum.  A launch with any of the three counts on
+``gemm.epilogue_launches``.
+
 The kernel is built at first use by :mod:`repro_torch.kernels._build`
 (``nvcc`` for ``sm_90a``, bound with ``ctypes``).
 """
@@ -194,11 +204,16 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, geom: RunGeometry,
-               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               out_dtype: Optional[torch.dtype] = None, *,
+               bias: Optional[torch.Tensor] = None,
+               residual: Optional[torch.Tensor] = None,
+               relu: bool = False) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch over the same run geometry: one
     (bm, bn) output tile at a time; for each K slice in order, its steps
     of bk in order into an fp32 partial; the partials summed in slice
-    order (the split-K sum kernel's order); tails by slicing; cast once to
+    order (the split-K sum kernel's order); tails by slicing; the
+    epilogue on the tile's fp32 total (``+ bias``, broadcast over rows,
+    then ``+ residual``, then ReLU, which keeps NaN); cast once to
     ``out_dtype`` (a's dtype by default)."""
     m, k = a.shape
     n = b.shape[1]
@@ -215,13 +230,47 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, geom: RunGeometry,
                     acc += torch.matmul(a[i:i + geom.bm, kk:ke].float(),
                                         b[kk:ke, j:j + geom.bn].float())
                 total = acc if total is None else total + acc
+            if bias is not None:
+                total = total + bias[j:j + geom.bn].float()
+            if residual is not None:
+                total = total + residual[i:i + geom.bm, j:j + geom.bn].float()
+            if relu:
+                total = torch.relu(total)
             out[i:i + geom.bm, j:j + geom.bn] = total.to(out_dtype)
     return out
 
 
-def _refuse_grad(*ts: torch.Tensor) -> None:
+def check_epilogue(bias: Optional[torch.Tensor],
+                   residual: Optional[torch.Tensor], shape: Tuple[int, ...],
+                   dtype: torch.dtype, device: torch.device) -> None:
+    """Raise unless ``bias`` is None or a contiguous (shape[-1],) tensor,
+    and ``residual`` None or a contiguous tensor of ``shape``, both of
+    ``dtype`` on ``device``: C's shape, dtype and device."""
+    for name, t, want in (("bias", bias, tuple(shape[-1:])),
+                          ("residual", residual, tuple(shape))):
+        if t is None:
+            continue
+        if t.dtype != dtype:
+            raise TypeError(f"the epilogue's {name} must be {dtype} (C's "
+                            f"dtype), got {t.dtype}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"the epilogue's {name} must have shape {want},"
+                             f" got {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"the epilogue's {name} is on {t.device}, C on "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"the epilogue's {name} must be contiguous")
+
+
+def _fused(bias, residual, relu) -> bool:
+    return bias is not None or residual is not None or bool(relu)
+
+
+def _refuse_grad(*ts: Optional[torch.Tensor]) -> None:
     # the kernel's output would carry no grad_fn: refuse, not cut
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
         raise RuntimeError(
             "the gemm kernel is forward-only (the reference kernel has no "
             "backward); call it under torch.no_grad() or on tensors that do "
@@ -230,11 +279,12 @@ def _refuse_grad(*ts: torch.Tensor) -> None:
 
 def _launch(call, geom: RunGeometry, m: int, n: int, k: int,
             dtype: torch.dtype, out_dtype: torch.dtype,
-            device: torch.device) -> torch.Tensor:
+            device: torch.device, fused: bool) -> torch.Tensor:
     """C (m, n) in ``out_dtype`` from ``call(c, ws, stream)``, a call of
     the library's entry given C's pointer, the workspace's (None where
     the geometry needs none) and the current stream; raises where the
-    launch fails, else counts it on ``gemm.launches``."""
+    launch fails, else counts it on ``gemm.launches``, and on
+    ``gemm.epilogue_launches`` where ``fused`` (it applies any epilogue)."""
     out = torch.empty((m, n), dtype=out_dtype, device=device)
     # the slices' fp32 partials, or fp32 tiles whose C the sum writes bf16
     use_ws = geom.split_k > 1 or (dtype == torch.float32
@@ -249,15 +299,24 @@ def _launch(call, geom: RunGeometry, m: int, n: int, k: int,
                            f"{(m, n, k)} {dtype} -> {out_dtype} geometry "
                            f"{geom}")
     gemm.launches += 1
+    gemm.epilogue_launches += fused
     return out
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor,
          config: GemmConfig = GemmConfig(),
          out_dtype: Optional[torch.dtype] = None,
-         use_kernel: bool = True) -> torch.Tensor:
-    """C = A @ B. a: (M, K), b: (K, N), float32 or bfloat16; C in
-    ``out_dtype`` (float32 or bfloat16; a's dtype when None).
+         use_kernel: bool = True, *, bias: Optional[torch.Tensor] = None,
+         residual: Optional[torch.Tensor] = None,
+         relu: bool = False) -> torch.Tensor:
+    """C = epilogue(A @ B). a: (M, K), b: (K, N), float32 or bfloat16; C
+    in ``out_dtype`` (float32 or bfloat16; a's dtype when None); ``bias``
+    (N,), ``residual`` (M, N) and ``relu`` the output epilogue (module
+    docstring), checked by :func:`check_epilogue`.
 
     CUDA tensors go through the Hopper kernel (or raise); CPU tensors, and
     ``use_kernel=False``, take the plain version of the same geometry."""
@@ -267,10 +326,11 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
         raise TypeError(f"gemm writes float32 or bfloat16, got {out_dtype}")
     m, k = a.shape
     n = b.shape[1]
+    check_epilogue(bias, residual, (m, n), out_dtype, a.device)
     geom = legalize(config, m, n, k, a.dtype)
     on_kernel = a.device.type != "cpu" and use_kernel
     if on_kernel:
-        _refuse_grad(a, b)
+        _refuse_grad(a, b, bias, residual)
         if a.device.type != "cuda":
             raise ValueError(f"gemm kernel runs on CUDA tensors, got "
                              f"{a.device}")
@@ -282,17 +342,21 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
     gemm.last_geometry = {"requested": dataclasses.asdict(config),
                           "run": dataclasses.asdict(geom)}
     if not on_kernel:
-        return gemm_plain(a, b, geom, out_dtype)
+        return gemm_plain(a, b, geom, out_dtype, bias=bias,
+                          residual=residual, relu=relu)
     return _launch(
         lambda c, ws, stream: _lib().repro_gemm(
             a.data_ptr(), b.data_ptr(), c, ws, m, n, k, _DTYPE_CODE[a.dtype],
             _DTYPE_CODE[out_dtype], geom.bm, geom.bn, geom.bk, geom.split_k,
-            geom.slice_width(k), int(geom.vec), stream),
-        geom, m, n, k, a.dtype, out_dtype, a.device)
+            geom.slice_width(k), int(geom.vec), _ptr(bias), _ptr(residual),
+            int(relu), stream),
+        geom, m, n, k, a.dtype, out_dtype, a.device,
+        _fused(bias, residual, relu))
 
 
 gemm.launches = 0
 gemm.implicit_launches = 0
+gemm.epilogue_launches = 0
 gemm.last_geometry = None
 
 
@@ -312,21 +376,26 @@ def implicit_ok(x: torch.Tensor, w: torch.Tensor) -> bool:
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
-         config: GemmConfig = GemmConfig()) -> torch.Tensor:
+         config: GemmConfig = GemmConfig(), *,
+         bias: Optional[torch.Tensor] = None,
+         residual: Optional[torch.Tensor] = None,
+         relu: bool = False) -> torch.Tensor:
     """The conv of NHWC ``x`` (B, H, W, CI) by HWIO ``w`` (KH, KW, CI, CO)
     as one launch of the bf16 kernel's implicit mode: the GEMM of im2col's
     (M, N, K) = (B*OH*OW, CO, KH*KW*CI) at ``legalize``'s run geometry,
-    its A gathered from x in the kernel's loads.  Bit-identical to
-    ``gemm(im2col(x), w.reshape(K, CO), config)``.  Takes what
-    :func:`implicit_ok` accepts, else raises; counts on ``gemm.launches``
-    and ``gemm.implicit_launches``.  Returns (B, OH, OW, CO) in bf16."""
+    its A gathered from x in the kernel's loads, then the epilogue
+    (``bias`` (CO,), ``residual`` (B, OH, OW, CO), ``relu``).
+    Bit-identical to ``gemm(im2col(x), w.reshape(K, CO), config, ...)``
+    with the same epilogue.  Takes what :func:`implicit_ok` accepts, else
+    raises; counts on ``gemm.launches`` and ``gemm.implicit_launches``
+    (and ``gemm.epilogue_launches``).  Returns (B, OH, OW, CO) in bf16."""
     if not implicit_ok(x, w):
         raise ValueError(
             f"the implicit conv takes contiguous, 16-byte aligned bf16 CUDA "
             f"tensors with CI % 8 == 0 and CO % 8 == 0, got x "
             f"{tuple(x.shape)} {x.dtype} on {x.device} and w "
             f"{tuple(w.shape)} {w.dtype}")
-    _refuse_grad(x, w)
+    _refuse_grad(x, w, bias, residual)
     b, h, wd, ci = x.shape
     kh, kw, _, co = w.shape
     oh = (h + 2 * pad - kh) // stride + 1
@@ -334,6 +403,7 @@ def conv(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
     if oh < 1 or ow < 1 or b < 1:
         raise ValueError(f"empty conv of {tuple(x.shape)} by {tuple(w.shape)}"
                          f" at stride {stride}, pad {pad}")
+    check_epilogue(bias, residual, (b, oh, ow, co), x.dtype, x.device)
     m, n, k = b * oh * ow, co, kh * kw * ci
     geom = legalize(config, m, n, k, x.dtype)
     gemm.last_geometry = {"requested": dataclasses.asdict(config),
@@ -342,8 +412,10 @@ def conv(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
         lambda c, ws, stream: _lib().repro_gemm_conv(
             x.data_ptr(), w.data_ptr(), c, ws, b, h, wd, ci, co, kh, kw,
             stride, pad, _DTYPE_CODE[x.dtype], geom.bm, geom.bn, geom.bk,
-            geom.split_k, geom.slice_width(k), stream),
-        geom, m, n, k, x.dtype, x.dtype, x.device)
+            geom.split_k, geom.slice_width(k), _ptr(bias), _ptr(residual),
+            int(relu), stream),
+        geom, m, n, k, x.dtype, x.dtype, x.device,
+        _fused(bias, residual, relu))
     gemm.implicit_launches += 1
     return out.reshape(b, oh, ow, co)
 
@@ -355,14 +427,14 @@ def build() -> str:
 
 
 def _bind(lib) -> None:
-    lib.repro_gemm.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    # ..., bias, residual, relu, stream
+    epilogue_and_stream = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p]
+    lib.repro_gemm.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + epilogue_and_stream)
     lib.repro_gemm.restype = ctypes.c_int
     lib.repro_gemm_conv.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + epilogue_and_stream)
     lib.repro_gemm_conv.restype = ctypes.c_int
 
 

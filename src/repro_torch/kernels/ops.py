@@ -49,22 +49,40 @@ def im2col(x: torch.Tensor, kh: int, kw: int, stride: int, pad: int
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
            config: GemmConfig = GemmConfig(),
-           use_kernel: bool = True) -> torch.Tensor:
-    """Conv on the tunable GEMM core. x: NHWC, w: HWIO.
+           use_kernel: bool = True, *, bias: Optional[torch.Tensor] = None,
+           residual: Optional[torch.Tensor] = None,
+           relu: bool = False) -> torch.Tensor:
+    """Conv on the tunable GEMM core. x: NHWC, w: HWIO; then the GEMM's
+    epilogue: ``+ bias`` (CO,), ``+ residual`` (the output's shape,
+    contiguous), ReLU, both of x's dtype (:func:`gemm.check_epilogue`).
 
     Where :func:`gemm.implicit_ok` holds (bf16 CUDA tensors, contiguous
     and aligned, CI and CO multiples of 8), the GEMM gathers the patches
     in its own loads (:func:`gemm.conv`); every other conv (a first conv
     of 3 channels, fp32, CPU tensors) runs as im2col + the GEMM.  Both
-    give the same bits at the same ``config``."""
-    if not use_kernel:
-        return ref.conv2d_ref(x, w, stride, pad)
-    if G.implicit_ok(x, w):
-        return G.conv(x, w, stride, pad, config)
-    b = x.shape[0]
+    give the same bits at the same ``config``, the epilogue applied to the
+    fp32 sum before its one rounding.  ``use_kernel=False`` applies it in
+    plain PyTorch to the reference conv's output."""
+    if use_kernel and G.implicit_ok(x, w):   # it checks the epilogue
+        return G.conv(x, w, stride, pad, config, bias=bias,
+                      residual=residual, relu=relu)
+    b, h, wd, _ = x.shape
     kh, kw, ci, co = w.shape
-    patches, (oh, ow) = im2col(x, kh, kw, stride, pad)
-    out = gemm(patches, w.reshape(kh * kw * ci, co), config)
+    oh = (h + 2 * pad - kh) // stride + 1
+    ow = (wd + 2 * pad - kw) // stride + 1
+    # the residual's NHWC shape, which the GEMM's (M, N) view would hide
+    G.check_epilogue(bias, residual, (b, oh, ow, co), x.dtype, x.device)
+    if not use_kernel:
+        out = ref.conv2d_ref(x, w, stride, pad)
+        if bias is not None:
+            out = out + bias
+        if residual is not None:
+            out = out + residual
+        return F.relu(out) if relu else out
+    patches, _ = im2col(x, kh, kw, stride, pad)
+    out = gemm(patches, w.reshape(kh * kw * ci, co), config, bias=bias,
+               residual=None if residual is None else residual.view(-1, co),
+               relu=relu)
     return out.reshape(b, oh, ow, co)
 
 

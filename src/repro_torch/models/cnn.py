@@ -3,7 +3,10 @@
 Every conv layer runs on the tunable GEMM (``kernels.ops.conv2d``): in bf16
 on the card, where the channels allow it (all but a first conv of 3), as
 the GEMM's implicit mode, which gathers the patches itself; otherwise as
-im2col + the GEMM.  So a tuned configuration is deployable on the model:
+im2col + the GEMM.  Each conv's bias, its ReLU and ResNet's skip add run
+in the GEMM's output epilogue, on the fp32 sum before its one rounding,
+so they cost no pass over the activations.  So a tuned configuration is
+deployable on the model:
 ``apply`` takes one ``GemmConfig`` per conv layer, the output of ARCO
 tuning.  Parameters live in a :class:`CNN` module; ``params_from_jax``
 loads the reference's ``init_params`` tree (converted to numpy) so both
@@ -91,38 +94,41 @@ def apply(params: CNN, x: torch.Tensor,
     specs = conv_specs(model)
     configs = configs or [GemmConfig()] * len(specs)
 
-    def conv(i, x, spec):
-        out = ops.conv2d(x, params.conv_w[i], spec.stride, spec.pad,
-                         configs[i], use_kernel)
-        return out + params.conv_b[i]
+    def conv(i, x, spec, residual=None):
+        """relu(conv + bias (+ residual)), all in the GEMM's epilogue."""
+        return ops.conv2d(x, params.conv_w[i], spec.stride, spec.pad,
+                          configs[i], use_kernel, bias=params.conv_b[i],
+                          residual=residual, relu=True)
 
     # max pools pad with -inf, as the reference's reduce_window
     if model == "alexnet":
         pool_after = {0, 1, 4}
         for i, s in enumerate(specs):
-            x = F.relu(conv(i, x, s))
+            x = conv(i, x, s)
             if i in pool_after:
                 x = _nchw(F.max_pool2d, x, 3, 2)
     elif model in VGG_STAGES:
         i = 0
         for reps in VGG_STAGES[model]:
             for _ in range(reps):
-                x = F.relu(conv(i, x, specs[i]))
+                x = conv(i, x, specs[i])
                 i += 1
             x = _nchw(F.max_pool2d, x, 2, 2)
     else:  # resnet
-        x = F.relu(conv(0, x, specs[0]))
+        x = conv(0, x, specs[0])
         x = _nchw(F.max_pool2d, x, 3, 2, padding=1)
         i = 1
         for reps in RESNET_BLOCKS[model]:
             for _ in range(reps):
                 sa, sb = specs[i], specs[i + 1]
-                y = F.relu(conv(i, x, sa))
-                y = conv(i + 1, y, sb)
-                if x.shape != y.shape:  # downsample skip: strided 1x1 avg
+                y = conv(i, x, sa)
+                # the skip, added in block b's epilogue: the block's input,
+                # or where b's output (y's map, as b is 3x3 at stride 1, by
+                # sb.co channels) differs, its strided 1x1 average, padded
+                if x.shape != (*y.shape[:3], sb.co):
                     x = _nchw(F.avg_pool2d, x, sa.stride, sa.stride)
-                    x = F.pad(x, (0, y.shape[-1] - x.shape[-1]))
-                x = F.relu(x + y)
+                    x = F.pad(x, (0, sb.co - x.shape[-1]))
+                x = conv(i + 1, y, sb, residual=x.contiguous())
                 i += 2
     x = x.mean(dim=(1, 2))
     return x @ params.fc_w + params.fc_b

@@ -138,3 +138,65 @@ def test_task_extraction_matches_table3():
     tasks = conv_tasks("resnet-18")
     assert abs(network_latency(tasks, {t.name: 1e-3 for t in tasks})
                - 17e-3) < 1e-9
+
+
+def _unfused_apply(net, x, use_kernel):
+    """The forward as separate passes: each conv, then its bias add, its
+    ReLU and ResNet's ``relu(skip + y)``, as ``cnn.apply`` wrote it before
+    the GEMM's epilogue took them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models.specs import RESNET_BLOCKS, VGG_STAGES
+    specs = TC.conv_specs(net.model)
+    nchw = lambda f, t, *a, **k: f(t.permute(0, 3, 1, 2), *a,
+                                   **k).permute(0, 2, 3, 1)
+
+    def conv(i, t):
+        return ops.conv2d(t, net.conv_w[i], specs[i].stride, specs[i].pad,
+                          TG.GemmConfig(), use_kernel) + net.conv_b[i]
+
+    if net.model == "alexnet":
+        for i in range(len(specs)):
+            x = F.relu(conv(i, x))
+            if i in (0, 1, 4):
+                x = nchw(F.max_pool2d, x, 3, 2)
+    elif net.model in VGG_STAGES:
+        i = 0
+        for reps in VGG_STAGES[net.model]:
+            for _ in range(reps):
+                x = F.relu(conv(i, x))
+                i += 1
+            x = nchw(F.max_pool2d, x, 2, 2)
+    else:
+        x = nchw(F.max_pool2d, F.relu(conv(0, x)), 3, 2, padding=1)
+        i = 1
+        for reps in RESNET_BLOCKS[net.model]:
+            for _ in range(reps):
+                y = conv(i + 1, F.relu(conv(i, x)))
+                if x.shape != y.shape:
+                    s = specs[i].stride
+                    x = nchw(F.avg_pool2d, x, s, s)
+                    x = F.pad(x, (0, y.shape[-1] - x.shape[-1]))
+                x = F.relu(x + y)
+                i += 2
+    return x.mean(dim=(1, 2)) @ net.fc_w + net.fc_b
+
+
+@pytest.mark.parametrize("use_kernel", [True, False], ids=["gemm", "ref"])
+@pytest.mark.parametrize("model,hw", [("resnet-18", 32), ("vgg-11", 32),
+                                      ("alexnet", 64)])
+def test_apply_fp32_keeps_the_unfused_bits(model, hw, use_kernel):
+    """In fp32 on the CPU the forward with each conv's bias, ReLU and skip
+    add in the GEMM's epilogue gives the bits of the unfused passes: the
+    same adds in the same order (``relu(x + (acc + b))`` is
+    ``relu((acc + b) + x)``) and a cast that is a no-op; on both paths."""
+    net = TC.params_from_jax(_jax_params(model, seed=5), model, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, hw, hw, 3)).astype(np.float32))
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for b in net.conv_b:  # the reference's biases are zeros
+            b.copy_(torch.randn(b.shape, generator=gen))
+        got = net(x, use_kernel=use_kernel)
+        want = _unfused_apply(net, x, use_kernel)
+    assert torch.equal(got, want)

@@ -157,3 +157,64 @@ def test_cpu_conv_takes_the_explicit_path(dtype):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
         TG.conv(tx, tw, 2, 1, cfg)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False], ids=["gemm", "ref"])
+@pytest.mark.parametrize("epi", ["bias", "bias-relu", "bias-residual-relu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_conv2d_epilogue(dtype, epi, use_kernel):
+    """``conv2d``'s epilogue on both paths.  Through the GEMM (im2col + its
+    plain version on CPU tensors): the GEMM's fp32 output of the same
+    geometry, then ``+ bias``, ``+ residual``, ReLU and one rounding, bit
+    for bit.  The reference path: the plain ops on the reference conv's
+    output, bit for bit; in fp32 both paths keep the unfused composition's
+    bits."""
+    x, w = _xw(3, seed=31, shape=(2, 9, 9, 16), co=24)
+    tx, tw = torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype)
+    gen = torch.Generator().manual_seed(32)
+    kw = dict(bias=torch.randn(24, generator=gen).to(dtype),
+              relu=epi != "bias")
+    if "residual" in epi:
+        kw["residual"] = torch.randn((2, 5, 5, 24), generator=gen).to(dtype)
+    cfg = TG.GemmConfig(32, 32, 64)
+    launches = TG.gemm.launches, TG.gemm.epilogue_launches
+    got = TO.conv2d(tx, tw, 2, 1, cfg, use_kernel, **kw)
+    assert (TG.gemm.launches, TG.gemm.epilogue_launches) == launches
+    if use_kernel:
+        patches, _ = TO.im2col(tx, 3, 3, 2, 1)
+        out = TG.gemm(patches, tw.reshape(-1, 24), cfg,
+                      out_dtype=torch.float32).reshape(2, 5, 5, 24)
+    else:
+        out = TR.conv2d_ref(tx, tw, 2, 1)
+    out = out + kw["bias"]
+    if "residual" in kw:
+        out = out + kw["residual"]
+    want = (torch.relu(out) if kw["relu"] else out).to(dtype)
+    assert got.dtype == dtype and got.shape == (2, 5, 5, 24)
+    assert torch.equal(got, want)
+    if dtype == torch.float32:  # the unfused composition: conv, then ops
+        plain = TO.conv2d(tx, tw, 2, 1, cfg, use_kernel) + kw["bias"]
+        if "residual" in kw:
+            plain = kw["residual"] + plain
+        assert torch.equal(got, torch.relu(plain) if kw["relu"] else plain)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False], ids=["gemm", "ref"])
+@pytest.mark.parametrize("case", ["residual-flat", "residual-nchw",
+                                  "residual-permuted", "bias-dtype"])
+def test_conv2d_rejects_a_wrong_epilogue(case, use_kernel):
+    """A residual must have the conv's NHWC output shape and be contiguous,
+    and bias and residual x's dtype, on either path: no silent reshape or
+    copy."""
+    x, w = _xw(3, seed=33, shape=(1, 6, 6, 8), co=16)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    kw, err = {
+        "residual-flat": (dict(residual=torch.ones(36, 16)), ValueError),
+        "residual-nchw": (dict(residual=torch.ones(1, 16, 6, 6)), ValueError),
+        "residual-permuted": (
+            dict(residual=torch.ones(1, 16, 6, 6).permute(0, 2, 3, 1)),
+            ValueError),
+        "bias-dtype": (dict(bias=torch.ones(16).bfloat16()), TypeError),
+    }[case]
+    with pytest.raises(err):
+        TO.conv2d(tx, tw, 1, 1, use_kernel=use_kernel, **kw)

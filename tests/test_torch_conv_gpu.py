@@ -5,7 +5,10 @@ VGG-16 D and ResNet-18 at the geometries their tuning records give, on
 ResNet-18's convs at batch 8 under every run geometry a tuning can pick,
 and on edge cases (strides, paddings, a 7x7 filter over 8 channels, M
 tails, split-K); the convs the rule leaves out take im2col, and the
-counters say which path ran.  Every test here carries the ``gpu`` marker
+counters say which path ran.  With an output epilogue (bias, bias +
+ReLU, bias + residual + ReLU) the same conv gives, bit for bit, the
+epilogue applied in plain PyTorch to the kernel's own fp32 output of the
+same geometry and rounded once.  Every test here carries the ``gpu`` marker
 and skips where torch sees no CUDA device; the file imports neither jax
 nor the reference package:
 
@@ -93,30 +96,73 @@ def _operands(b, h, w, ci, co, k, seed, x=None):
     return x.bfloat16(), wt.bfloat16()
 
 
-def _explicit(x, wt, stride, pad, cfg):
+def _explicit(x, wt, stride, pad, cfg, out_dtype=None):
     """im2col + the GEMM, the path the implicit mode replaces."""
     kh, kw, ci, co = wt.shape
     patches, (oh, ow) = ops.im2col(x, kh, kw, stride, pad)
-    return TG.gemm(patches, wt.reshape(kh * kw * ci, co),
-                   cfg).reshape(x.shape[0], oh, ow, co)
+    return TG.gemm(patches, wt.reshape(kh * kw * ci, co), cfg,
+                   out_dtype).reshape(x.shape[0], oh, ow, co)
 
 
-def _check(x, wt, stride, pad, cfg):
+# the epilogues a conv is checked with: none (the parent's bits), and
+# those the forward asks for
+EPILOGUES = [None, "bias", "bias-relu", "bias-residual-relu"]
+
+
+def _epilogue(kind, shape, seed):
+    """The conv2d keywords of epilogue ``kind`` for an output of
+    ``shape``: bias and residual bf16 normals, about the conv's scale."""
+    if kind is None:
+        return {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(bias=torch.randn(shape[-1], generator=gen,
+                               device="cuda").bfloat16(),
+              relu=kind != "bias")
+    if "residual" in kind:
+        kw["residual"] = torch.randn(shape, generator=gen,
+                                     device="cuda").bfloat16()
+    return kw
+
+
+def _plain_epilogue(v, kw):
+    """fp32 ``v`` + bias, + residual, ReLU, in plain PyTorch, unrounded."""
+    if "bias" in kw:
+        v = v + kw["bias"].float()
+    if "residual" in kw:
+        v = v + kw["residual"].float()
+    return torch.relu(v) if kw.get("relu") else v
+
+
+def _check(x, wt, stride, pad, cfg, epi=None):
     """conv2d takes the implicit path exactly where the rule holds, counts
-    one launch either way and one implicit launch where it holds, and
-    gives the explicit path's bits, both within bf16's step of the fp32
-    conv."""
+    one launch either way, one implicit launch where it holds and one
+    epilogue launch where ``epi`` asks for one, and gives, bit for bit,
+    the explicit path's bits (no epilogue) or the plain epilogue on the
+    kernel's fp32 output of the same geometry rounded once; both within
+    bf16's step of the fp32 conv with the same epilogue."""
     taken = TG.implicit_ok(x, wt)
+    b, h, w, _ = x.shape
+    kh, kw_, _, co = wt.shape
+    shape = (b, (h + 2 * pad - kh) // stride + 1,
+             (w + 2 * pad - kw_) // stride + 1, co)
+    kw = _epilogue(epi, shape, seed=h + co)
     launches, implicit = TG.gemm.launches, TG.gemm.implicit_launches
+    fused = TG.gemm.epilogue_launches
     with torch.no_grad():
-        got = ops.conv2d(x, wt, stride, pad, cfg)
+        got = ops.conv2d(x, wt, stride, pad, cfg, **kw)
         assert TG.gemm.launches == launches + 1
         assert TG.gemm.implicit_launches == implicit + taken
-        want = _explicit(x, wt, stride, pad, cfg)
+        assert TG.gemm.epilogue_launches == fused + bool(kw)
+        if kw:
+            want = _plain_epilogue(_explicit(x, wt, stride, pad, cfg,
+                                             torch.float32), kw).bfloat16()
+        else:
+            want = _explicit(x, wt, stride, pad, cfg)
         assert TG.gemm.implicit_launches == implicit + taken
-        conv = ref.conv2d_ref(x.float(), wt.float(), stride, pad)
+        conv = _plain_epilogue(ref.conv2d_ref(x.float(), wt.float(), stride,
+                                              pad), kw)
     torch.cuda.synchronize()
-    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.shape == want.shape == shape and got.dtype == torch.bfloat16
     assert torch.equal(got, want)
     err = (got.float() - conv).abs().max() / conv.abs().max()
     assert float(err) <= 1e-2
@@ -124,16 +170,20 @@ def _check(x, wt, stride, pad, cfg):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("epi", EPILOGUES, ids=str)
 @pytest.mark.parametrize("b,h,w,ci,co,k,stride,pad,cfg",
                          _tuned_cases() + _batch8_cases() + EDGE_CASES)
 def test_implicit_conv_equals_im2col_on_card(b, h, w, ci, co, k, stride, pad,
-                                             cfg):
-    """Bit-identical to im2col + the GEMM at the same geometry; every conv
-    with CI and CO multiples of 8 takes the implicit mode (all but the
-    networks' first convs, of 3 channels, and CO 36)."""
+                                             cfg, epi):
+    """Bit-identical to im2col + the GEMM at the same geometry, with each
+    epilogue (on the tile store, split-K's sum, the scalar template of
+    the networks' first convs); every conv with CI and CO multiples of 8
+    takes the implicit mode (all but those first convs, of 3 channels,
+    and CO 36)."""
     require_cuda()
     x, wt = _operands(b, h, w, ci, co, k, seed=h * 31 + ci + co)
-    assert _check(x, wt, stride, pad, cfg) == (ci % 8 == 0 and co % 8 == 0)
+    assert _check(x, wt, stride, pad, cfg, epi) == (ci % 8 == 0
+                                                    and co % 8 == 0)
 
 
 @pytest.mark.gpu
@@ -166,17 +216,20 @@ def test_views_of_x_take_im2col_on_card(layout):
 def test_forward_counts_implicit_launches_on_card(model, convs):
     """A bf16 forward on the card counts one GEMM launch a conv, and an
     implicit launch for every conv but the first (CI 3): the pools and the
-    skips leave each conv's input contiguous."""
+    skips leave each conv's input contiguous; every conv's bias and ReLU,
+    and ResNet's skip adds, ride in its launch's epilogue."""
     require_cuda()
     net = cnn.init_params(0, model, device="cuda").to(torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((2, 32, 32, 3), generator=gen,
                     device="cuda").bfloat16()
     launches, implicit = TG.gemm.launches, TG.gemm.implicit_launches
+    fused = TG.gemm.epilogue_launches
     with torch.no_grad():
         out = net(x)
     torch.cuda.synchronize()
     assert TG.gemm.launches - launches == convs
     assert TG.gemm.implicit_launches - implicit == convs - 1
+    assert TG.gemm.epilogue_launches - fused == convs
     assert out.shape == (2, 1000) and out.dtype == torch.bfloat16
     assert bool(torch.isfinite(out).all())

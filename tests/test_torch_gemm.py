@@ -344,3 +344,99 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):  # no kernel and no silent fallback
         TG.gemm(torch.ones(4, 5, device="meta"),
                 torch.ones(5, 3, device="meta"))
+
+
+def _epilogue_operands(case):
+    """(a, b, config, epilogue kwargs, what C must equal) of one case of
+    :func:`test_plain_epilogue`; a, b fp32 unless the case says."""
+    a, b = _operands(37, 50, 29, seed=11)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    cfg = TG.GemmConfig(16, 32, 16)
+    plain = TG.gemm(ta, tb, cfg)
+    gen = torch.Generator().manual_seed(12)
+    bias = torch.randn(29, generator=gen)
+    res = torch.randn(37, 29, generator=gen)
+    if case == "bias":          # one value a column, broadcast over rows
+        return ta, tb, cfg, dict(bias=bias), plain + bias[None, :]
+    if case == "residual":      # one value an element
+        return ta, tb, cfg, dict(residual=res), plain + res
+    if case == "all":           # bias, then residual, then ReLU
+        return (ta, tb, cfg, dict(bias=bias, residual=res, relu=True),
+                torch.relu((plain + bias) + res))
+    if case == "add-order":
+        # C = 0.75 everywhere, bias 2^24, residual -2^24: in fp32
+        # (0.75 + 2^24) - 2^24 is 0, (0.75 - 2^24) + 2^24 is 1, the exact
+        # sum 0.75; the epilogue adds the bias first
+        big = torch.full((8,), 2.0 ** 24)
+        return (torch.ones(8, 4), torch.full((4, 8), 0.1875), cfg,
+                dict(bias=big, residual=-big.expand(8, 8).contiguous()),
+                torch.zeros(8, 8))
+    if case == "nan-relu":      # a NaN row stays NaN, negatives go to 0
+        ta = ta.clone()
+        ta[3, 7] = float("nan")
+        want = torch.relu(TG.gemm(ta, tb, cfg))
+        assert torch.isnan(want[3]).all() and (want >= 0).sum() > 0
+        return ta, tb, cfg, dict(relu=True), want
+    assert case == "split-k"
+    # bf16 C from 4 K slices: the slices' fp32 sum, then the epilogue,
+    # then one rounding (not a rounding before the epilogue)
+    a, b = _operands(64, 512, 64, seed=13)
+    ta, tb = torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16()
+    cfg = TG.GemmConfig(64, 64, 128)
+    assert TG.legalize(cfg, 64, 64, 512, torch.bfloat16).split_k > 1
+    bias = torch.randn(64, generator=gen).bfloat16()
+    res = torch.randn(64, 64, generator=gen).bfloat16()
+    f32 = TG.gemm(ta, tb, cfg, out_dtype=torch.float32)
+    return (ta, tb, cfg, dict(bias=bias, residual=res, relu=True),
+            torch.relu((f32 + bias.float()) + res.float()).bfloat16())
+
+
+@pytest.mark.parametrize("case", ["bias", "residual", "all", "add-order",
+                                  "nan-relu", "split-k"])
+def test_plain_epilogue(case):
+    """The plain version's epilogue on each tile's fp32 total, before its
+    one rounding: bias per column, residual per element, the two adds in
+    that order, ReLU keeping NaN, split-K's slices summed first.  Bit for
+    bit (NaN in the same places); no launch, so no epilogue launch."""
+    a, b, cfg, epi, want = _epilogue_operands(case)
+    before = TG.gemm.launches, TG.gemm.epilogue_launches
+    got = TG.gemm(a, b, cfg, **epi)
+    assert (TG.gemm.launches, TG.gemm.epilogue_launches) == before
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    geom = TG.RunGeometry(**TG.gemm.last_geometry["run"])
+    assert torch.equal(TG.gemm_plain(a, b, geom, **epi).nan_to_num(),
+                       want.nan_to_num())
+
+
+@pytest.mark.parametrize("case", [
+    "bias-length", "bias-2d", "bias-dtype", "bias-device", "residual-shape",
+    "residual-dtype", "residual-device", "residual-not-contiguous",
+    "bias-not-contiguous"])
+def test_wrapper_rejects_a_wrong_epilogue(case):
+    """The wrapper raises on a bias or residual the kernel does not take:
+    bias (N,), residual (M, N), both contiguous, of C's dtype (bf16 for a
+    bf16 product unless ``out_dtype`` says otherwise) on C's device."""
+    a, b = torch.ones(6, 5), torch.ones(5, 4)
+    bias, res = torch.ones(4), torch.ones(6, 4)
+    kw, err = {
+        "bias-length": (dict(bias=torch.ones(5)), ValueError),
+        "bias-2d": (dict(bias=torch.ones(1, 4)), ValueError),
+        "bias-dtype": (dict(bias=bias.bfloat16()), TypeError),
+        "bias-device": (dict(bias=torch.ones(4, device="meta")), ValueError),
+        "residual-shape": (dict(residual=torch.ones(4, 6)), ValueError),
+        "residual-dtype": (dict(residual=res.double()), TypeError),
+        "residual-device": (dict(residual=torch.ones(6, 4, device="meta")),
+                            ValueError),
+        "residual-not-contiguous": (
+            dict(residual=torch.ones(4, 6).t()), ValueError),
+        "bias-not-contiguous": (dict(bias=torch.ones(8)[::2]), ValueError),
+    }[case]
+    with pytest.raises(err):
+        TG.gemm(a, b, **kw)
+    # the same epilogue is C's: right for an fp32 C, wrong for a bf16 one
+    TG.gemm(a, b, bias=bias, residual=res)
+    with pytest.raises(TypeError):
+        TG.gemm(a.bfloat16(), b.bfloat16(), bias=bias)
+    TG.gemm(a.bfloat16(), b.bfloat16(), out_dtype=torch.float32, bias=bias)

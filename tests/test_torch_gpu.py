@@ -93,6 +93,49 @@ def test_kernel_out_dtype_matches_plain_on_card(src, dst, tol):
         assert _rel_err(got, want) <= tol, ((m, k, n), cfg)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("src,dst", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)],
+    ids=str)
+def test_kernel_epilogue_equals_its_fp32_output_on_card(src, dst):
+    """The output epilogue in every store of C: both kernels' tile stores
+    (fp32 and bf16 C, 16-byte and scalar copies) and the summing kernel's
+    (split-K, fp32 -> bf16; one and four sums a thread, N % 4 != 0 among
+    them).  Bias, bias + ReLU and bias + residual + ReLU give, bit for
+    bit, the kernel's fp32 output of the same geometry with the plain
+    epilogue applied and rounded once to C's dtype; one launch and one
+    epilogue launch a call.  A NaN in A stays NaN through the ReLU."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for (m, k, n), cfg in PAIRS:
+        a = torch.randn(m, k, generator=gen, device="cuda").to(src)
+        b = torch.randn(k, n, generator=gen, device="cuda").to(src)
+        bias = torch.randn(n, generator=gen, device="cuda").to(dst)
+        res = torch.randn(m, n, generator=gen, device="cuda").to(dst)
+        config = TG.GemmConfig(*cfg)
+        f32 = TG.gemm(a, b, config, out_dtype=torch.float32)
+        for kw in (dict(bias=bias), dict(bias=bias, relu=True),
+                   dict(bias=bias, residual=res, relu=True)):
+            launches, fused = TG.gemm.launches, TG.gemm.epilogue_launches
+            got = TG.gemm(a, b, config, out_dtype=dst, **kw)
+            assert TG.gemm.launches == launches + 1
+            assert TG.gemm.epilogue_launches == fused + 1
+            v = f32 + bias.float()
+            if "residual" in kw:
+                v = v + res.float()
+            want = (torch.relu(v) if kw.get("relu") else v).to(dst)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), ((m, k, n), cfg, sorted(kw))
+    a = torch.randn(64, 64, generator=gen, device="cuda").to(src)
+    a[5, 9] = float("nan")
+    got = TG.gemm(a, torch.randn(64, 40, generator=gen, device="cuda").to(src),
+                  out_dtype=dst, relu=True)
+    torch.cuda.synchronize()
+    assert bool(got[5].isnan().all()) and not bool(got[:5].isnan().any())
+    assert bool((got[:5] >= 0).all()) and bool((got[:5] == 0).any())
+
+
 # bf16 on the tensor-core kernel: the 8 ResNet-18 shapes at batch 8 under
 # GemmConfig() (split-K 4-16 on the deep ones; conv1's K 147, the scalar
 # copies), bert-gemm's GEMMs (proj and pool, ffn_up, ffn_down), then
