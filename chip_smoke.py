@@ -242,6 +242,10 @@ it, its launches as the wrappers count them and as ``torch.profiler``
 traces them (MLA decode 27, combine 27, RMSNorm 82, as the eager
 step's), and the activities whose traced counts differ logged;
 ``--moonlight`` runs that phase alone;
+then ``[kimi]``: kimi-linear-48b-a3b's KDA decode kernel held against its
+plain step at 1e-5 and timed alone at the cell's 256 slots of 32 heads
+and at odd batches, beside its plain step and its bound (each fp32 state
+read and written once); ``--kimi`` runs that phase alone;
 then one JSON line with the three kernels (RMSNorm's with its training
 launches; RMSNorm's and flash's with each family phase's launches and
 times; every kernel's with the mesh phases' and ``[drivers]``'
@@ -271,9 +275,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 from _lm_workloads import (  # noqa: E402
     AUDIO_ARCH, AUDIO_TRAIN_BATCH, DRIVER_TRAIN_ARCH, FAMILY_SERVE,
-    FAMILY_TRAIN, GATE_PROMPT, LM_ARCH, LM_GATE_REQUESTS, LM_MAX_LEN,
-    LM_PROMPT, SEED, TRAIN_BATCH, TRAIN_LR, TRAIN_SEQ, family_config,
-    fp32_gate_calls, lm_config, lm_rmsnorm_layouts)
+    FAMILY_TRAIN, GATE_PROMPT, KDA_CASES, LM_ARCH, LM_GATE_REQUESTS,
+    LM_MAX_LEN, LM_PROMPT, SEED, TRAIN_BATCH, TRAIN_LR, TRAIN_SEQ,
+    family_config, fp32_gate_calls, lm_config, lm_rmsnorm_layouts)
 BATCH = 8
 TUNE_BUDGET = 48          # measurements per task (TunerConfig.fast schedule)
 # H100 SXM datasheet peaks (the bound of each GEMM)
@@ -3687,6 +3691,77 @@ def time_graph_step(params, cfg, cache, toks, eager_logits) -> dict:
     return row
 
 
+# [kimi]: kimi-linear-48b-a3b's KDA decode kernel, alone, at the cell's
+# shape (256 slots of 32 heads, one KDA layer's call) and the odd cases of
+# tests/_lm_workloads.py
+def phase_kimi(dev) -> dict:
+    """``[kimi]``: the KDA decode kernel built (its ptxas line logged), then
+    at each of :data:`KDA_CASES` one launch held against its plain step at
+    1e-5 of max (output and state), timed by device_ms beside the plain
+    step and its bound: each state read and written once in fp32, q, k,
+    v, g, the output and beta once (bytes)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import kda_decode as KK
+    t0 = time.perf_counter()
+    _build.build("kda_decode")
+    log(f"[kimi] build kda_decode {time.perf_counter() - t0:.1f} s")
+    for r in _build.ptxas_report("kda_decode"):
+        log(f"[kimi] ptxas {r['kernel']}: {r['registers']} registers, "
+            f"spill stores {r['spill_stores']} B, loads "
+            f"{r['spill_loads']} B")
+    g = torch.Generator(device=dev).manual_seed(SEED + 35)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    rows = []
+    for b, h in KDA_CASES:
+        d = KK.HEAD_DIM
+        q, k, v = rnd(b, h, d), rnd(b, h, d), rnd(b, h, d)
+        gate = -2 * torch.rand((b, h, d), generator=g, device=dev)
+        beta = torch.rand((b, h), generator=g, device=dev)
+        state = rnd(b, h, d, d)
+        plain_state = state.clone()
+        got = KK.kda_recurrence(q, k, v, gate, beta, state, d ** -0.5)
+        want = KK.kda_recurrence_plain(q, k, v, gate, beta, plain_state,
+                                       d ** -0.5)
+        torch.cuda.synchronize()
+        rel, rel_s = rel_err(got, want)[1], rel_err(state, plain_state)[1]
+        check(rel < 1e-5 and rel_s < 1e-5, f"[kimi] KDA decode at {b} x "
+              f"{h}: output {rel:.3e}, state {rel_s:.3e} of max")
+        call = lambda: KK.kda_recurrence(q, k, v, gate, beta, state,
+                                         d ** -0.5)
+        plain = lambda: KK.kda_recurrence_plain(q, k, v, gate, beta,
+                                                plain_state, d ** -0.5)
+        nbytes = 4.0 * b * h * (2 * d * d + 5 * d + 1)
+        row = {"shape": [b, h, d], "ms": device_ms(call),
+               "plain_ms": cuda_ms(plain, reps=3),
+               **bound(7.0 * b * h * d * d / FP32_FLOPS * 1e3,
+                       nbytes / HBM_BYTES_PER_S * 1e3)}
+        rows.append(row)
+        log(f"[kimi] KDA decode {b} slots x {h} heads: {rel:.3e} of max; "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; the "
+            f"kernel at {100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+    return {"kda_decode": rows}
+
+
+def kimi_main() -> int:
+    """``python3 chip_smoke.py --kimi``: the card's line, then ``[kimi]``
+    alone and its result as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs one GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase_card()
+    kimi, kimi_s = timed(lambda: phase_kimi(dev))
+    log(f"[kimi] phase {kimi_s:.1f} s")
+    print(json.dumps({"kimi": kimi}), flush=True)
+    return 0
+
+
 def moonlight_main() -> int:
     """``python3 chip_smoke.py --moonlight``: the card's line, the flash
     and RMSNorm kernels built, then ``[moonlight]`` alone and its result
@@ -3818,6 +3893,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moon, moon_s = timed(lambda: phase_moonlight(dev))
     log(f"[moonlight] phase {moon_s:.1f} s")
+    kimi, kimi_s = timed(lambda: phase_kimi(dev))
+    log(f"[kimi] phase {kimi_s:.1f} s")
 
     # one forward's GEMM work: every shape times the layers that run it
     total = lambda key: sum(r[key] * r["layers"] for r in rows)
@@ -3834,7 +3911,7 @@ def main() -> int:
                     "netopt_deploy": netopt_deploy,
                     "deploy_bf16": deploy16, "gemm_bf16": gemm16,
                     "flash_fp32_gates": flash_fp32,
-                    "moonlight": moon,
+                    "moonlight": moon, "kimi": kimi,
                     "phase_s": {"deploy_bf16": deploy16_s,
                                 "time_bf16": time16_s,
                                 "time_flash_fp32": flash32_s,
@@ -3954,4 +4031,5 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit(flash_fp32_main(sys.argv[2:]) if sys.argv[1:2] == ["--flash-fp32"]
              else moonlight_main() if sys.argv[1:2] == ["--moonlight"]
+             else kimi_main() if sys.argv[1:2] == ["--kimi"]
              else main())

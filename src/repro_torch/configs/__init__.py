@@ -6,7 +6,8 @@ same names and values as the reference's ``repro.configs``, on the port's
 :class:`~repro_torch.models.transformer.ArchConfig` (torch dtypes).  The
 port's model runs every one of them.  :data:`ARCH_NAMES` lists those ten;
 :data:`PORT_ARCH_NAMES` the port's own, which the reference has no
-counterpart of (``moonlight-16b-a3b``); :func:`get_config` resolves
+counterpart of (``moonlight-16b-a3b``, ``kimi-linear-48b-a3b``);
+:func:`get_config` resolves
 either.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ from repro_torch.models.transformer import ArchConfig
 from repro_torch.configs import (  # noqa: E402
     internvl2_26b,
     jamba_1_5_large_398b,
+    kimi_linear_48b_a3b,
     minitron_4b,
     mixtral_8x22b,
     moonlight_16b_a3b,
@@ -44,6 +46,7 @@ _MODULES = {
 
 _PORT_MODULES = {
     "moonlight-16b-a3b": moonlight_16b_a3b,
+    "kimi-linear-48b-a3b": kimi_linear_48b_a3b,
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

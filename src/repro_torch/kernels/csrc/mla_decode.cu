@@ -1,19 +1,26 @@
 // MLA decode attention on the latent cache (DeepSeek-V3's absorbed form),
 // one query token a sequence, bf16 on the tensor cores.
 //
-// For each sequence b and head h (H = 16, one m16 tile of query rows):
+// For each sequence b and head h (H = 16 or 32: one or two m16 tiles of
+// query rows):
 //   s_j = q[b, h, :] . [ckv[b, j, :] | kpe[b, j, :]] * scale, j < len[b]
 //   out[b, h, :] = sum_j softmax(s)_j ckv[b, j, :]
-// q (B, 16, 576) is the absorbed query q_nope W_UK (512) beside the roped
-// q_pe (64); ckv (B, C, 512) and kpe (B, C, 64) are the cache (C its
-// positions, rows contiguous); out (B, 16, 512).  The cache is read once:
-// a tile of BK positions lands in shared memory ([ckv | kpe] a row, by
-// 16-byte cp.async, two stages), S = Q K^T runs on mma.sync m16n8k16 with
-// fp32 sums, the online softmax keeps an fp32 running max and sum (log2
-// units), and P (rounded to bf16, as the flash kernel rounds it) times
-// the tile's ckv part accumulates in fp32.  Four warps a block: each
+// q (B, H, 576) is the absorbed query q_nope W_UK (512) beside the roped
+// (or, under NoPE, unrotated) q_pe (64); ckv (B, C, 512) and kpe (B, C,
+// 64) are the cache (C its positions, rows contiguous); out (B, H, 512).
+// The cache is read once: a tile of BK positions lands in shared memory
+// ([ckv | kpe] a row, by 16-byte cp.async, two stages), S = Q K^T runs
+// on mma.sync m16n8k16 with fp32 sums, the online softmax keeps an fp32
+// running max and sum (log2 units), and P (rounded to bf16, as the flash
+// kernel rounds it) times the tile's ckv part accumulates in fp32.  Four warps a block: each
 // computes the whole 16 x BK S (the K tile is shared; the products are
 // few beside the bytes) and a quarter of the 512 output columns.
+//
+// Heads: a block takes one group of 16 heads, the groups of a sequence
+// side by side on the grid's x axis (block x = b * H / 16 + group), so
+// that at H = 32 the two blocks of a sequence read its tiles together,
+// the second mostly from L2.  At H = 16 block x is b: the launch and
+// every block's work are those of a kernel built for 16 heads alone.
 //
 // KV split: a sequence's T tiles (of its own length) go to its gridDim.y
 // blocks in runs of ceil(T / gridDim.y): block (b, z) walks tiles
@@ -33,7 +40,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kHeads = 16;            // query rows: one m16 tile
+constexpr int kHeads = 16;            // query rows a block: one m16 tile
 constexpr int kLat = 512;             // kv_lora_rank
 constexpr int kRope = 64;             // qk_rope_head_dim
 constexpr int kQK = kLat + kRope;     // 576
@@ -113,14 +120,17 @@ __global__ void __launch_bounds__(kThreads)
 mla_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ckv,
                   const bf16* __restrict__ kpe, const int* __restrict__ lens,
                   bf16* __restrict__ out, float* __restrict__ part_o,
-                  float* __restrict__ part_ml, int C, float scale_log2) {
+                  float* __restrict__ part_ml, int C, int groups,
+                  float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [16][kLD]
   bf16* Ks = Qs + kHeads * kLD;                   // [2][kBK][kLD]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int b = blockIdx.x, z = blockIdx.y, B = gridDim.x;
+  // blk: this block's 16 query rows; b: their sequence; B: blocks a split
+  const int blk = blockIdx.x, z = blockIdx.y, B = gridDim.x;
+  const int b = blk / groups;
   const int len = lens[b];
   const int tiles = (len + kBK - 1) / kBK;
   const int kv_chunk = (tiles + gridDim.y - 1) / gridDim.y;
@@ -137,7 +147,7 @@ mla_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ckv,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   if (t_lo <= t_hi) {
-    const bf16* qb = q + (int64_t)b * kHeads * kQK;
+    const bf16* qb = q + (int64_t)blk * kHeads * kQK;
     constexpr int QCH = kQK / 8;
 #pragma unroll
     for (int i = 0; i < kHeads * QCH / kThreads; ++i) {
@@ -251,7 +261,7 @@ mla_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ckv,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int h = g + 8 * i;
-    const int64_t row = (int64_t)b * kHeads + h;
+    const int64_t row = (int64_t)blk * kHeads + h;
     if (split) {
       float* dst = part_o + ((int64_t)z * B * kHeads + row) * kLat;
 #pragma unroll
@@ -314,31 +324,32 @@ mla_decode_combine_kernel(const float* __restrict__ part_o,
 
 }  // namespace
 
-// q (B, 16, 576), ckv (B, C, 512), kpe (B, C, 64), out (B, 16, 512): bf16,
-// contiguous, 16-byte aligned; lens (B,) int32 in [1, C].  splits > 1
-// needs the workspaces part_o (splits, B, 16, 512) and part_ml (splits, B,
-// 16, 2), fp32.  Returns cudaGetLastError() after the launches, or -1 for
+// q (B, H, 576), ckv (B, C, 512), kpe (B, C, 64), out (B, H, 512): bf16,
+// contiguous, 16-byte aligned; H 16 or 32; lens (B,) int32 in [1, C].
+// splits > 1 needs the workspaces part_o (splits, B, H, 512) and part_ml
+// (splits, B, H, 2), fp32.  Returns cudaGetLastError() after the launches, or -1 for
 // arguments it does not take.
 extern "C" int repro_mla_decode(const void* q, const void* ckv,
                                 const void* kpe, const void* lens, void* out,
                                 int B, int H, int C, float scale,
                                 int splits, void* part_o,
                                 void* part_ml, void* stream) {
-  if (B < 1 || H != kHeads || C < 1 || splits < 1 ||
+  if (B < 1 || (H != kHeads && H != 2 * kHeads) || C < 1 || splits < 1 ||
       (splits > 1 && (!part_o || !part_ml)))
     return -1;
+  const int groups = H / kHeads;
   static const int opt_in = static_cast<int>(cudaFuncSetAttribute(
       mla_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem));
   if (opt_in) return opt_in;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mla_decode_kernel<<<dim3(B, splits), kThreads, kSmem, s>>>(
+  mla_decode_kernel<<<dim3(B * groups, splits), kThreads, kSmem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(ckv),
       static_cast<const bf16*>(kpe), static_cast<const int*>(lens),
       static_cast<bf16*>(out), static_cast<float*>(part_o),
-      static_cast<float*>(part_ml), C, scale * kLog2e);
+      static_cast<float*>(part_ml), C, groups, scale * kLog2e);
   if (splits > 1)
-    mla_decode_combine_kernel<<<B * kHeads, 128, 0, s>>>(
+    mla_decode_combine_kernel<<<B * H, 128, 0, s>>>(
         static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-        static_cast<bf16*>(out), B * kHeads, splits);
+        static_cast<bf16*>(out), B * H, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,8 @@ cache ckv (B, C, R) and kpe (B, C, P), and each sequence's length
 over each sequence's first ``lens[b]`` positions, (B, H, R) in q's dtype.
 
 CUDA tensors go through ``csrc/mla_decode.cu`` or raise: bf16, of
-DeepSeek-V3's widths (H 16, R 512, P 64), contiguous and on 16-byte
+DeepSeek-V3's widths (R 512, P 64) at H 16 (Moonlight's heads) or 32
+(Kimi Linear's: a block a group of 16 heads), contiguous and on 16-byte
 boundaries (:func:`kernel_refusal` names what a call lacks).  The kernel
 reads each position's 576 cache values once (scores and the weighted sum
 from one tile in shared memory) and counts the launch on
@@ -31,7 +32,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEADS, LATENT, ROPE = 16, 512, 64    # the widths the kernel is built for
+HEADS, LATENT, ROPE = (16, 32), 512, 64   # the widths the kernel takes
 BK = 32                              # cache positions a tile
 BLOCKS_PER_SM = 2                    # 93,440 bytes of shared memory each
 WAVES = 2                            # of blocks the split aims to fill
@@ -74,8 +75,8 @@ def kernel_refusal(q, ckv, kpe) -> str:
     if not q.dtype == ckv.dtype == kpe.dtype == torch.bfloat16:
         return (f"the kernel takes bfloat16, got q {q.dtype}, ckv "
                 f"{ckv.dtype}, kpe {kpe.dtype}")
-    if q.shape[1:] != (HEADS, LATENT + ROPE) or ckv.shape[-1] != LATENT \
-            or kpe.shape[-1] != ROPE:
+    if q.shape[1] not in HEADS or q.shape[2] != LATENT + ROPE \
+            or ckv.shape[-1] != LATENT or kpe.shape[-1] != ROPE:
         return (f"the kernel is built for {HEADS} heads, latent {LATENT} "
                 f"and rope {ROPE}, got q {tuple(q.shape)}, ckv "
                 f"{tuple(ckv.shape)}, kpe {tuple(kpe.shape)}")
@@ -107,16 +108,17 @@ def mla_attention(q: torch.Tensor, ckv: torch.Tensor, kpe: torch.Tensor,
         raise ValueError(f"MLA decode kernel: {refusal} (use_kernel=False "
                          f"runs the plain version)")
     splits = kv_split(b, kv_len)[1]
-    out = torch.empty((b, HEADS, LATENT), dtype=q.dtype, device=q.device)
+    h = q.shape[1]
+    out = torch.empty((b, h, LATENT), dtype=q.dtype, device=q.device)
     part_o = part_ml = None
     if splits > 1:
-        part_o = torch.empty((splits, b, HEADS, LATENT), device=q.device)
-        part_ml = torch.empty((splits, b, HEADS, 2), device=q.device)
+        part_o = torch.empty((splits, b, h, LATENT), device=q.device)
+        part_ml = torch.empty((splits, b, h, 2), device=q.device)
     lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
     # the raw current stream, as the RMSNorm wrapper takes it: a Stream
     # object costs microseconds a call, and a step makes one a layer
     args = (q.data_ptr(), ckv.data_ptr(), kpe.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, HEADS, ckv.shape[1], float(scale), splits,
+            out.data_ptr(), b, h, ckv.shape[1], float(scale), splits,
             None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             torch._C._cuda_getCurrentRawStream(q.device.index))

@@ -1,4 +1,4 @@
-"""The MLA decode step replayed as CUDA graphs, one graph a span.
+"""The MLA/KDA decode step replayed as CUDA graphs, one graph a span.
 
 Eagerly, a decode step of an :class:`~repro_torch.models.transformer.
 MLAConfig` model launches ~1,900 kernels (Moonlight's 27 layers), and at
@@ -10,11 +10,12 @@ step runs too) once, a CUDA graph each, and replays them:
   prologue   the token embedding and :func:`repro_torch.models.mla.
              decode_state` (the slots' rows, write positions, lengths and
              rope tables);
-  a layer    one graph for its ``mla`` span and one for its FFN's
-             (``moe``; ``mlp`` on a dense layer), each replayed inside
-             that span of the ambient tracer, so that a profiler puts the
-             graph's kernels under the span (they carry the correlation id
-             of the graph's launch);
+  a layer    one graph for its mixer's span (``mla``, or ``kda``: the
+             conv tails and the KDA decode kernel on the layer's state)
+             and one for its FFN's (``moe``; ``mlp`` on a dense layer),
+             each replayed inside that span of the ambient tracer, so
+             that a profiler puts the graph's kernels under the span
+             (they carry the correlation id of the graph's launch);
   epilogue   the final RMSNorm and the head's logits.
 
 56 graph launches a step for 27 layers.  The graphs read their inputs
@@ -31,16 +32,17 @@ request into the cache and ``pos`` in place, so it needs no new capture.
 What the eager step does on the host besides launching is kept:
 
 * the tracer's counters (``moe.experts_touched``, ``moe.tokens_dropped``,
-  ``mla.cache_tokens``): the capture runs under a tracer of its own, so
-  the counters' device sums are part of the graphs, whatever tracer was
-  on at capture time; after a replay they are added to the ambient
-  tracer's, when one is on;
+  ``moe.pairs_elsewhere``, ``mla.cache_tokens``): the capture runs under
+  a tracer of its own, so the counters' device sums are part of the
+  graphs, whatever tracer was on at capture time; after a replay they
+  are added to the ambient tracer's, when one is on;
 * ``moe.route_log``: the capture logs each router's expert sets into a
   tensor of its graph; after a replay, with the log on, copies are
   appended in layer order;
 * the kernels' launch counts (``mla_attention.launches``,
-  ``rmsnorm.launches``): a replay adds what the capture launched (the
-  graphs' kernels, counted by a profiler on the card, are the same).
+  ``kda_recurrence.launches``, ``rmsnorm.launches``): a replay adds what
+  the capture launched (the graphs' kernels, counted by a profiler on
+  the card, are the same).
 
 :func:`supports` and :meth:`DecodeGraphs.engages` say which steps replay;
 :func:`repro_torch.models.transformer.decode_step` runs the rest eagerly.
@@ -58,6 +60,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import kda_decode as KK
 from repro_torch.kernels import mla_decode as MK
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.models import mla as MLA
@@ -65,17 +68,17 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 
 # the kernels' launch counts that a replay adds to
-_COUNTED = (MK.mla_attention, RN.rmsnorm)
+_COUNTED = (MK.mla_attention, KK.kda_recurrence, RN.rmsnorm)
 
 
 def supports(cfg: T.ArchConfig, device) -> bool:
     """Whether decode steps of ``cfg`` on ``device`` can replay: an
-    MLAConfig whose layers are all ``mla`` mixers with ``moe``/``mlp``
-    FFNs, on CUDA.  Every other stack decodes eagerly: attention reads a
-    host ``kv_len``, sliding windows keep ring state."""
+    MLAConfig whose layers are all ``mla`` or ``kda`` mixers with
+    ``moe``/``mlp`` FFNs, on CUDA.  Every other stack decodes eagerly:
+    attention reads a host ``kv_len``, sliding windows keep ring state."""
     return (isinstance(cfg, T.MLAConfig)
             and torch.device(device).type == "cuda"
-            and all(mixer == "mla" and ffn in ("moe", "mlp")
+            and all(mixer in ("mla", "kda") and ffn in ("moe", "mlp")
                     for mixer, ffn in cfg.layer_kinds()))
 
 
@@ -108,18 +111,32 @@ class DecodeGraphs:
 
     def _segments(self) -> List[Tuple[Optional[str], Callable[[], None]]]:
         """:func:`repro_torch.models.transformer.mla_step_segments` on the
-        cache's tensors at ``kv_len`` the cache's length, passing the step
-        along in ``self._io``."""
+        cache's tensors at ``kv_len`` the latent cache's length, passing
+        the step along in ``self._io``."""
         return T.mla_step_segments(self.params, self.cfg,
                                    {"pos": self.pos, "layers": self.layers},
-                                   self._io, self.layers[0]["ckv"].shape[1])
+                                   self._io, T.latent_len(self.layers))
+
+    def _warm(self, segs) -> None:
+        """Run each segment once, every KDA layer's state and conv tails
+        as they were before it afterwards (segment 1 + 2 l is layer l's
+        mixer)."""
+        for i, (name, fn) in enumerate(segs):
+            entry = self.layers[(i - 1) // 2] if name == "kda" else {}
+            kept = {k: t.clone() for k, t in entry.items()}
+            fn()
+            for k, t in kept.items():
+                entry[k].copy_(t)
+            del kept
 
     def _capture(self, tokens: torch.Tensor) -> None:
         """Warm every segment up on the capture stream (cuBLAS's
         workspace for it, the kernels' one-time set-up; the run writes
-        the cache rows the replay writes again, with the same values),
-        then capture each into the shared pool.  The ambient tracer, the
-        route log and the launch counts see neither."""
+        the MLA cache rows the replay writes again, with the same values;
+        a ``kda`` segment advances its layer's state and conv tails, so
+        they are kept aside around its run and put back), then capture
+        each into the shared pool.  The ambient tracer, the route log and
+        the launch counts see neither."""
         dev = tokens.device
         self._io = {"tokens": tokens.clone()}
         segs = self._segments()
@@ -132,8 +149,7 @@ class DecodeGraphs:
             MOE.route_log = []
             with torch.no_grad(), torch.cuda.stream(stream), \
                     obs.use(obs.Tracer(name="decode-graphs-warmup")):
-                for _, fn in segs:
-                    fn()
+                self._warm(segs)
             tokens = self._io["tokens"]
             self._io.clear()                # the segments hold this dict
             self._io["tokens"] = tokens

@@ -27,7 +27,10 @@ flash kernel rounds P for P V.
 Rope runs on the last ``qk_rope_head_dim`` columns in the half-split
 layout of :func:`repro_torch.models.layers.rope`; DeepSeek's checkpoints
 interleave them, which for drawn weights is a fixed permutation of the
-rope columns of W_q and W_kva.
+rope columns of W_q and W_kva.  Under ``cfg.mla_nope`` (Kimi Linear's
+``mla_use_nope``) those columns stay as they are, in prefill and
+decode alike: q_pe and k_pe are plain projections, and the
+scores still sum over all ``qk_head_dim`` columns.
 
 The cache entry is ``{"ckv": (B, C, r), "kpe": (B, C, d_rope)}``, written
 in place a token a step.  The parts of a layer run under the ambient
@@ -90,8 +93,9 @@ def rope_tables(positions: torch.Tensor, cfg
 def _project(x: torch.Tensor, p: Params, cfg, tables, use_kernel: bool):
     """The input norm and the projections of x (B, S, D): q_nope (B, S,
     H, nope), q_pe roped (B, S, H, rope), c_kv normed (B, S, r), k_pe
-    roped (B, S, rope); ``tables``: :func:`rope_tables` at x's positions.
-    q_pe and k_pe are roped as one tensor of H + 1 heads."""
+    roped (B, S, rope); ``tables``: :func:`rope_tables` at x's positions,
+    or None under NoPE (no rotation).  q_pe and k_pe are roped as one
+    tensor of H + 1 heads."""
     b, s, _ = x.shape
     hn, r = cfg.n_heads, cfg.kv_lora_rank
     h = L.rmsnorm(x, p["ln"], cfg.rms_norm_eps, use_kernel=use_kernel)
@@ -99,8 +103,10 @@ def _project(x: torch.Tensor, p: Params, cfg, tables, use_kernel: bool):
     kva = L.dense(h, p["wkv_a"])
     ckv = L.rmsnorm(kva[..., :r], p["kv_ln"], cfg.rms_norm_eps,
                     use_kernel=use_kernel)
-    pe = L.apply_rope(torch.cat([q[..., cfg.qk_nope_head_dim:],
-                                 kva[..., None, r:]], dim=2), *tables)
+    pe = torch.cat([q[..., cfg.qk_nope_head_dim:], kva[..., None, r:]],
+                   dim=2)
+    if tables is not None:
+        pe = L.apply_rope(pe, *tables)
     return q[..., :cfg.qk_nope_head_dim], pe[:, :, :hn], ckv, pe[:, :, hn]
 
 
@@ -111,8 +117,8 @@ def mla_block(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
     output, c_kv (B, S, r), k_pe (B, S, rope)): the latent cache."""
     b, s, _ = x.shape
     hn, nope, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
-    q_nope, q_pe, ckv, k_pe = _project(x, p, cfg, rope_tables(positions, cfg),
-                                       use_kernel)
+    tables = None if cfg.mla_nope else rope_tables(positions, cfg)
+    q_nope, q_pe, ckv, k_pe = _project(x, p, cfg, tables, use_kernel)
     kv = L.dense(ckv, p["wkv_b"]).view(b, s, hn, nope + vd)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([kv[..., :nope],
@@ -136,11 +142,13 @@ def absorbed_weights(p: Params, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
 def decode_state(pos: torch.Tensor, cache_len: int, cfg) -> Params:
     """What every MLA layer of one decode step shares: the slots' rows,
     their write positions (``pos`` clamped into the cache), the positions
-    each attends over (int32), and :func:`rope_tables` at ``pos``."""
+    each attends over (int32), and :func:`rope_tables` at ``pos`` (None
+    under NoPE)."""
     at = pos.long().clamp(0, cache_len - 1)
     return {"rows": torch.arange(pos.shape[0], device=pos.device), "at": at,
             "lens": (at + 1).to(torch.int32),
-            "tables": rope_tables(pos.view(-1, 1), cfg)}
+            "tables": None if cfg.mla_nope
+            else rope_tables(pos.view(-1, 1), cfg)}
 
 
 def mla_decode(x: torch.Tensor, p: Params, cfg, entry: Params,

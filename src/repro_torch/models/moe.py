@@ -32,6 +32,16 @@ weighted.  With the ambient ``repro_torch.obs`` tracer on, ``grouped``
 counts ``moe.experts_touched`` (experts with a row, a layer a call) and
 ``moe.tokens_dropped`` (pairs that reached no expert's group: 0), as
 device scalars that a reader turns into numbers after a synchronize.
+
+The expert share of expert parallelism (``cfg.n_experts_held`` of the
+router's ``n_experts``, from ``cfg.experts_held_from``): the layer holds
+only those experts' weights, (n_held, ...), routes over all the experts,
+and computes the part of the routed sum that its own experts give, the
+pairs routed to the others left out (no code stands in for the chips
+that hold them); the shared expert runs whole.  ``grouped`` then counts
+``moe.pairs_elsewhere`` (pairs routed to an expert not held), and
+``moe.tokens_dropped`` counts held pairs that reached no group.  Where
+every expert is held the dispatch is the one above, launch for launch.
 """
 from __future__ import annotations
 
@@ -67,16 +77,19 @@ def _experts(gen: torch.Generator, n: int, shape, fan_in: int, dtype,
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
-             dtype, device) -> Params:
+             dtype, device, n_held=None) -> Params:
+    """The router over ``n_experts`` and the weights of ``n_held`` of
+    them (default all)."""
+    held = n_held or n_experts
     return {
         "ln": torch.ones((d_model,), dtype=dtype, device=device),
         "router": _winit(gen, (d_model, n_experts), d_model, torch.float32,
                          device),
-        "w_gate": _experts(gen, n_experts, (d_model, d_ff), d_model, dtype,
+        "w_gate": _experts(gen, held, (d_model, d_ff), d_model, dtype,
                            device),
-        "w_up": _experts(gen, n_experts, (d_model, d_ff), d_model, dtype,
+        "w_up": _experts(gen, held, (d_model, d_ff), d_model, dtype,
                          device),
-        "w_down": _experts(gen, n_experts, (d_ff, d_model), d_ff, dtype,
+        "w_down": _experts(gen, held, (d_ff, d_model), d_ff, dtype,
                            device),
     }
 
@@ -236,39 +249,55 @@ def _grouped_mm(xs: torch.Tensor, w: torch.Tensor,
 
 
 def experts_grouped(h: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-                    p: Params) -> torch.Tensor:
+                    p: Params, first: int = 0) -> torch.Tensor:
     """The routed experts' output (N, D) for tokens h (N, D), dropless:
     the N k token-expert pairs sorted by expert, one group an expert, each
     token's k outputs summed with its weights w (N, k) in fp32.  The
     groups' ends come from a search of the sorted experts, on the device
     (``bincount`` would read its input's largest value on the host, a
-    synchronization a layer)."""
+    synchronization a layer).  Where the layer holds fewer experts than
+    its router scores (the share from expert ``first``), a pair routed
+    elsewhere sorts after every held group and adds nothing."""
     n, k = idx.shape
     e = p["w_gate"].shape[0]
-    experts, order = idx.reshape(-1).sort(stable=True)
+    share = e != p["router"].shape[-1]
+    if share:
+        local = idx.reshape(-1) - first
+        experts, order = torch.where((local >= 0) & (local < e), local,
+                                     e).sort(stable=True)
+    else:
+        experts, order = idx.reshape(-1).sort(stable=True)
     offs = torch.searchsorted(experts, torch.arange(e, device=idx.device),
                               right=True, out_int32=True)
     xs = h[order // k]
     y = _grouped_mm(F.silu(_grouped_mm(xs, p["w_gate"], offs))
                     * _grouped_mm(xs, p["w_up"], offs), p["w_down"], offs)
+    if share:   # rows past the held groups: no product wrote them
+        y = torch.where((experts < e)[:, None], y, 0.0)
     out = (y[order.argsort()].view(n, k, -1).float()
            * w[..., None]).sum(dim=1)
     tr = obs.current()
     if tr.enabled:
         rows = torch.diff(offs, prepend=offs.new_zeros(1))
         tr.metrics.counter("moe.experts_touched").inc((rows > 0).sum())
-        tr.metrics.counter("moe.tokens_dropped").inc(n * k - offs[-1])
+        if share:
+            held = (experts < e).sum()
+            tr.metrics.counter("moe.tokens_dropped").inc(held - offs[-1])
+            tr.metrics.counter("moe.pairs_elsewhere").inc(n * k - held)
+        else:
+            tr.metrics.counter("moe.tokens_dropped").inc(n * k - offs[-1])
     return out.to(h.dtype)
 
 
 def experts_dense(h: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-                  p: Params) -> torch.Tensor:
-    """The same sum with every expert computing every token (exact top-k
-    math: the unchosen experts weigh 0)."""
+                  p: Params, first: int = 0) -> torch.Tensor:
+    """The same sum with every held expert computing every token (exact
+    top-k math: the unchosen experts weigh 0)."""
     dt = h.dtype
     e = p["w_gate"].shape[0]
-    dense_w = torch.zeros(h.shape[:-1] + (e,), device=h.device).scatter(
-        -1, idx, w)
+    dense_w = torch.zeros(h.shape[:-1] + (p["router"].shape[-1],),
+                          device=h.device).scatter(-1, idx, w)
+    dense_w = dense_w[..., first:first + e]
     g = F.silu(torch.einsum("nd,edf->nef", h, p["w_gate"].to(dt)))
     u = torch.einsum("nd,edf->nef", h, p["w_up"].to(dt))
     y = torch.einsum("nef,efd->ned", g * u, p["w_down"].to(dt))
@@ -288,7 +317,7 @@ def moe_deepseek(x: torch.Tensor, p: Params, cfg, use_kernel: bool = True
                 use_kernel=use_kernel).reshape(-1, shape[-1])
     w, idx = route_sigmoid(h, p, cfg)
     experts = experts_grouped if cfg.moe_impl == "grouped" else experts_dense
-    out = experts(h, w, idx, p) + shared_expert(h, p)
+    out = experts(h, w, idx, p, cfg.experts_held_from) + shared_expert(h, p)
     return x + out.reshape(shape), None
 
 

@@ -5,7 +5,8 @@ ten architectures.  An architecture is a period pattern of (mixer, ffn)
 pairs: mixers ``attn``/``swa``/``mamba``/``mlstm``/``slstm``/``none`` and
 FFNs ``mlp``/``moe``/``gelu``/``none`` (``repro_torch.models.moe`` and
 ``repro_torch.models.ssm``); the port's own ``mla`` mixer (DeepSeek-V3's
-multi-head latent attention, ``repro_torch.models.mla``) runs under an
+multi-head latent attention, ``repro_torch.models.mla``) and ``kda`` mixer
+(Kimi Delta Attention, ``repro_torch.models.kda``) run under an
 :class:`MLAConfig`, which the reference has no counterpart of.  Two
 structures sit around the stack:
 
@@ -29,10 +30,12 @@ r of period position p (:func:`params_from_jax` unstacks a reference
 tree that way).  The decode cache is ``{"pos": (B,) int32, "layers":
 [per-layer entry]}``: an attention layer's entry is {"k", "v"}, each
 (B, C, HKV, D); an MLA layer's is its latent cache {"ckv" (B, C,
-kv_lora_rank), "kpe" (B, C, qk_rope_head_dim)}; a recurrent mixer's is its
-state's fields (Mamba {"h", "conv"}, mLSTM {"c", "n", "m"}, sLSTM {"c",
-"n", "m", "h"}), each with the batch on axis 0.  Decode writes it in
-place (the reference donates it to its jitted step instead).
+kv_lora_rank), "kpe" (B, C, qk_rope_head_dim)}; a KDA layer's its state
+{"S" (B, H, d, d) fp32, "conv_q"/"conv_k"/"conv_v" (B, 3, H d)}; a
+recurrent mixer's is its state's fields (Mamba {"h", "conv"}, mLSTM
+{"c", "n", "m"}, sLSTM {"c", "n", "m", "h"}), each with the batch on
+axis 0.  Decode writes it in place (the reference donates it to its
+jitted step instead).
 
 Every RMSNorm goes through the RMSNorm kernel (one a mixer, one a cross
 part and one an FFN that the layer has, the encoder's layers and
@@ -63,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import obs, resolve_device
 from repro_torch.dist import sharding as SH
+from repro_torch.models import kda as KDA
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
@@ -77,7 +81,7 @@ Params = Dict[str, Any]
 set_batch_axes = L.set_batch_axes
 constrain_batch = L.constrain_batch
 
-_MIXERS = ("attn", "swa", "mla", "mamba", "mlstm", "slstm", "none")
+_MIXERS = ("attn", "swa", "mla", "kda", "mamba", "mlstm", "slstm", "none")
 _FFNS = ("mlp", "moe", "gelu", "none")
 # the recurrent mixers: block function and state type
 _RECURRENT = {"mamba": (SSM.mamba_block, SSM.MambaState),
@@ -183,7 +187,19 @@ class MLAConfig(ArchConfig):
     bias (drawn with std ``route_bias_std``), and weighs the chosen scores
     normalised to 1 times ``routed_scaling``.  ``n_kv_heads`` is
     ``n_heads``: every head has its own keys and values, expanded from one
-    latent.  Only the port has it; no reference config instantiates it."""
+    latent.  Only the port has it; no reference config instantiates it.
+
+    Kimi Linear's fields (arXiv:2510.26692): ``layer_mixers``, where not
+    empty, names every layer's mixer in order (``mla`` or ``kda``; a
+    stack whose mixers no period of ``pattern`` gives), the FFNs still
+    from ``pattern`` and ``first_k_dense``; ``mla_nope`` leaves MLA's
+    rope columns unrotated (``mla_use_nope``); ``kda_heads`` heads of
+    ``kda_head_dim`` for the ``kda`` mixer, whose short convolutions have
+    ``kda_conv`` taps and whose decay and output gates a low rank of
+    ``kda_gate_rank``.  The expert share of expert parallelism:
+    ``n_experts_held`` experts from ``experts_held_from`` (0: all
+    ``n_experts``) have weights here; the router scores all
+    ``n_experts``."""
     kv_lora_rank: int = 512
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
@@ -195,15 +211,40 @@ class MLAConfig(ArchConfig):
     routed_scaling: float = 2.446
     route_bias_std: float = 0.05
     rms_norm_eps: float = 1e-5
+    layer_mixers: Tuple[str, ...] = ()
+    mla_nope: bool = False
+    kda_heads: int = 0
+    kda_head_dim: int = 128
+    kda_conv: int = 4
+    kda_gate_rank: int = 128
+    n_experts_held: int = 0
+    experts_held_from: int = 0
+
+    def __post_init__(self) -> None:
+        if self.layer_mixers and len(self.layer_mixers) != self.n_layers:
+            raise ValueError(f"{self.name}: {len(self.layer_mixers)} layer "
+                             f"mixers for {self.n_layers} layers")
+        if not 0 <= self.experts_held_from <= (
+                self.n_experts - self.experts_held):
+            raise ValueError(f"{self.name}: experts {self.experts_held_from}"
+                             f" + {self.experts_held} past the router's "
+                             f"{self.n_experts}")
 
     @property
     def qk_head_dim(self) -> int:
         return self.qk_nope_head_dim + self.qk_rope_head_dim
 
+    @property
+    def experts_held(self) -> int:
+        """Routed experts whose weights this model holds."""
+        return self.n_experts_held or self.n_experts
+
     def layer_kinds(self) -> List[Tuple[str, str]]:
-        return [(self.pattern[i % self.period][0], "mlp")
-                if i < self.first_k_dense else self.pattern[i % self.period]
-                for i in range(self.n_layers)]
+        mixers = self.layer_mixers or [self.pattern[i % self.period][0]
+                                       for i in range(self.n_layers)]
+        return [(m, "mlp" if i < self.first_k_dense
+                 else self.pattern[i % self.period][1])
+                for i, m in enumerate(mixers)]
 
     def ffn_width(self, ffn: str) -> int:
         return self.dense_d_ff if ffn == "mlp" else self.d_ff
@@ -211,9 +252,12 @@ class MLAConfig(ArchConfig):
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``ValueError`` for a block the port does not know."""
-    for mixer, ffn in cfg.pattern:
+    for mixer, ffn in set(cfg.pattern) | set(cfg.layer_kinds()):
         if mixer not in _MIXERS or ffn not in _FFNS:
             raise ValueError(f"{cfg.name}: unknown block ({mixer}, {ffn})")
+        if mixer in ("mla", "kda") and not isinstance(cfg, MLAConfig):
+            raise ValueError(f"{cfg.name}: the {mixer} mixer runs under an "
+                             f"MLAConfig")
 
 
 # --------------------------------------------------------------------- init
@@ -234,6 +278,8 @@ def _init_one_layer(gen: torch.Generator, cfg: ArchConfig, mixer: str,
                                     cfg.qkv_bias, dt, device)
     elif mixer == "mla":
         p["mix"] = MLA.init_mla(gen, cfg, dt, device)
+    elif mixer == "kda":
+        p["mix"] = KDA.init_kda(gen, cfg, dt, device)
     elif mixer == "mamba":
         p["mix"] = SSM.init_mamba(gen, cfg.d_model, cfg.d_state, dtype=dt,
                                   device=device)
@@ -247,7 +293,8 @@ def _init_one_layer(gen: torch.Generator, cfg: ArchConfig, mixer: str,
                                       dt, device)
     if ffn == "moe":
         p["ffn"] = MOE.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
-                                dt, device)
+                                dt, device,
+                                n_held=getattr(cfg, "experts_held", None))
         if cfg.moe_scoring == "sigmoid":
             p["ffn"].update(MOE.init_deepseek_extras(gen, cfg, dt, device))
     elif ffn in ("mlp", "gelu"):
@@ -367,10 +414,14 @@ def _apply_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, positions,
         x, cache["k"], cache["v"] = L.attention_block(
             x, p["mix"], cfg, positions, causal=causal, window=window,
             use_kernel=use_kernel, train=train)
-    elif mixer == "mla":
-        with MLA.span("mla"):
-            x, cache["ckv"], cache["kpe"] = MLA.mla_block(
-                x, p["mix"], cfg, positions, use_kernel=use_kernel)
+    elif mixer in ("mla", "kda"):
+        with MLA.span(mixer):
+            if mixer == "mla":
+                x, cache["ckv"], cache["kpe"] = MLA.mla_block(
+                    x, p["mix"], cfg, positions, use_kernel=use_kernel)
+            else:
+                x, cache = KDA.kda_block(x, p["mix"], cfg,
+                                         use_kernel=use_kernel)
         with MLA.span(ffn):
             x, aux = _ffn(x, p, cfg, ffn, use_kernel)
         return x, aux, cache
@@ -626,6 +677,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             entry["v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
         elif mixer == "mla":
             entry = MLA.init_latent_cache(cfg, batch, max_len, dev)
+        elif mixer == "kda":
+            entry = KDA.init_state(cfg, batch, dev)
         elif mixer == "mamba":            # d_inner: expand 2
             entry = SSM.init_mamba_state(batch, 2 * cfg.d_model, cfg.d_state,
                                          cfg.dtype, device=dev)._asdict()
@@ -646,10 +699,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 def _decode_block(x, p, cfg: ArchConfig, mixer: str, ffn: str, entry, pos,
                   kv_len: int, use_kernel: bool):
-    """One-token block of any mixer but ``mla`` (:func:`mla_step_segments`
-    runs those). x: (B,1,D).  Writes the cache entry (KV or recurrent
-    state) in place and returns x; an encoder-decoder's cross part attends
-    to the entry's ``xk``/``xv`` over all ``enc_seq``.  ``kv_len``: an
+    """One-token block of any mixer but ``mla`` and ``kda``
+    (:func:`mla_step_segments` runs those). x: (B,1,D).  Writes the
+    cache entry (KV or recurrent state) in place and returns x; an
+    encoder-decoder's cross part attends to the entry's ``xk``/``xv``
+    over all ``enc_seq``.  ``kv_len``: an
     upper bound of every slot's cache length (decode attention reads no
     further; the mask hides the rest anyway)."""
     if mixer in ("attn", "swa"):
@@ -691,25 +745,31 @@ def mla_step_segments(params: Params, cfg: ArchConfig, cache: Params,
     (B, V) out.  A prologue (the embedding; :func:`repro_torch.models.
     mla.decode_state` at ``cache["pos"]``: rows, write positions, lengths,
     rope tables), then for each layer its ``mla`` mixer (attention over
-    the first ``kv_len`` positions, each slot's up to its own length) and
-    its FFN, each in a span of its name (another mixer runs as
-    :func:`_decode_block`, FFN included, in no span), then an epilogue
-    (the final RMSNorm, the head).  The cache's layers are written in
-    place; ``cache["pos"]`` is read, never advanced.
+    the first ``kv_len`` positions, each slot's up to its own length) or
+    ``kda`` mixer (:func:`repro_torch.models.kda.kda_decode` on the
+    layer's state) and its FFN, each in a span of its name (another
+    mixer runs as :func:`_decode_block`, FFN included, in no span), then
+    an epilogue (the final RMSNorm, the head).  The cache's layers are
+    written in place; ``cache["pos"]`` is read, never advanced.
 
     :func:`decode_step` runs them eagerly; a server's
     :class:`repro_torch.models.decode_graphs.DecodeGraphs` captures each
     once as a CUDA graph, at ``kv_len`` the cache's length, and replays
     them in their spans."""
     layers, pos = cache["layers"], cache["pos"]
+    cache_len = latent_len(layers)
 
     def prologue():
         io["x"] = embed(params["embed"], io["tokens"], cfg.dtype)
-        io["step"] = MLA.decode_state(pos, layers[0]["ckv"].shape[1], cfg)
+        io["step"] = MLA.decode_state(pos, cache_len, cfg)
 
     def mixer(p, entry):
         io["x"] = MLA.mla_decode(io["x"], p["mix"], cfg, entry, io["step"],
                                  kv_len, use_kernel=use_kernel)
+
+    def kda(p, entry):
+        io["x"] = KDA.kda_decode(io["x"], p["mix"], cfg, entry,
+                                 use_kernel=use_kernel)
 
     def ffn(p, kind):
         io["x"] = _ffn(io["x"], p, cfg, kind, use_kernel)[0]
@@ -726,13 +786,20 @@ def mla_step_segments(params: Params, cfg: ArchConfig, cache: Params,
     segs: List[Tuple[Optional[str], Callable[[], None]]] = [(None, prologue)]
     for p, (kind, ffn_kind), entry in zip(params["layers"], cfg.layer_kinds(),
                                           layers):
-        if kind == "mla":
-            segs += [("mla", functools.partial(mixer, p, entry)),
+        if kind in ("mla", "kda"):
+            segs += [(kind, functools.partial(mixer if kind == "mla" else kda,
+                                              p, entry)),
                      (ffn_kind, functools.partial(ffn, p, ffn_kind))]
         else:
             segs.append((None, functools.partial(block, p, kind, entry,
                                                  ffn_kind)))
     return segs + [(None, epilogue)]
+
+
+def latent_len(layers: List[Params]) -> int:
+    """The positions of the first MLA layer's latent cache among a
+    cache's ``layers``."""
+    return next(e["ckv"].shape[1] for e in layers if "ckv" in e)
 
 
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
@@ -748,13 +815,14 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
 
     ``graphs``: a server's :class:`repro_torch.models.decode_graphs.
     DecodeGraphs` for this cache, or None.  Where it engages (an
-    MLAConfig of ``mla`` layers on CUDA, ``moe.route_replay`` off) and the
-    call leaves ``use_kernel`` and ``kv_len`` at their defaults, the step
-    replays those segments' CUDA graphs instead, at ``kv_len`` the cache's
-    length: then ``pos`` advances in place (the returned cache holds the
-    same tensor), and the logits are the graphs' static buffer,
-    overwritten by the next step.  With ``graphs`` given, the ambient
-    tracer counts ``decode.graph_replays`` or ``decode.eager_steps``."""
+    MLAConfig of ``mla``/``kda`` layers on CUDA, ``moe.route_replay``
+    off) and the call leaves ``use_kernel`` and ``kv_len`` at their
+    defaults, the step replays those segments' CUDA graphs instead, at
+    ``kv_len`` the cache's length: then ``pos`` advances in place (the
+    returned cache holds the same tensor), and the logits are the graphs'
+    static buffer, overwritten by the next step.  With ``graphs`` given,
+    the ambient tracer counts ``decode.graph_replays`` or
+    ``decode.eager_steps``."""
     check_supported(cfg)
     if graphs is not None:
         counter = obs.current().metrics.counter
@@ -788,7 +856,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             ) -> Tuple[torch.Tensor, Params]:
     """Prefill: full forward, build a decode cache padded to ``max_len``.
     Its length and ``pos`` count the vision prefix (P + T); ``xk``/``xv``
-    pass through unpadded."""
+    and a recurrent or KDA layer's state pass through as they are."""
     h, _, caches = hidden_states(params, batch, cfg, use_kernel=use_kernel)
     b, s = h.shape[0], h.shape[1]
     layers = []

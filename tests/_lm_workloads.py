@@ -273,3 +273,20 @@ def fp32_gate_calls() -> collections.Counter:
         prefills(family_config(kind, torch.float32, gate=True),
                  rng.integers(lo, hi + 1, size=LM_GATE_REQUESTS))
     return calls
+# [kimi] and tests/test_torch_kimi_gpu.py: kimi-linear-48b-a3b's KDA decode
+# kernel at the cell's 256 slots of 32 heads (the 20 KDA layers' call) and
+# at odd batches; (slots, heads)
+KIMI_ARCH = "kimi-linear-48b-a3b"
+KDA_CASES = ((256, 32), (37, 32), (3, 5))
+
+
+def kimi_card_config(dtype):
+    """kimi-linear-48b-a3b's reduced block (7 layers: KDA x3, MLA, KDA x2,
+    MLA; 4 of 8 experts held) at the kernels' widths: KDA heads of 128,
+    MLA of 32 heads, latent 512, rope 64."""
+    from repro_torch.configs import get_config
+    return get_config(KIMI_ARCH, reduced=True).with_(
+        d_model=256, d_ff=64, dense_d_ff=512, n_heads=32, n_kv_heads=32,
+        kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, kda_head_dim=128, kda_gate_rank=128, dtype=dtype,
+        param_dtype=dtype)

@@ -32,7 +32,7 @@ def _moonlight(**kw):
 def test_graphs_support_only_mla_configs_on_cuda(name, reduced):
     cfg = get_config(name, reduced=reduced)
     mla = isinstance(cfg, T.MLAConfig)
-    assert mla == (name == "moonlight-16b-a3b")
+    assert mla == (name in ("moonlight-16b-a3b", "kimi-linear-48b-a3b"))
     assert DG.supports(cfg, torch.device("cuda")) == mla
     assert DG.supports(cfg, "cuda:0") == mla
     assert not DG.supports(cfg, "cpu")
@@ -47,6 +47,9 @@ def test_graphs_support_only_mla_configs_on_cuda(name, reduced):
     ((("mla", "none"),), 0, False),
     ((("mla", "moe"), ("attn", "moe")), 1, False),
     ((("mla", "moe"), ("mamba", "none")), 1, False),
+    ((("kda", "moe"), ("mla", "moe")), 1, True),    # Kimi Linear's kinds
+    ((("kda", "mlp"),), 0, True),
+    ((("kda", "gelu"),), 0, False),
 ])
 def test_graphs_support_mla_mixers_with_moe_or_mlp(pattern, first_dense,
                                                    want):
@@ -177,3 +180,68 @@ def test_segments_in_order_are_the_eager_step_at_the_cache_length(dtype):
     assert sorted(got) == sorted(want) == [
         "mla.cache_tokens", "moe.experts_touched", "moe.tokens_dropped"]
     assert all(float(got[k]) == float(want[k]) for k in got)
+
+
+def test_kimi_segments_are_the_eager_step_at_the_cache_length():
+    """Kimi Linear's reduced stack (KDA and MLA layers, the expert share):
+    a ``kda`` segment and an FFN segment a KDA layer, ``mla`` and FFN an
+    MLA layer; two steps of the segments run in order against
+    ``decode_step(kv_len=max_len)`` on a copy of the cache: the same
+    logits and cache (KDA's state and conv tails too), bit for bit, and
+    the same counters, the pairs routed off the chip among them."""
+    cfg = get_config("kimi-linear-48b-a3b", reduced=True).with_(
+        dtype=torch.float32, param_dtype=torch.float32)
+    params = T.init_params(6, cfg, device="cpu")
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 9)))
+    _, cache = T.prefill(params, {"tokens": toks}, cfg, max_len=24)
+    want_cache = _clone(cache)
+    g = DG.DecodeGraphs(params, cfg, cache)
+    segs = g._segments()
+    assert [n for n, _ in segs] == (
+        [None] + [x for m, f in cfg.layer_kinds() for x in (m, f)] + [None])
+    got_t, want_t = obs.Tracer(), obs.Tracer()
+    for _ in range(2):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)),
+                                 dtype=torch.int32)
+        with obs.use(want_t):
+            want, want_cache = T.decode_step(params, want_cache, tokens, cfg,
+                                             kv_len=24)
+        g._io["tokens"] = tokens
+        with obs.use(got_t):
+            for _, fn in segs:
+                fn()
+        g.pos.add_(1)
+        assert torch.equal(g._io["logits"], want)
+        for e, w in zip(g.layers, want_cache["layers"]):
+            assert all(torch.equal(e[k], w[k]) for k in e)
+    got, want = (t.metrics.snapshot()["counters"] for t in (got_t, want_t))
+    assert sorted(got) == sorted(want) == [
+        "mla.cache_tokens", "moe.experts_touched", "moe.pairs_elsewhere",
+        "moe.tokens_dropped"]
+    assert all(float(got[k]) == float(want[k]) for k in got)
+
+
+def test_warm_up_leaves_kda_state_as_it_was():
+    """The capture's warm-up run of every segment: each KDA layer's state
+    and conv tails as before it (a replay advances them once), the MLA
+    layers' rows at the slots' positions written (the replay writes the
+    same values)."""
+    cfg = get_config("kimi-linear-48b-a3b", reduced=True).with_(
+        dtype=torch.float32, param_dtype=torch.float32)
+    params = T.init_params(8, cfg, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (2, 9)))
+    _, cache = T.prefill(params, {"tokens": toks}, cfg, max_len=24)
+    before = _clone(cache)
+    g = DG.DecodeGraphs(params, cfg, cache)
+    g._io["tokens"] = torch.tensor([[3], [4]], dtype=torch.int32)
+    g._warm(g._segments())
+    for (mixer, _), e, w in zip(cfg.layer_kinds(), g.layers,
+                                before["layers"]):
+        if mixer == "kda":
+            assert all(torch.equal(e[k], w[k]) for k in e)
+        else:
+            assert not torch.equal(e["ckv"][:, 9], w["ckv"][:, 9])
+            assert torch.equal(e["ckv"][:, :9], w["ckv"][:, :9])
+    assert torch.equal(g.pos, before["pos"])
